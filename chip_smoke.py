@@ -1,0 +1,422 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``hmm_layer_torch``) on one GPU.
+
+Run from the root of the repository: ``python3 chip_smoke.py``. It needs
+one CUDA device and ``nvcc``, builds the kernels from ``hmm_layer_torch/
+csrc`` and imports nothing of JAX. Phases, each printed as it ends:
+
+1. Device: the card's name and power limit (``nvidia-smi``); full float32
+   matmuls (no TF32).
+2. Build: compiles the kernels (``nvcc``, ``sm_90a``) and reports seconds.
+3. Kernels: K1–K3 against their plain PyTorch versions on the card, at the
+   shapes the flagship request gives them (gene-pred model, q=15, b=32,
+   L=9999, parallel_factor "auto" = 33: c=303, R=1056); median time over
+   20 samples (CUDA events), the plain version's time and the bound.
+4. End to end: ``HMMLayer`` serves 3 requests of b=32, L=9999 through
+   ``state_posterior_log_probs`` and ``log_likelihood``; the launch counts
+   of that run, the checks (normalised posteriors, finite logliks, the
+   same layer's plain path on the card, the sequential recursion on a
+   small input) and ms/batch.
+5. Where the time goes: the request split into its stages (host clock
+   around each, synchronised), and ``torch.profiler``'s device busy time.
+
+The second-to-last line is the JSON record of the kernels; the last line is
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+CODONS = dict(
+    start_codons=[("ATG", 1.0)],
+    stop_codons=[("TAG", 0.34), ("TAA", 0.33), ("TGA", 0.33)],
+    intron_begin_pattern=[("NGT", 0.99), ("NGC", 0.005), ("NAT", 0.005)],
+    intron_end_pattern=[("AGN", 0.99), ("ACN", 0.01)],
+)
+B, L, NUM_CLASSES, SEED = 32, 9999, 15, 0
+N_REQUESTS = 3
+SOURCE = "hmm_layer_torch/csrc/sum_product.cu"
+REPLACES = {
+    "sum_chunk_summaries": "hmm_layer_tpu/ops/pallas_forward.py:112",
+    "sum_fwd_outputs": "hmm_layer_tpu/ops/pallas_forward.py:239",
+    "beta_bwd_outputs": "hmm_layer_tpu/ops/pallas_forward.py:292",
+}
+# Kernel-only launches per request: the posterior runs K1, K2 and K3 once,
+# the log-likelihood K1 once more.
+PER_REQUEST = {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1}
+
+# NVIDIA data-sheet peaks: (memory bytes/s, float32 non-tensor FLOP/s).
+PEAKS = {
+    "SXM": (3.35e12, 67e12),
+    "PCIe": (2.0e12, 51e12),
+    "NVL": (3.9e12, 60e12),
+}
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def peaks_for(name):
+    for key in ("PCIe", "NVL"):
+        if key in name:
+            return key, PEAKS[key]
+    return "SXM", PEAKS["SXM"]
+
+
+def cuda_median_ms(fn, samples=20, reps=1, warmup=2):
+    """Median over ``samples`` of (CUDA-event time of ``reps`` back-to-back
+    calls) / reps, in ms."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(samples):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def within(got, ref, rtol, atol, mask=None):
+    """(max abs error, ok) of ``|got - ref| <= atol + rtol |ref|``."""
+    err = (got - ref).abs()
+    bad = err > atol + rtol * ref.abs()
+    if mask is not None:
+        err, bad = err[mask], bad[mask]
+    return float(err.max()), not bool(bad.any())
+
+
+def f32_log_bound(ll, steps):
+    """Rounding bound for a log value built by a float32 recursion.
+
+    Log alpha and log beta carry a log-scale that sums one ``log z`` per
+    step at the magnitude of the log-likelihood, so each sum rounds at the
+    float32 spacing there. The bound is 8 standard deviations of the sum of
+    ``steps`` such roundings (uniform within half a spacing), for the two
+    directions together. At the flagship (|loglik| ~ 1.1e5, spacing 2^-7,
+    303 steps) it is 0.44 nats; the JAX package's float32 engines drift the
+    same way.
+    """
+    spacing = 2.0 ** (math.floor(math.log2(float(ll.abs().max()))) - 23)
+    return 8.0 * spacing * math.sqrt(2 * steps / 12)
+
+
+def make_inputs(seed, b, length, device):
+    rng = np.random.default_rng(seed)
+    cls = rng.dirichlet(np.ones(NUM_CLASSES), size=(1, b, length)).astype(np.float32)
+    nucs = np.eye(5, dtype=np.float32)[rng.integers(0, 4, size=(1, b, length))]
+    return torch.from_numpy(np.concatenate([cls, nucs], axis=-1)).to(device)
+
+
+def build_layer(HMMLayer, models):
+    layer = HMMLayer(
+        models.GenePredTransitions(),
+        models.GenePredEmissions(**CODONS),
+        use_prior=False,
+        parallel_factor="auto",
+    )
+    gen = torch.Generator().manual_seed(SEED)  # random weights around the default init
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.add_((0.5 * torch.randn(p.shape, generator=gen)).to(p.device))
+    return layer
+
+
+def kernel_phase(layer, X, recursion, cuda_forward, peak_bytes, peak_flops):
+    """K1–K3 against their plain versions at the flagship shapes."""
+    records = {}
+    with torch.inference_mode():
+        init, A = layer.transitions.matrices()
+        A = A.contiguous()
+        E = layer.emission_probs(X)
+        m, b, length, q = E.shape
+        P = recursion.recommended_parallel_factor(length, q, m)
+        E_T = recursion._kernel_chunk_inputs(E, P)
+        c, R = E_T.shape[1], E_T.shape[3]
+        log(f"phase 3 shapes: m={m} q={q} b={b} L={length} P={P} c={c} R={R}")
+
+        # K1, then the real boundary starts of K2/K3 from its plain result.
+        C_plain = cuda_forward.sum_chunk_summaries_plain(A, E_T, P)
+        C_kern = cuda_forward.sum_chunk_summaries(A, E_T, P)
+        mask = C_plain >= C_plain.amax(-1, keepdim=True) - 30.0
+        T, S, _ = recursion._boundary_values(init, C_plain.reshape(m, b, P, q, q).movedim(2, 0))
+        R0_log = recursion._forward_boundary_starts(init, A, T)
+        ll0 = torch.logsumexp(R0_log, -1)
+        r0 = torch.exp(R0_log - ll0[..., None]).transpose(-1, -2).contiguous()
+        S_flat = S.movedim(0, 2).reshape(m, R, q)
+        ll0b = S_flat.amax(-1)
+        beta0 = torch.exp(S_flat - ll0b[..., None]).transpose(-1, -2).contiguous()
+
+        step_ops = (c - 1) * q * (2 * q + 4)  # FMA = 2; clamp, product, sum, divide
+        e_bytes = 4 * m * c * q * R
+        cases = {
+            "sum_chunk_summaries": (
+                lambda: cuda_forward.sum_chunk_summaries(A, E_T, P),
+                lambda: cuda_forward.sum_chunk_summaries_plain(A, E_T, P),
+                (C_kern, C_plain, 1e-5, 1e-3, mask),
+                4 * m * q * q + e_bytes + 4 * m * R * q * q,
+                m * R * q * step_ops,
+            ),
+            "sum_fwd_outputs": (
+                lambda: cuda_forward.sum_fwd_outputs(A, E_T, r0, ll0),
+                lambda: cuda_forward.sum_fwd_outputs_plain(A, E_T, r0, ll0),
+                (cuda_forward.sum_fwd_outputs(A, E_T, r0, ll0),
+                 cuda_forward.sum_fwd_outputs_plain(A, E_T, r0, ll0), 1e-5, 1e-2, None),
+                4 * m * q * q + 2 * e_bytes + 4 * m * (q + 1) * R,
+                m * R * step_ops,
+            ),
+            "beta_bwd_outputs": (
+                lambda: cuda_forward.beta_bwd_outputs(A, E_T, beta0, ll0b),
+                lambda: cuda_forward.beta_bwd_outputs_plain(A, E_T, beta0, ll0b),
+                (cuda_forward.beta_bwd_outputs(A, E_T, beta0, ll0b),
+                 cuda_forward.beta_bwd_outputs_plain(A, E_T, beta0, ll0b), 1e-5, 1e-2, None),
+                4 * m * q * q + 2 * e_bytes + 4 * m * (q + 1) * R,
+                m * R * step_ops,
+            ),
+        }
+        failed = []
+        for name, (kern, plain, (got, ref, rtol, atol, msk), nbytes, nops) in cases.items():
+            torch.cuda.synchronize()
+            err, ok = within(got, ref, rtol, atol, msk)
+            ms = cuda_median_ms(kern, samples=20, reps=10)
+            plain_ms = cuda_median_ms(plain, samples=20, reps=1, warmup=1)
+            bytes_ms, ops_ms = 1e3 * nbytes / peak_bytes, 1e3 * nops / peak_flops
+            records[name] = {
+                "name": name,
+                "route": "cuda",
+                "source": SOURCE,
+                "replaces": REPLACES[name],
+                "max_abs_err": err,
+                "ms": ms,
+                "plain_ms": plain_ms,
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "library_ms": None,
+            }
+            log(f"phase 3 {name}: {'ok' if ok else 'MISMATCH'} max_abs_err={err:.3e} "
+                f"(rtol {rtol}, atol {atol}) kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
+                f"bound {records[name]['bound_ms']:.4f} ms ({records[name]['bound_by']}: "
+                f"{nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP)")
+            if not ok:
+                failed.append(name)
+    if failed:
+        raise AssertionError(f"kernels disagree with their plain versions: {failed}")
+    return records, P
+
+
+def e2e_phase(layer, recursion, cuda_forward, make):
+    requests = [make(SEED + 1 + i, B, L) for i in range(N_REQUESTS)]
+    with torch.inference_mode():
+        layer.state_posterior_log_probs(requests[0])  # warm-up, not counted
+        layer.log_likelihood(requests[0])
+        torch.cuda.synchronize()
+
+        cuda_forward.reset_launches()
+        results, request_ms = [], []
+        for X in requests:
+            t0 = time.perf_counter()
+            lg = layer.state_posterior_log_probs(X)
+            ll = layer.log_likelihood(X)
+            torch.cuda.synchronize()
+            request_ms.append(1e3 * (time.perf_counter() - t0))
+            results.append((lg, ll))
+        launches = dict(cuda_forward.LAUNCHES)
+        log(f"phase 4 launches over {N_REQUESTS} requests: {launches}")
+        expected = {k: N_REQUESTS * v for k, v in PER_REQUEST.items()}
+        if launches != expected:
+            raise AssertionError(f"launch counts {launches}, expected {expected}")
+
+        P = recursion.recommended_parallel_factor(L, 15, 1)
+        for i, (X, (lg, ll)) in enumerate(zip(requests, results)):
+            if tuple(lg.shape) != (1, B, L, 15) or tuple(ll.shape) != (1, B):
+                raise AssertionError(f"request {i}: shapes {tuple(lg.shape)}, {tuple(ll.shape)}")
+            if not (torch.isfinite(lg).all() and torch.isfinite(ll).all()):
+                raise AssertionError(f"request {i}: non-finite output")
+            init, A = layer.transitions.matrices()
+            E = layer.emission_probs(X)
+            lg_p, ll_p = recursion._posterior_chunked_plain(init, A, E, P, False)
+            bound = f32_log_bound(ll, L // P)
+            norm_err = float(torch.logsumexp(lg, -1).abs().max())
+            norm_plain = float(torch.logsumexp(lg_p, -1).abs().max())
+            mass = lg_p.exp() >= 1e-3
+            lg_err, lg_ok = within(lg, lg_p, 0.0, 2 * bound, mask=mass)
+            g_err = float((lg.exp() - lg_p.exp()).abs().max())
+            l_err, l_ok = within(ll, ll_p, 1e-5, 0.0)
+            log(f"phase 4 request {i}: loglik {float(ll.mean()):.2f} mean, vs plain path max abs "
+                f"{l_err:.3e} (rtol 1e-5); |logsumexp(log gamma)| max {norm_err:.3e} (plain path "
+                f"{norm_plain:.3e}; bound {bound:.3f}); log gamma vs plain where gamma >= 1e-3: "
+                f"max abs {lg_err:.3e} (bound {2 * bound:.3f}); gamma vs plain max abs {g_err:.3e}")
+            if norm_err > bound or not lg_ok or not l_ok:
+                raise AssertionError(f"request {i} disagrees with the plain path")
+
+        # Small input against the sequential recursion (no chunks, no kernels).
+        Xs = make(SEED + 99, 2, 600)
+        init, A = layer.transitions.matrices()
+        Es = layer.emission_probs(Xs)
+        P_small = recursion.recommended_parallel_factor(600, 15, 1)
+        lg_k, ll_k = recursion.posterior(init, A, Es, P_small)
+        lg_s, ll_s = recursion.posterior(init, A, Es, 1)
+        bound = f32_log_bound(ll_s, 600 // P_small) + f32_log_bound(ll_s, 600)
+        s_err, s_ok = within(lg_k, lg_s, 0.0, bound, mask=lg_s.exp() >= 1e-3)
+        ll_err, ll_ok = within(ll_k, ll_s, 2e-4, 0.0)
+        log(f"phase 4 small input (b=2, L=600, P={P_small}) vs sequential: log gamma where "
+            f"gamma >= 1e-3 max abs {s_err:.3e} (bound {bound:.3f}), loglik max abs {ll_err:.3e} "
+            f"(rtol 2e-4)")
+        if not (s_ok and ll_ok):
+            raise AssertionError("small input disagrees with the sequential recursion")
+
+        post_ms = []
+        for X in requests * 3:
+            t0 = time.perf_counter()
+            layer.state_posterior_log_probs(X)
+            torch.cuda.synchronize()
+            post_ms.append(1e3 * (time.perf_counter() - t0))
+    return launches, statistics.median(request_ms), statistics.median(post_ms), post_ms
+
+
+def stage_phase(layer, X, recursion, cuda_forward):
+    """One posterior request split into its stages, each synchronised."""
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = stages.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+        return out
+
+    with torch.inference_mode():
+        for _ in range(2):  # second pass is the one kept
+            stages.clear()
+            init, A = timed("transition matrices", layer.transitions.matrices)
+            E = timed("emissions (class einsum + 3-mer codon factor)", lambda: layer.emission_probs(X))
+            m, b, length, q = E.shape
+            P = recursion.recommended_parallel_factor(length, q, m)
+            A = A.contiguous()
+            E_T = timed("layout to (m, c, q, R)", lambda: recursion._kernel_chunk_inputs(E, P))
+            C = timed("K1 sum_chunk_summaries", lambda: recursion._chunk_summaries_kernels(A, E_T, P, b))
+            T, S, ll = timed("boundary fold (P logmatvec steps)", lambda: recursion._boundary_values(init, C))
+
+            def starts():
+                R0_log = recursion._forward_boundary_starts(init, A, T)
+                ll0 = torch.logsumexp(R0_log, -1)
+                r0 = torch.exp(R0_log - ll0[..., None]).transpose(-1, -2).contiguous()
+                S_flat = S.movedim(0, 2).reshape(m, b * P, q)
+                ll0b = S_flat.amax(-1)
+                beta0 = torch.exp(S_flat - ll0b[..., None]).transpose(-1, -2).contiguous()
+                return r0, ll0, beta0, ll0b
+
+            r0, ll0, beta0, ll0b = timed("boundary starts", starts)
+            la = timed("K2 sum_fwd_outputs", lambda: cuda_forward.sum_fwd_outputs(A, E_T, r0, ll0))
+            lb = timed("K3 beta_bwd_outputs", lambda: cuda_forward.beta_bwd_outputs(A, E_T, beta0, ll0b))
+
+            def combine():
+                ll_lane = ll[..., None].expand(m, b, P).reshape(m, b * P)
+                return recursion._lanes_to_mblq(la + lb - ll_lane[:, None, None, :], b)
+
+            timed("posterior combine + layout to (m, b, L, q)", combine)
+    total = sum(stages.values())
+    for name, ms in stages.items():
+        log(f"phase 5 stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
+    log(f"phase 5 stages total: {total:.3f} ms (synchronised after each stage)")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.inference_mode():
+        layer.state_posterior_log_probs(X)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            layer.state_posterior_log_probs(X)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    def self_device_us(e):  # renamed from self_cuda_time_total in newer torch
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_us = {e.key: self_device_us(e) for e in rows if self_device_us(e) > 0}
+    if not dev_us:
+        log("phase 5 profiler: no device time recorded (device busy share not measured)")
+        return
+    busy_ms = sum(dev_us.values()) / 1e3
+    ours = {k: v for k, v in dev_us.items() if "outputs_kernel" in k or "chunk_summaries_kernel" in k}
+    n_kernels = sum(e.count for e in rows if self_device_us(e) > 0)
+    log(f"phase 5 profiler: one posterior request {wall_ms:.3f} ms wall (profiled), device busy "
+        f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} device kernels; "
+        f"K1-K3 {sum(ours.values()) / 1e3:.3f} ms, other kernels {busy_ms - sum(ours.values()) / 1e3:.3f} ms")
+    for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
+        log(f"phase 5 profiler top: {us / 1e3:.4f} ms  {key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device",
+              file=sys.stderr)
+        return 1
+    try:
+        from hmm_layer_torch import HMMLayer, models
+        from hmm_layer_torch.ops import _cuda_build, cuda_forward, recursion
+    except ImportError as exc:
+        print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
+        return 1
+
+    # 1. Device
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    kind = torch.cuda.get_device_name(0)
+    part, (peak_bytes, peak_flops) = peaks_for(kind)
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must run in full precision (no TF32)")
+    log(f"phase 1 device: {kind} ({smi}); torch {torch.__version__} CUDA {torch.version.cuda}; "
+        f"peaks ({part} data sheet) {peak_bytes / 1e12:.2f} TB/s, {peak_flops / 1e12:.0f} TFLOP/s fp32; "
+        f"float32 matmul precision highest, TF32 off")
+
+    # 2. Build
+    t0 = time.perf_counter()
+    _cuda_build.load()
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s ({_cuda_build.library_path('sum_product').name})")
+
+    device = torch.device("cuda")
+    make = lambda seed, b, length: make_inputs(seed, b, length, device)  # noqa: E731
+    layer = build_layer(HMMLayer, models)
+    X = make(SEED, B, L)
+
+    # 3. Kernels against their plain versions
+    records, P = kernel_phase(layer, X, recursion, cuda_forward, peak_bytes, peak_flops)
+
+    # 4. End to end
+    launches, request_ms, post_ms, post_all = e2e_phase(layer, recursion, cuda_forward, make)
+    log(f"phase 4 e2e: request (posterior + loglik) {request_ms:.3f} ms median; posterior "
+        f"{post_ms:.3f} ms/batch median of {len(post_all)} [{min(post_all):.3f}, {max(post_all):.3f}], "
+        f"{B / (post_ms / 1e3):.1f} seqs/sec (b={B}, L={L}, P={P}) on {smi}")
+
+    # 5. Where the time goes
+    stage_phase(layer, X, recursion, cuda_forward)
+
+    for name, rec in records.items():
+        rec["launches"] = launches[name]
+    print(json.dumps({"kernels": list(records.values())}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,47 @@
+"""hmm_layer_torch — the PyTorch/CUDA port of ``hmm_layer_tpu``.
+
+The JAX package ``hmm_layer_tpu`` is the reference; this package computes
+the same functions with PyTorch on an NVIDIA GPU, and its TPU (Pallas)
+kernels become CUDA C++ kernels written for Hopper (``csrc/``). It imports
+``torch`` and ``numpy`` only — never ``jax`` nor anything of the JAX
+package.
+
+Importing it initialises no CUDA context and compiles nothing: the kernels
+are built by ``nvcc`` at their first launch (:mod:`.ops._cuda_build`), and
+the public names below load their modules on first access.
+
+Every float32 matrix product of the port runs in full IEEE float32 (no
+TF32): the dynamic-programming recursions accumulate rounding linearly in
+the sequence length, so reduced precision shows up as whole nats of
+log-likelihood error.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+import torch
+
+torch.set_float32_matmul_precision("highest")
+
+_EXPORTS = {
+    "HMMLayer": ".layer",
+    "forward": ".ops.recursion",
+    "backward": ".ops.recursion",
+    "posterior": ".ops.recursion",
+    "log_likelihood": ".ops.recursion",
+    "recommended_parallel_factor": ".ops.recursion",
+    "ForwardResult": ".ops.recursion",
+    "load_jax_params": ".convert",
+    "params_from_jax": ".convert",
+}
+
+__all__ = sorted(_EXPORTS) + ["models", "ops"]
+
+
+def __getattr__(name):
+    if name in ("models", "ops"):
+        return importlib.import_module(f".{name}", __name__)
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(_EXPORTS[name], __name__), name)

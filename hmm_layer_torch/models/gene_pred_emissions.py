@@ -1,0 +1,282 @@
+"""Gene-prediction HMM emission models (port of
+``hmm_layer_tpu/models/gene_pred_emissions.py``).
+
+* :class:`SimpleGenePredEmissions` — ``1 + 6·num_copies`` states scored from
+  class predictions, optional shared intron parameters, ``end_hints``
+  border masking.
+* :class:`GenePredEmissions` — ``1 + 14·num_copies`` states: START, STOP,
+  donor and acceptor states multiply their class emissions by fixed
+  codon-probability tables contracted against 3-mer encodings of the
+  nucleotide track.
+
+Not ported yet (they raise ``NotImplementedError``): ``emit_embeddings``,
+``trainable_nucleotides_at_exons`` and ``onehot_lookup_kmers``
+(ROADMAP Queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.kmer import encode_kmer_string, make_k_mers
+from .emission_utils import apply_end_hints
+
+__all__ = [
+    "SimpleGenePredEmissions",
+    "GenePredEmissions",
+    "make_codon_probs",
+    "assert_codons",
+]
+
+
+def _not_ported(option):
+    return NotImplementedError(
+        f"{option} is not ported to hmm_layer_torch yet (ROADMAP Queue 1 item 4)"
+    )
+
+
+def assert_codons(codons):
+    """Raise ``ValueError`` unless ``codons`` is a distribution over triplets."""
+    total = sum(p for _, p in codons)
+    if abs(total - 1.0) >= 1e-6:
+        raise ValueError(f"codon probabilities must sum to 1: {codons}")
+    for triplet, prob in codons:
+        if len(triplet) != 3:
+            raise ValueError(f"triplets must have length 3: {codons}")
+        if not 0.0 <= prob <= 1.0:
+            raise ValueError(f"probabilities must be in [0, 1]: {codons}")
+
+
+def make_codon_probs(codons, pivot_left: bool) -> np.ndarray:
+    """Weighted sum of encoded 3-mers, flattened to (1, 64)."""
+    assert_codons(codons)
+    table = sum(
+        prob * np.asarray(encode_kmer_string(triplet, pivot_left))
+        for triplet, prob in codons
+    )
+    return table.reshape(1, 64)
+
+
+class SimpleGenePredEmissions(nn.Module):
+    """Emissions for the 7-state (per copy) gene grammar.
+
+    State order: ``Ir, I0*c, I1*c, I2*c, E0*c, E1*c, E2*c``.
+
+    The module owns ``emission_kernel`` (m, num_param_states, input_dim):
+    ``init`` as an array gives it (and ``input_dim``) directly; a scalar
+    ``init`` fills it, with ``input_dim`` class channels (default: one per
+    state).
+    """
+
+    states_per_copy = 6
+
+    def __init__(
+        self,
+        num_models: int = 1,
+        num_copies: int = 1,
+        init: float | np.ndarray = 0.0,
+        trainable_emissions: bool = True,
+        emit_embeddings: bool = False,
+        embedding_dim: int | None = None,
+        full_covariance: bool = False,
+        initial_variance: float = 1.0,
+        temperature: float = 1.0,
+        share_intron_parameters: bool = True,
+        input_dim: int | None = None,
+    ):
+        super().__init__()
+        if emit_embeddings:
+            raise _not_ported("emit_embeddings")
+        if embedding_dim is not None:
+            raise ValueError("embedding_dim must be None when emit_embeddings=False")
+        self.num_models = num_models
+        self.num_copies = num_copies
+        self.num_states = 1 + self.states_per_copy * num_copies
+        self.init = init
+        self.trainable_emissions = trainable_emissions
+        self.emit_embeddings = emit_embeddings
+        self.embedding_dim = embedding_dim
+        self.full_covariance = full_covariance
+        self.initial_variance = initial_variance
+        self.temperature = temperature
+        self.share_intron_parameters = share_intron_parameters
+        self.emission_kernel = nn.Parameter(
+            self._initial_kernel(input_dim), requires_grad=trainable_emissions
+        )
+
+    @property
+    def num_param_states(self) -> int:
+        """States carrying their own emission parameters (introns may share)."""
+        shared = 2 * self.num_copies if self.share_intron_parameters else 0
+        return self.num_states - shared
+
+    def _initial_kernel(self, input_dim):
+        if np.isscalar(self.init):
+            dim = self.num_states if input_dim is None else input_dim
+            return torch.full(
+                (self.num_models, self.num_param_states, dim), float(self.init)
+            )
+        kernel = torch.as_tensor(np.asarray(self.init, np.float32))
+        if self.share_intron_parameters and kernel.shape[-2] == self.num_states:
+            # Full-state init with shared introns: keep Ir + the I0 block,
+            # drop the I1/I2 rows the expansion re-derives from I0.
+            c = self.num_copies
+            kernel = torch.cat(
+                [kernel[..., : 1 + c, :], kernel[..., 1 + 3 * c :, :]], dim=-2
+            )
+        return kernel.clone()
+
+    def make_B(self):
+        return torch.softmax(self.emission_kernel, dim=-1)
+
+    def _expand_shared_introns(self, emit):
+        if not self.share_intron_parameters:
+            return emit
+        c = self.num_copies
+        i0 = emit[..., 1 : 1 + c]
+        return torch.cat([emit[..., : 1 + c], i0, i0, emit[..., 1 + c :]], dim=-1)
+
+    def emissions(self, inputs, end_hints=None, training: bool = False):
+        """Per-state emission probabilities (m, b, L, num_states), linear space.
+
+        Args:
+            inputs: (m, b, L, s) class predictions.
+            end_hints: optional border-state masks, (m, b, 2, num_states) or
+                (m, b, P, 2, num_states) (see
+                :func:`~hmm_layer_torch.models.emission_utils.apply_end_hints`).
+        """
+        B = self.make_B()  # (m, q_param, s)
+        emit = torch.matmul(inputs, B.transpose(-1, -2)[:, None])
+        emit = self._expand_shared_introns(emit)
+        return apply_end_hints(emit, end_hints)
+
+    def get_config(self) -> dict:
+        return {
+            "num_models": self.num_models,
+            "num_copies": self.num_copies,
+            "init": self.init if np.isscalar(self.init) else np.asarray(self.init),
+            "trainable_emissions": self.trainable_emissions,
+            "emit_embeddings": self.emit_embeddings,
+            "embedding_dim": self.embedding_dim,
+            "full_covariance": self.full_covariance,
+            "initial_variance": self.initial_variance,
+            "temperature": self.temperature,
+            "share_intron_parameters": self.share_intron_parameters,
+        }
+
+    @classmethod
+    def from_config(cls, config):
+        return cls(**config)
+
+
+class GenePredEmissions(SimpleGenePredEmissions):
+    """15-state (per copy) emissions with codon-pattern constraints.
+
+    State order: ``Ir, I0-2*c, E0-2*c, START*c, EI0-2*c, IE0-2*c, STOP*c``.
+    Inputs carry 5 trailing one-hot ACGTN channels.
+
+    With ``compute_kmers_in_bf16`` the (b, L, 64) 3-mer tensors are built
+    in bfloat16 (exact for one-hot ACGTN inputs, whose 3-mer entries are
+    powers of two) and cast to float32 for the float32 codon contraction,
+    as the JAX package promotes them.
+    """
+
+    states_per_copy = 14
+
+    def __init__(
+        self,
+        start_codons,
+        stop_codons,
+        intron_begin_pattern,
+        intron_end_pattern,
+        l2_lambda: float = 0.01,
+        trainable_nucleotides_at_exons: bool = False,
+        compute_kmers_in_bf16: bool = True,
+        onehot_lookup_kmers: bool = False,
+        **kwargs,
+    ):
+        if trainable_nucleotides_at_exons:
+            raise _not_ported("trainable_nucleotides_at_exons")
+        if onehot_lookup_kmers:
+            raise _not_ported("onehot_lookup_kmers")
+        super().__init__(**kwargs)
+        self.start_codons = start_codons
+        self.stop_codons = stop_codons
+        self.intron_begin_pattern = intron_begin_pattern
+        self.intron_end_pattern = intron_end_pattern
+        self.l2_lambda = l2_lambda
+        self.trainable_nucleotides_at_exons = trainable_nucleotides_at_exons
+        self.compute_kmers_in_bf16 = compute_kmers_in_bf16
+        self.onehot_lookup_kmers = onehot_lookup_kmers
+
+        start = make_codon_probs(start_codons, pivot_left=True)
+        stop = make_codon_probs(stop_codons, pivot_left=False)
+        intron_begin = make_codon_probs(intron_begin_pattern, pivot_left=True)
+        intron_end = make_codon_probs(intron_end_pattern, pivot_left=False)
+        any_codon = make_codon_probs([("NNN", 1.0)], pivot_left=False)
+        not_stop = any_codon * (stop == 0)
+        not_stop = not_stop / not_stop.sum()
+        # Constrained states (the first 1 + 5c states — Ir, introns, E0, E1 —
+        # are unconstrained): E2, START, EI0-2, IE0-2, STOP.
+        left = np.concatenate(
+            [any_codon, start] + [intron_begin] * 3 + [any_codon] * 4, axis=0
+        )
+        right = np.concatenate(
+            [not_stop, any_codon, any_codon, not_stop, any_codon]
+            + [intron_end] * 3
+            + [stop],
+            axis=0,
+        )
+        # (2, 9, 64): pivot side x constrained states x 3-mer classes.
+        self.register_buffer(
+            "codon_probs",
+            torch.from_numpy(np.stack([left, right], axis=0).astype(np.float32)),
+            persistent=False,
+        )
+
+    def emissions(self, inputs, end_hints=None, training: bool = False):
+        """Inputs: (m, b, L, s + 5); the trailing 5 channels are one-hot ACGTN."""
+        nucleotides = inputs[..., -5:]
+        emit = super().emissions(inputs[..., :-5], end_hints=end_hints)
+
+        m, b, L = nucleotides.shape[:3]
+        nuc_flat = nucleotides.reshape(m * b, L, 5)
+        if self.compute_kmers_in_bf16:
+            nuc_flat = nuc_flat.to(torch.bfloat16)
+        factors = []
+        for side, pivot_left in ((0, True), (1, False)):
+            k_mers = make_k_mers(nuc_flat, k=3, pivot_left=pivot_left)
+            k_mers = k_mers.reshape(m, b, L, 64).to(torch.float32)
+            factors.append(torch.matmul(k_mers, self.codon_probs[side].T))
+        codon_factor = factors[0] * factors[1]  # (m, b, L, 9)
+
+        if self.num_copies > 1:
+            codon_factor = codon_factor.repeat_interleave(self.num_copies, dim=-1)
+        unconstrained = torch.full(
+            tuple(codon_factor.shape[:-1]) + (1 + 5 * self.num_copies,),
+            1.0 / 4096.0,
+            dtype=codon_factor.dtype,
+            device=codon_factor.device,
+        )
+        codon_factor = torch.cat([unconstrained, codon_factor], dim=-1)
+        if training:
+            codon_factor = codon_factor + 1e-7
+        return emit * codon_factor
+
+    def get_config(self) -> dict:
+        config = super().get_config()
+        config.update(
+            {
+                "start_codons": self.start_codons,
+                "stop_codons": self.stop_codons,
+                "intron_begin_pattern": self.intron_begin_pattern,
+                "intron_end_pattern": self.intron_end_pattern,
+                "l2_lambda": self.l2_lambda,
+                "trainable_nucleotides_at_exons": self.trainable_nucleotides_at_exons,
+                "compute_kmers_in_bf16": self.compute_kmers_in_bf16,
+                "onehot_lookup_kmers": self.onehot_lookup_kmers,
+            }
+        )
+        return config

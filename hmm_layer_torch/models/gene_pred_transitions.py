@@ -1,0 +1,218 @@
+"""Gene-prediction (Tiberius-style) HMM transition grammars (port of
+``hmm_layer_tpu/models/gene_pred_transitions.py``).
+
+* :class:`SimpleGenePredTransitions` — 7 states ``Ir, I0-2, E0-2``, 15 edges.
+* :class:`GenePredTransitions` — 15 states adding ``START, EI0-2, IE0-2,
+  STOP`` that enforce the gene grammar, 23 edges.
+
+Each module owns its parameters: one logit per allowed edge
+(``transition_kernel``) and the starting-distribution logits
+(``starting_distribution_kernel``). At the defaults (``init_component_sd=0``)
+they are deterministic and equal the JAX package's ``init_params``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from .transition_utils import masked_row_softmax_from_edges
+
+__all__ = ["SimpleGenePredTransitions", "GenePredTransitions"]
+
+
+class SimpleGenePredTransitions(nn.Module):
+    """7-state exon/intron/intergenic grammar.
+
+    State order: ``Ir, I0, I1, I2, E0, E1, E2``.
+
+    Args:
+        generator: draws the ``init_component_sd`` noise of the
+            intergenic out-edges (none is drawn at the default sd of 0).
+    """
+
+    num_states = 7
+    k = 1
+
+    def __init__(
+        self,
+        num_models: int = 1,
+        initial_exon_len: int = 100,
+        initial_intron_len: int = 10000,
+        initial_ir_len: int = 10000,
+        starting_distribution_trainable: bool = True,
+        transitions_trainable: bool = True,
+        init_component_sd: float = 0.0,
+        sparse_forward: bool = False,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__()
+        if sparse_forward:
+            raise NotImplementedError(
+                "sparse_forward needs the sparse edge-list engine, not ported "
+                "yet (ROADMAP Queue 1 item 11)"
+            )
+        self.sparse_forward = sparse_forward
+        self.num_models = num_models
+        self.initial_exon_len = initial_exon_len
+        self.initial_intron_len = initial_intron_len
+        self.initial_ir_len = initial_ir_len
+        self.starting_distribution_trainable = starting_distribution_trainable
+        self.transitions_trainable = transitions_trainable
+        self.init_component_sd = init_component_sd
+        self.indices = self.make_transition_indices()
+        self.num_transitions = len(self.indices)
+        # The edge list on the module's device: no host-to-device copy
+        # (and so no stream sync) when the matrices are built.
+        self.register_buffer(
+            "edge_indices", torch.from_numpy(self.indices), persistent=False
+        )
+        self.transition_kernel = nn.Parameter(
+            torch.from_numpy(self.make_transition_init(generator)),
+            requires_grad=transitions_trainable,
+        )
+        self.starting_distribution_kernel = nn.Parameter(
+            torch.zeros(self.num_states),
+            requires_grad=starting_distribution_trainable,
+        )
+
+    # -- static structure ---------------------------------------------------
+
+    def make_transition_indices(self) -> np.ndarray:
+        """(n_edges, 2) allowed (from, to) pairs."""
+        Ir = 0
+        I = list(range(1, 4))
+        E = list(range(4, 7))
+        edges = [(Ir, Ir), (Ir, E[0]), (E[2], Ir)]
+        for cds in range(3):
+            edges.append((E[cds], E[(cds + 1) % 3]))
+            edges.append((E[cds], I[cds]))
+            edges.append((I[cds], I[cds]))
+            edges.append((I[cds], E[(cds + 1) % 3]))
+        assert len(edges) == 15
+        return np.asarray(edges, np.int64)
+
+    def _is_intergenic_loop(self, e):
+        return e[0] == e[1] == 0
+
+    def _is_intron_loop(self, e):
+        return e[0] == e[1] and 0 < e[0] < 1 + 3 * self.k
+
+    def _is_exon_transition(self, e):
+        off = 1 + 3 * self.k
+        return (
+            off <= e[0] < off + 3 * self.k
+            and e[1] - off == (e[0] - off + self.k) % (3 * self.k)
+        )
+
+    def _is_exon_1_out(self, e):
+        return 1 + 4 * self.k <= e[0] < 1 + 5 * self.k and e[0] != e[1]
+
+    def _is_intergenic_out(self, e):
+        return e[0] == 0 and e[1] != 0
+
+    def make_transition_init(self, generator=None) -> np.ndarray:
+        """Length-geometry logits: loops get logit(1 - 1/len)."""
+
+        def geo(length):
+            p = 1.0 - 1.0 / length
+            return float(-np.log(1.0 / p - 1.0))
+
+        noise = np.zeros(len(self.indices), np.float32)
+        if self.init_component_sd:
+            noise = (
+                torch.randn(len(self.indices), generator=generator)
+                * self.init_component_sd
+            ).numpy()
+        init = []
+        for j, e in enumerate(self.indices):
+            if self._is_intergenic_loop(e):
+                init.append(geo(self.initial_ir_len))
+            elif self._is_intron_loop(e):
+                init.append(geo(self.initial_intron_len))
+            elif self._is_exon_transition(e):
+                init.append(geo(self.initial_exon_len))
+            elif self._is_exon_1_out(e):
+                init.append(float(np.log(0.5)))
+            elif self._is_intergenic_out(e):
+                init.append(float(np.log(1.0 / self.k)) + float(noise[j]))
+            else:
+                init.append(0.0)
+        return np.asarray(init, np.float32)
+
+    # -- matrices -------------------------------------------------------------
+
+    def make_A(self) -> torch.Tensor:
+        """(num_models, q, q) row-stochastic transition matrix."""
+        A = masked_row_softmax_from_edges(
+            self.edge_indices, self.transition_kernel, self.num_states
+        )
+        return A.expand((self.num_models,) + tuple(A.shape))
+
+    def make_initial_distribution(self) -> torch.Tensor:
+        """(num_models, q)."""
+        p = torch.softmax(self.starting_distribution_kernel, dim=-1)
+        return p.expand(self.num_models, self.num_states)
+
+    def matrices(self):
+        """(init (m, q), A (m, q, q))."""
+        return self.make_initial_distribution(), self.make_A()
+
+    def get_config(self) -> dict:
+        return {
+            "num_models": self.num_models,
+            "initial_exon_len": self.initial_exon_len,
+            "initial_intron_len": self.initial_intron_len,
+            "initial_ir_len": self.initial_ir_len,
+            "starting_distribution_trainable": self.starting_distribution_trainable,
+            "transitions_trainable": self.transitions_trainable,
+            "init_component_sd": self.init_component_sd,
+            "sparse_forward": self.sparse_forward,
+        }
+
+    @classmethod
+    def from_config(cls, config):
+        return cls(**config)
+
+
+class GenePredTransitions(SimpleGenePredTransitions):
+    """15-state grammar with START/donor/acceptor/STOP structure states.
+
+    State order: ``Ir, I0-2, E0-2, START, EI0-2, IE0-2, STOP``.
+    """
+
+    num_states = 15
+
+    def __init__(self, use_experimental_prior: bool = False, **kwargs):
+        if use_experimental_prior:
+            raise NotImplementedError(
+                "the experimental Dirichlet transition prior is not ported "
+                "yet (ROADMAP Queue 1 item 4)"
+            )
+        super().__init__(**kwargs)
+        self.use_experimental_prior = use_experimental_prior
+
+    def make_transition_indices(self) -> np.ndarray:
+        Ir = 0
+        I = list(range(1, 4))
+        E = list(range(4, 7))
+        START = 7
+        EI = list(range(8, 11))
+        IE = list(range(11, 14))
+        STOP = 14
+        edges = [(Ir, Ir), (Ir, START), (STOP, Ir), (START, E[1]), (E[1], STOP)]
+        for cds in range(3):
+            edges.append((E[cds], E[(cds + 1) % 3]))
+            edges.append((E[cds], EI[cds]))
+            edges.append((EI[cds], I[cds]))
+            edges.append((I[cds], I[cds]))
+            edges.append((I[cds], IE[cds]))
+            edges.append((IE[cds], E[cds]))
+        assert len(edges) == 23
+        return np.asarray(edges, np.int64)
+
+    def get_config(self) -> dict:
+        config = super().get_config()
+        config["use_experimental_prior"] = self.use_experimental_prior
+        return config

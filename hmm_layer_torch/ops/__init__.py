@@ -1,0 +1,5 @@
+"""Recursions, semiring primitives, k-mers and the CUDA kernels of the port.
+
+Submodules: :mod:`.semiring`, :mod:`.kmer`, :mod:`.recursion`,
+:mod:`.cuda_forward` (kernels K1–K3) and :mod:`._cuda_build` (their build).
+"""

@@ -1,0 +1,134 @@
+"""The port's CUDA kernels K1–K3 on the card: each against its plain
+PyTorch version, the layer's kernel route against its plain route, the
+launch counts and the refusals.
+
+Every test here needs a CUDA device and skips where there is none. The file
+imports no JAX, so it runs where JAX is not installed:
+``python -m pytest --noconftest -q tests/test_torch_cuda.py``.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from hmm_layer_torch import HMMLayer
+from hmm_layer_torch.models import GenePredEmissions, GenePredTransitions
+from hmm_layer_torch.ops import cuda_forward, recursion
+from oracle import random_hmm
+
+pytestmark = pytest.mark.gpu
+
+Q = 15
+CODONS = dict(
+    start_codons=[("ATG", 1.0)],
+    stop_codons=[("TAG", 0.34), ("TAA", 0.33), ("TGA", 0.33)],
+    intron_begin_pattern=[("NGT", 0.99), ("NGC", 0.005), ("NAT", 0.005)],
+    intron_end_pattern=[("AGN", 0.99), ("ACN", 0.01)],
+)
+CASES = [
+    pytest.param(1, 32, 24, 3, False, id="m1-dirichlet"),
+    pytest.param(2, 20, 300, 4, False, id="m2-dirichlet"),
+    pytest.param(1, 303, 1056, 33, True, id="m1-genepred-flagship"),
+    pytest.param(2, 17, 21, 7, True, id="m2-genepred-ragged"),
+]
+
+
+def _f32_log_bound(ll, steps):
+    """8 standard deviations of ``steps`` float32 roundings (half a spacing
+    at |loglik|), for the forward and the backward log-scale together."""
+    spacing = 2.0 ** (math.floor(math.log2(float(ll.abs().max()))) - 23)
+    return 8.0 * spacing * math.sqrt(2 * steps / 12)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    return torch.device("cuda")
+
+
+def _inputs(seed, m, c, R, gene_pred, device):
+    rng = np.random.default_rng(seed)
+    if gene_pred:
+        A = GenePredTransitions().make_A().detach()[0].numpy()
+        A = np.stack([A] * m)
+    else:
+        A = np.stack([random_hmm(rng, Q, 1)[1] for _ in range(m)])
+    E_T = rng.uniform(0.05, 1.0, size=(m, c, Q, R)).astype(np.float32)
+    r0 = rng.dirichlet(np.ones(Q), size=(m, R)).astype(np.float32).transpose(0, 2, 1)
+    ll0 = rng.normal(-50.0, 10.0, size=(m, R)).astype(np.float32)
+    return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device) for x in (A, E_T, r0, ll0)]
+
+
+@pytest.mark.parametrize("m,c,R,P,gene_pred", CASES)
+def test_kernels_match_plain(cuda, m, c, R, P, gene_pred):
+    A, E_T, r0, ll0 = _inputs(0, m, c, R, gene_pred, cuda)
+    C = cuda_forward.sum_chunk_summaries(A, E_T, P)
+    C_ref = cuda_forward.sum_chunk_summaries_plain(A, E_T, P)
+    mask = C_ref >= C_ref.amax(-1, keepdim=True) - 30.0
+    torch.testing.assert_close(C[mask], C_ref[mask], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(
+        cuda_forward.sum_fwd_outputs(A, E_T, r0, ll0),
+        cuda_forward.sum_fwd_outputs_plain(A, E_T, r0, ll0),
+        rtol=1e-5, atol=1e-2,
+    )
+    beta0 = r0 / r0.amax(1, keepdim=True)
+    torch.testing.assert_close(
+        cuda_forward.beta_bwd_outputs(A, E_T, beta0, ll0),
+        cuda_forward.beta_bwd_outputs_plain(A, E_T, beta0, ll0),
+        rtol=1e-5, atol=1e-2,
+    )
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("pf", [8, "auto"])
+def test_layer_kernel_route_matches_plain_route(cuda, pf):
+    layer = HMMLayer(GenePredTransitions(), GenePredEmissions(**CODONS), use_prior=False,
+                     parallel_factor=pf)
+    rng = np.random.default_rng(1)
+    b, L = 3, 1200
+    cls = rng.dirichlet(np.ones(15), size=(1, b, L)).astype(np.float32)
+    nuc = np.eye(5, dtype=np.float32)[rng.integers(0, 4, size=(1, b, L))]
+    X = np.concatenate([cls, nuc], axis=-1)
+    with torch.inference_mode():
+        cuda_forward.reset_launches()
+        lg = layer.state_posterior_log_probs(X)
+        ll = layer.log_likelihood(X)
+        assert cuda_forward.LAUNCHES == {
+            "sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1
+        }
+        init, A = layer.transitions.matrices()
+        E = layer.emission_probs(X)
+        P = layer._pf(E)
+        lg_p, ll_p = recursion._posterior_chunked_plain(init, A, E, P, False)
+        lg_s, ll_s = recursion.posterior(init, A, E, 1)
+    torch.testing.assert_close(lg.exp(), lg_p.exp(), rtol=0, atol=1e-3)
+    torch.testing.assert_close(ll, ll_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(ll, ll_s, rtol=2e-4, atol=0)
+    # Against the sequential engine where the posterior has mass: both carry
+    # float32 log-scales that round at |loglik| ~ 1.3e4 for c and L steps.
+    mass = lg_s.exp() >= 1e-3
+    bound = _f32_log_bound(ll_s, L // P) + _f32_log_bound(ll_s, L)
+    torch.testing.assert_close(lg[mass], lg_s[mass], rtol=0, atol=bound)
+
+
+def test_kernel_route_backward_raises(cuda):
+    init, A = (t.to(cuda) for t in GenePredTransitions().matrices())
+    E = torch.rand((1, 2, 64, Q), device=cuda).requires_grad_()
+    ll = recursion.log_likelihood(init.detach(), A.detach(), E, parallel_factor=4)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        ll.sum().backward()
+
+
+def test_kernel_refuses_what_it_cannot_take(cuda):
+    A, E_T, r0, ll0 = _inputs(2, 1, 8, 40, False, cuda)
+    with pytest.raises(ValueError, match="q <= 16"):
+        cuda_forward.sum_chunk_summaries(
+            torch.ones((1, 17, 17), device=cuda), torch.ones((1, 8, 17, 40), device=cuda), 2
+        )
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_forward.sum_fwd_outputs(A, E_T, r0.transpose(1, 2).contiguous().transpose(1, 2), ll0)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_forward.beta_bwd_outputs(A, E_T.double(), r0, ll0)

@@ -1,0 +1,132 @@
+"""The port's HMMLayer end to end against the JAX HMMLayer on the same
+converted parameters: emission scoring, posterior, log-likelihood and the
+forward/backward recursions of the flagship gene-pred model."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from hmm_layer_tpu.layer import HMMLayer as JaxHMMLayer
+from hmm_layer_tpu.models import GenePredEmissions as JaxEmissions
+from hmm_layer_tpu.models import GenePredTransitions as JaxTransitions
+from hmm_layer_torch import HMMLayer, load_jax_params, params_from_jax
+from hmm_layer_torch.models import GenePredEmissions, GenePredTransitions
+
+CODONS = dict(
+    start_codons=[("ATG", 1.0)],
+    stop_codons=[("TAG", 0.34), ("TAA", 0.33), ("TGA", 0.33)],
+    intron_begin_pattern=[("NGT", 0.99), ("NGC", 0.005), ("NAT", 0.005)],
+    intron_end_pattern=[("AGN", 0.99), ("ACN", 0.01)],
+)
+B, L = 2, 64
+
+
+def _inputs(seed, b=B, L=L):
+    rng = np.random.default_rng(seed)
+    cls = rng.dirichlet(np.ones(15), size=(1, b, L)).astype(np.float32)
+    nuc = np.eye(5, dtype=np.float32)[rng.integers(0, 5, size=(1, b, L))]
+    return np.concatenate([cls, nuc], axis=-1)
+
+
+def _layers(pf, trained=True):
+    """The JAX layer with its params, and the port's layer holding the same
+    params (random ones when ``trained``, the default init otherwise)."""
+    jl = JaxHMMLayer(JaxTransitions(), JaxEmissions(**CODONS), use_prior=False, parallel_factor=pf)
+    params = jax.device_get(jl.init_params(jax.random.PRNGKey(0), 15))
+    if trained:
+        rng = np.random.default_rng(1)
+        params = jax.tree.map(
+            lambda x: np.asarray(x) + rng.normal(0, 0.5, size=np.shape(x)).astype(np.float32),
+            params,
+        )
+    tl = HMMLayer(
+        GenePredTransitions(), GenePredEmissions(**CODONS), use_prior=False,
+        parallel_factor=pf, device="cpu",
+    )
+    load_jax_params(tl, params)
+    return jl, params, tl
+
+
+@pytest.mark.parametrize("pf", [1, 4, "auto"])
+def test_posterior_and_loglik_match_jax(pf):
+    jl, params, tl = _layers(pf)
+    X = _inputs(0)
+    lg_j = np.asarray(jl.state_posterior_log_probs(params, jnp.asarray(X)))
+    ll_j = np.asarray(jl.log_likelihood(params, jnp.asarray(X)))
+    with torch.no_grad():
+        lg_t = tl.state_posterior_log_probs(X).numpy()
+        ll_t = tl.log_likelihood(X).numpy()
+    np.testing.assert_allclose(ll_t, ll_j, rtol=2e-4)
+    np.testing.assert_allclose(lg_t, lg_j, rtol=1e-3, atol=2e-3)
+    np.testing.assert_allclose(
+        torch.logsumexp(torch.from_numpy(lg_t), -1).numpy(), 0.0, atol=1e-3
+    )
+
+
+def test_flagship_entry_shape_matches_jax():
+    """``__graft_entry__.entry()``'s posterior decode: b=4, L=512, pf=8."""
+    jl, params, tl = _layers(8, trained=False)
+    X = _inputs(2, b=4, L=512)
+    lg_j = np.asarray(jl.state_posterior_log_probs(params, jnp.asarray(X)))
+    with torch.no_grad():
+        lg_t = tl.state_posterior_log_probs(X).numpy()
+    np.testing.assert_allclose(lg_t, lg_j, rtol=1e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("pf", [1, 8])
+def test_recursions_no_loglik_and_end_hints_match_jax(pf):
+    jl, params, tl = _layers(pf)
+    X = _inputs(3)
+    hints = np.random.default_rng(4).uniform(0.1, 1, size=(1, B, 2, 15)).astype(np.float32)
+    Xj, hj = jnp.asarray(X), jnp.asarray(hints)
+    with torch.no_grad():
+        la_t, ll_t = tl.forward_recursion(X, end_hints=hints)
+        lb_t = tl.backward_recursion(X, end_hints=hints)
+        lg_t = tl.state_posterior_log_probs(X, end_hints=hints, no_loglik=True)
+        E_t = tl.emission_probs(X, end_hints=hints, training=True)
+    la_j, ll_j = jl.forward_recursion(params, Xj, end_hints=hj)
+    lb_j = jl.backward_recursion(params, Xj, end_hints=hj)
+    lg_j = jl.state_posterior_log_probs(params, Xj, end_hints=hj, no_loglik=True)
+    E_j = jl.emission_probs(params, Xj, end_hints=hj, training=True)
+    np.testing.assert_allclose(E_t.numpy(), np.asarray(E_j), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(ll_t.numpy(), np.asarray(ll_j), rtol=2e-4)
+    for got, ref in ((la_t, la_j), (lb_t, lb_j), (lg_t, lg_j)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-3, atol=2e-3)
+
+
+def test_default_init_equals_jax_init():
+    jl = JaxHMMLayer(JaxTransitions(), JaxEmissions(**CODONS), use_prior=False)
+    params = jax.device_get(jl.init_params(jax.random.PRNGKey(0), 15))
+    tl = HMMLayer(GenePredTransitions(), GenePredEmissions(**CODONS), use_prior=False, device="cpu")
+    converted = params_from_jax(params)
+    state = tl.state_dict()
+    assert sorted(state) == sorted(converted)
+    for name, value in converted.items():
+        torch.testing.assert_close(state[name], value, rtol=0, atol=0)
+    assert tl.get_config() == jl.get_config()
+
+
+def test_gradients_flow_through_cpu_plain_path():
+    _, _, tl = _layers(4)
+    tl.log_likelihood(_inputs(5)).sum().backward()
+    for name, p in tl.named_parameters():
+        assert p.grad is not None and torch.isfinite(p.grad).all(), name
+
+
+def test_default_device_raises_without_gpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        HMMLayer(GenePredTransitions(), GenePredEmissions(**CODONS))
+
+
+def test_bad_parallel_factor_raises():
+    with pytest.raises(ValueError, match="parallel_factor"):
+        HMMLayer(GenePredTransitions(), GenePredEmissions(**CODONS), parallel_factor=0, device="cpu")
+
+
+def test_inputs_follow_the_layer_device():
+    _, _, tl = _layers(4)
+    out = tl.log_likelihood(torch.from_numpy(_inputs(6)).double())
+    assert out.dtype == torch.float32 and out.device == tl.device
