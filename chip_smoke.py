@@ -7,11 +7,13 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
 
 1. Device: the card's name and power limit (``nvidia-smi``); full float32
    matmuls (no TF32).
-2. Build: compiles the kernels (``nvcc``, ``sm_90a``) and reports seconds.
-3. Kernels: K1–K3 against their plain PyTorch versions on the card, at the
-   shapes the flagship request gives them (gene-pred model, q=15, b=32,
-   L=9999, parallel_factor "auto" = 33: c=303, R=1056); median time over
-   20 samples (CUDA events), the plain version's time and the bound.
+2. Build: compiles the kernel sources (one ``nvcc`` each, ``sm_90a``, all
+   started together) and reports seconds.
+3. Kernels: K1–K3 and K6–K8 against their plain PyTorch versions on the
+   card, at the shapes the flagship request gives them (gene-pred model,
+   q=15, b=32, L=9999, parallel_factor "auto" = 33: c=303, R=1056); K6–K8
+   must be bit-equal; median time over 20 samples (CUDA events), the plain
+   version's time and the bound.
 4. End to end: ``HMMLayer`` serves 3 requests of b=32, L=9999 through
    ``state_posterior_log_probs`` and ``log_likelihood``; the launch counts
    of that run, the checks (normalised posteriors, finite logliks, the
@@ -19,6 +21,16 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    small input) and ms/batch.
 5. Where the time goes: the request split into its stages (host clock
    around each, synchronised), and ``torch.profiler``'s device busy time.
+6. Decode: ``HMMLayer.viterbi`` serves 3 requests of b=32, L=9999; the
+   launch counts of that run (K6, K7, K8 once per request), the paths
+   against the layer's plain chunked route on the card (identical) and, on
+   a small input, against the sequential decode (float64 path scores);
+   ms/batch, the stage split and the profiler's device busy time.
+7. Predict: ``python -m hmm_layer_torch predict`` in-process on ~1 Mbp of
+   seeded contigs, both strands, window 9999, batch 32, parallel factor 33,
+   with a seeded class-probability file and a checkpoint of the phase-4
+   layer; the launch counts (K6–K8 once per window batch per strand), one
+   contig's tracks against the plain route, the GFF3 read back, bp/s.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -44,11 +56,23 @@ CODONS = dict(
 )
 B, L, NUM_CLASSES, SEED = 32, 9999, 15, 0
 N_REQUESTS = 3
-SOURCE = "hmm_layer_torch/csrc/sum_product.cu"
+EPS = 1e-16
+PREDICT_CONTIGS = (400_000, 350_000, 250_000)  # ~1 Mbp
+SOURCES = {
+    "sum_chunk_summaries": "hmm_layer_torch/csrc/sum_product.cu",
+    "sum_fwd_outputs": "hmm_layer_torch/csrc/sum_product.cu",
+    "beta_bwd_outputs": "hmm_layer_torch/csrc/sum_product.cu",
+    "maxplus_chunk_summaries": "hmm_layer_torch/csrc/max_plus.cu",
+    "maxplus_deltas": "hmm_layer_torch/csrc/max_plus.cu",
+    "maxplus_backtrace": "hmm_layer_torch/csrc/max_plus.cu",
+}
 REPLACES = {
     "sum_chunk_summaries": "hmm_layer_tpu/ops/pallas_forward.py:112",
     "sum_fwd_outputs": "hmm_layer_tpu/ops/pallas_forward.py:239",
     "beta_bwd_outputs": "hmm_layer_tpu/ops/pallas_forward.py:292",
+    "maxplus_chunk_summaries": "hmm_layer_tpu/ops/pallas_viterbi.py:151",
+    "maxplus_deltas": "hmm_layer_tpu/ops/pallas_viterbi.py:353",
+    "maxplus_backtrace": "hmm_layer_tpu/ops/pallas_viterbi.py:433",
 }
 # Kernel-only launches per request: the posterior runs K1, K2 and K3 once,
 # the log-likelihood K1 once more.
@@ -191,30 +215,102 @@ def kernel_phase(layer, X, recursion, cuda_forward, peak_bytes, peak_flops):
         for name, (kern, plain, (got, ref, rtol, atol, msk), nbytes, nops) in cases.items():
             torch.cuda.synchronize()
             err, ok = within(got, ref, rtol, atol, msk)
-            ms = cuda_median_ms(kern, samples=20, reps=10)
-            plain_ms = cuda_median_ms(plain, samples=20, reps=1, warmup=1)
-            bytes_ms, ops_ms = 1e3 * nbytes / peak_bytes, 1e3 * nops / peak_flops
-            records[name] = {
-                "name": name,
-                "route": "cuda",
-                "source": SOURCE,
-                "replaces": REPLACES[name],
-                "max_abs_err": err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": max(bytes_ms, ops_ms),
-                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-                "library_ms": None,
-            }
+            records[name] = measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops)
             log(f"phase 3 {name}: {'ok' if ok else 'MISMATCH'} max_abs_err={err:.3e} "
-                f"(rtol {rtol}, atol {atol}) kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-                f"bound {records[name]['bound_ms']:.4f} ms ({records[name]['bound_by']}: "
-                f"{nbytes / 1e6:.1f} MB, {nops / 1e9:.3f} GFLOP)")
+                f"(rtol {rtol}, atol {atol}) {timing_text(records[name], nbytes, nops)}")
             if not ok:
                 failed.append(name)
     if failed:
         raise AssertionError(f"kernels disagree with their plain versions: {failed}")
     return records, P
+
+
+def measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops):
+    """The kernel's record: kernel ms (median of 20 samples of 10 launches),
+    plain ms (20 samples of 1), and the bound from the bytes and operations
+    of this call."""
+    ms = cuda_median_ms(kern, samples=20, reps=10)
+    plain_ms = cuda_median_ms(plain, samples=20, reps=1, warmup=1)
+    bytes_ms, ops_ms = 1e3 * nbytes / peak_bytes, 1e3 * nops / peak_flops
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": SOURCES[name],
+        "replaces": REPLACES[name],
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+
+def timing_text(rec, nbytes, nops):
+    return (f"kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}: {nbytes / 1e6:.1f} MB, "
+            f"{nops / 1e9:.3f} G operations)")
+
+
+def viterbi_kernel_phase(layer, X, recursion, cuda_viterbi, peak_bytes, peak_flops):
+    """K6–K8 against their plain versions at the flagship decode shapes,
+    on the starts and last states the decode's own glue gives them."""
+    records = {}
+    with torch.inference_mode():
+        init, A = layer.transitions.matrices()
+        E = layer.emission_probs(X)
+        P = recursion.recommended_parallel_factor(E.shape[2], E.shape[3], E.shape[0], for_viterbi=True)
+        log_init, log_A = torch.log(init.clamp_min(EPS)), torch.log(A.clamp_min(EPS)).contiguous()
+        log_E_T = torch.log(recursion._kernel_chunk_inputs(E, P))
+        m, c, q, R = log_E_T.shape
+        b = R // P
+        C_plain = cuda_viterbi.maxplus_chunk_summaries_plain(log_A, log_E_T, P)
+        C_kern = cuda_viterbi.maxplus_chunk_summaries(log_A, log_E_T, P)
+        C5 = C_plain.reshape(m, b, P, q, q).movedim(2, 0)
+        j_end = recursion._boundary_backtrace(recursion._viterbi_boundaries(log_init, C5), C5)
+        r0, last = recursion._conditional_viterbi_starts(log_init[:, None].expand(m, b, q), log_A, j_end)
+        delta0 = (r0.transpose(-1, -2) + log_E_T[:, 0]).contiguous()
+        last = last.to(torch.int32).contiguous()
+        d_plain = cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0)
+        d_kern = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)
+        s_plain = cuda_viterbi.maxplus_backtrace_plain(log_A, d_plain, last)
+        s_kern = cuda_viterbi.maxplus_backtrace(log_A, d_plain, last)
+
+        # Operations: one add and one max per (k, p) term of a step.
+        step_ops = (c - 1) * 2 * q * q
+        e_bytes = 4 * m * c * q * R
+        a_bytes = 4 * m * q * q
+        cases = {
+            "maxplus_chunk_summaries": (
+                lambda: cuda_viterbi.maxplus_chunk_summaries(log_A, log_E_T, P),
+                lambda: cuda_viterbi.maxplus_chunk_summaries_plain(log_A, log_E_T, P),
+                C_kern, C_plain, a_bytes + e_bytes + 4 * m * R * q * q, m * R * q * step_ops,
+            ),
+            "maxplus_deltas": (
+                lambda: cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0),
+                lambda: cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0),
+                d_kern, d_plain, a_bytes + 2 * e_bytes + 4 * m * q * R, m * R * step_ops,
+            ),
+            "maxplus_backtrace": (
+                lambda: cuda_viterbi.maxplus_backtrace(log_A, d_plain, last),
+                lambda: cuda_viterbi.maxplus_backtrace_plain(log_A, d_plain, last),
+                s_kern, s_plain, a_bytes + e_bytes + 4 * m * R + 4 * m * c * R,
+                m * R * (c - 1) * 2 * q,
+            ),
+        }
+        failed = []
+        for name, (kern, plain, got, ref, nbytes, nops) in cases.items():
+            torch.cuda.synchronize()
+            equal = torch.equal(got, ref)
+            err = float((got.double() - ref.double()).abs().max())
+            records[name] = measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops)
+            log(f"phase 3 {name}: {'equal' if equal else 'MISMATCH'} max_abs_err={err:.3e} "
+                f"(bit-equality required) {timing_text(records[name], nbytes, nops)}")
+            if not equal:
+                failed.append(name)
+    if failed:
+        raise AssertionError(f"kernels differ from their plain versions: {failed}")
+    return records
 
 
 def e2e_phase(layer, recursion, cuda_forward, make):
@@ -334,32 +430,247 @@ def stage_phase(layer, X, recursion, cuda_forward):
         log(f"phase 5 stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
     log(f"phase 5 stages total: {total:.3f} ms (synchronised after each stage)")
 
+    profile_request("phase 5", lambda: layer.state_posterior_log_probs(X), "K1-K3",
+                    ("outputs_kernel", "chunk_summaries_kernel"))
+
+
+def profile_request(phase, request, label, ours_keys):
+    """``torch.profiler`` over one synchronised request: device busy time
+    against the wall time, and the time of the kernels named ``ours_keys``."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
-        layer.state_posterior_log_probs(X)
+        request()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            layer.state_posterior_log_probs(X)
+            request()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
+
     def self_device_us(e):  # renamed from self_cuda_time_total in newer torch
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
     rows = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
     dev_us = {e.key: self_device_us(e) for e in rows if self_device_us(e) > 0}
     if not dev_us:
-        log("phase 5 profiler: no device time recorded (device busy share not measured)")
+        log(f"{phase} profiler: no device time recorded (device busy share not measured)")
         return
     busy_ms = sum(dev_us.values()) / 1e3
-    ours = {k: v for k, v in dev_us.items() if "outputs_kernel" in k or "chunk_summaries_kernel" in k}
+    ours_ms = sum(v for k, v in dev_us.items() if any(o in k for o in ours_keys)) / 1e3
     n_kernels = sum(e.count for e in rows if self_device_us(e) > 0)
-    log(f"phase 5 profiler: one posterior request {wall_ms:.3f} ms wall (profiled), device busy "
+    log(f"{phase} profiler: one request {wall_ms:.3f} ms wall (profiled), device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), {n_kernels} device kernels; "
-        f"K1-K3 {sum(ours.values()) / 1e3:.3f} ms, other kernels {busy_ms - sum(ours.values()) / 1e3:.3f} ms")
+        f"{label} {ours_ms:.3f} ms, other kernels {busy_ms - ours_ms:.3f} ms")
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:8]:
-        log(f"phase 5 profiler top: {us / 1e3:.4f} ms  {key[:90]}")
+        log(f"{phase} profiler top: {us / 1e3:.4f} ms  {key[:90]}")
+
+
+def path_score64(init, A, E, path):
+    """float64 log score of each path (m, b), and whether each transition
+    the path takes has A > 0 (m, b, L-1)."""
+    init, A, E = (x.double() for x in (init, A, E))
+    path = path.long()
+    m = path.shape[0]
+    mi = torch.arange(m, device=path.device)[:, None, None]
+    score = torch.log(init.clamp_min(EPS)[torch.arange(m, device=path.device)[:, None], path[..., 0]])
+    score = score + torch.log(E.clamp_min(EPS)).gather(-1, path[..., None])[..., 0].sum(-1)
+    prev, nxt = path[..., :-1], path[..., 1:]
+    return score + torch.log(A.clamp_min(EPS))[mi, prev, nxt].sum(-1), A[mi, prev, nxt] > 0
+
+
+def decode_phase(layer, recursion, cuda_viterbi, make):
+    """``HMMLayer.viterbi`` serving 3 flagship requests, with its checks."""
+    requests = [make(SEED + 11 + i, B, L) for i in range(N_REQUESTS)]
+    with torch.inference_mode():
+        layer.viterbi(requests[0])  # warm-up, not counted
+        torch.cuda.synchronize()
+
+        cuda_viterbi.reset_launches()
+        paths = []
+        for X in requests:
+            paths.append(layer.viterbi(X))
+        torch.cuda.synchronize()
+        launches = dict(cuda_viterbi.LAUNCHES)
+        log(f"phase 6 launches over {N_REQUESTS} decode requests: {launches}")
+        if launches != {k: N_REQUESTS for k in cuda_viterbi.LAUNCHES}:
+            raise AssertionError(f"decode launch counts {launches}, expected {N_REQUESTS} each")
+
+        for i, (X, path) in enumerate(zip(requests, paths)):
+            if tuple(path.shape) != (1, B, L) or path.dtype != torch.int32:
+                raise AssertionError(f"request {i}: paths {path.dtype} {tuple(path.shape)}")
+            if int(path.min()) < 0 or int(path.max()) >= NUM_CLASSES:
+                raise AssertionError(f"request {i}: states out of range")
+            init, A = layer.transitions.matrices()
+            E = layer.emission_probs(X)
+            P = layer._pf(E, for_viterbi=True)
+            plain = recursion._viterbi_chunked_plain(init, A, E, P)
+            same = torch.equal(path, plain)
+            score, used = path_score64(init, A, E, path)
+            log(f"phase 6 request {i}: paths {'identical to' if same else 'DIFFER FROM'} the plain "
+                f"chunked route (P={P}); mean path score {float(score.mean()):.3f}; transitions "
+                f"with A = 0: {int((~used).sum())}")
+            if not same:
+                raise AssertionError(f"request {i}: kernel route differs from the plain route")
+
+        # Small input against the sequential decode (no chunks, no kernels).
+        Xs = make(SEED + 98, 2, 600)
+        init, A = layer.transitions.matrices()
+        Es = layer.emission_probs(Xs)
+        P_small = recursion.recommended_parallel_factor(600, NUM_CLASSES, 1, for_viterbi=True)
+        chunked = recursion.viterbi(init, A, Es, P_small)
+        seq = recursion.viterbi(init, A, Es, 1)
+        s_k, used_k = path_score64(init, A, Es, chunked)
+        s_s, used_s = path_score64(init, A, Es, seq)
+        rel = float(((s_k - s_s).abs() / s_s.abs()).max())
+        valid = bool(used_k[used_s.all(-1)].all())
+        log(f"phase 6 small input (b=2, L=600, P={P_small}) vs sequential decode: float64 path "
+            f"score max rel diff {rel:.3e} (limit 1e-6), positions differing "
+            f"{int((chunked != seq).sum())}, A = 0 transitions avoided as the sequential path "
+            f"avoids them: {valid}")
+        if rel > 1e-6 or not valid:
+            raise AssertionError("small input: chunked decode disagrees with the sequential decode")
+
+        decode_ms = []
+        for X in requests * 3:
+            t0 = time.perf_counter()
+            layer.viterbi(X)
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+    return launches, decode_ms
+
+
+def decode_stage_phase(layer, X, recursion, cuda_viterbi):
+    """One decode request split into its stages, each synchronised."""
+    stages = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages[name] = stages.get(name, 0.0) + 1e3 * (time.perf_counter() - t0)
+        return out
+
+    with torch.inference_mode():
+        for _ in range(2):  # second pass is the one kept
+            stages.clear()
+            init, A = timed("transition matrices", layer.transitions.matrices)
+            E = timed("emissions", lambda: layer.emission_probs(X))
+            m, b, length, q = E.shape
+            P = recursion.recommended_parallel_factor(length, q, m, for_viterbi=True)
+
+            def log_layout():
+                return (torch.log(init.clamp_min(EPS)), torch.log(A.clamp_min(EPS)).contiguous(),
+                        torch.log(recursion._kernel_chunk_inputs(E, P)))
+
+            log_init, log_A, log_E_T = timed("log + layout to (m, c, q, R)", log_layout)
+            C_T = timed("K6 maxplus_chunk_summaries", lambda: cuda_viterbi.maxplus_chunk_summaries(
+                log_A, log_E_T, P).reshape(m, b, P, q, q).movedim(2, 0))
+            T = timed("boundary fold (P max-plus steps)", lambda: recursion._viterbi_boundaries(log_init, C_T))
+            j_end = timed("boundary backtrace (P-1 steps)", lambda: recursion._boundary_backtrace(T, C_T))
+
+            def starts():
+                r0, last = recursion._conditional_viterbi_starts(
+                    log_init[:, None].expand(m, b, q), log_A, j_end)
+                return ((r0.transpose(-1, -2) + log_E_T[:, 0]).contiguous(),
+                        last.to(torch.int32).contiguous())
+
+            delta0, last = timed("conditional starts", starts)
+            deltas = timed("K7 maxplus_deltas", lambda: cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0))
+            states = timed("K8 maxplus_backtrace", lambda: cuda_viterbi.maxplus_backtrace(log_A, deltas, last))
+            timed("layout to (m, b, L)", lambda: states.transpose(-1, -2).reshape(m, b, length).contiguous())
+    total = sum(stages.values())
+    for name, ms in stages.items():
+        log(f"phase 6 stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
+    log(f"phase 6 stages total: {total:.3f} ms (synchronised after each stage)")
+    profile_request("phase 6", lambda: layer.viterbi(X), "K6-K8", ("maxplus", "deltas_kernel",
+                                                                   "backtrace_kernel"))
+
+
+def predict_phase(layer, recursion, cuda_viterbi):
+    """``predict`` end to end at full width on ~1 Mbp of seeded contigs."""
+    import tempfile
+
+    from hmm_layer_torch import cli, data
+    from hmm_layer_torch.models import flip_genes, paths_to_genes, read_gff3
+    from hmm_layer_torch.utils import checkpoint
+
+    window, batch, pf, overlap = 9999, 32, 33, 64
+    rng = np.random.default_rng(SEED + 7)
+    names = [f"ctg{i}" for i in range(len(PREDICT_CONTIGS))]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        fasta, npz = f"{tmp}/contigs.fa", f"{tmp}/class_probs.npz"
+        ckpt, gff = f"{tmp}/params.npz", f"{tmp}/out.gff3"
+        probs = {}
+        with open(fasta, "w") as fh:
+            for name, n in zip(names, PREDICT_CONTIGS):
+                seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=n)].tobytes().decode()
+                fh.write(f">{name}\n")
+                for i in range(0, n, 80):
+                    fh.write(seq[i : i + 80] + "\n")
+                for key in (name, f"{name}__rc"):
+                    probs[key] = rng.dirichlet(np.ones(NUM_CLASSES), size=n).astype(np.float32)
+        np.savez(npz, **probs)
+        del probs
+        checkpoint.save_checkpoint(ckpt, layer)
+        log(f"phase 7 inputs: {sum(PREDICT_CONTIGS)} bp in {len(names)} contigs, class "
+            f"probabilities for both strands, checkpoint of the phase-4 layer "
+            f"({time.perf_counter() - t0:.1f} s to write)")
+
+        encoded = dict(data.read_fasta_encoded(fasta))
+        n_batches = sum(len(list(data.window_batches(encoded[n], window, batch, overlap)))
+                        for n in names)
+        argv = ["predict", "-i", fasta, "-o", gff, "--class-probs", npz, "--params", ckpt,
+                "--window", str(window), "--batch", str(batch), "--parallel-factor", str(pf),
+                "--both-strands"]
+        torch.cuda.synchronize()
+        cuda_viterbi.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(argv) != 0:
+            raise AssertionError("predict returned non-zero")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(cuda_viterbi.LAUNCHES)
+        expected = {k: 2 * n_batches for k in cuda_viterbi.LAUNCHES}
+        log(f"phase 7 launches: {launches} ({n_batches} window batches per strand, both strands)")
+        if launches != expected:
+            raise AssertionError(f"predict launch counts {launches}, expected {expected}")
+
+        genes = read_gff3(gff)
+        n_genes = sum(len(g) for g in genes.values())
+
+        # One contig again, kernel route and plain route, both strands.
+        dlayer = checkpoint.load_checkpoint(ckpt, cli._gene_pred_layer(pf))
+        cls_for = cli._class_probs_fn(npz)
+
+        def plain_viterbi(x):
+            init, A = dlayer.transitions.matrices()
+            E = dlayer.emission_probs(x)
+            return recursion._viterbi_chunked_plain(init, A, E, pf)
+
+        name = names[-1]
+        enc, n = encoded[name], len(encoded[name])
+        with torch.inference_mode():
+            kern_genes = []
+            for strand, x, cls in (("+", enc, cls_for(name, n)),
+                                   ("-", data.revcomp_onehot(enc), cls_for(f"{name}__rc", n))):
+                track = cli.decode_contig(dlayer.viterbi, x, cls, window, batch, overlap)
+                track_plain = cli.decode_contig(plain_viterbi, x, cls, window, batch, overlap)
+                if not np.array_equal(track, track_plain):
+                    raise AssertionError(f"{name} {strand}: kernel track differs from the plain route")
+                found = paths_to_genes(track, num_states=NUM_CLASSES)
+                kern_genes += found if strand == "+" else flip_genes(found, n)
+        key = lambda g: (g.start, g.end, g.strand, tuple(g.cds), tuple(g.introns))  # noqa: E731
+        if sorted(map(key, kern_genes)) != sorted(map(key, genes.get(name, []))):
+            raise AssertionError(f"{name}: GFF3 genes differ from the decoded tracks")
+        log(f"phase 7 {name}: tracks on both strands identical to the plain route; its "
+            f"{len(kern_genes)} genes equal the GFF3's")
+    bp = sum(PREDICT_CONTIGS)
+    log(f"phase 7 predict: {bp} bp, both strands, {n_genes} genes in {wall:.3f} s: "
+        f"{bp / wall:,.0f} bp/s (window {window}, batch {batch}, parallel factor {pf})")
+    return launches
 
 
 def main() -> int:
@@ -369,7 +680,7 @@ def main() -> int:
         return 1
     try:
         from hmm_layer_torch import HMMLayer, models
-        from hmm_layer_torch.ops import _cuda_build, cuda_forward, recursion
+        from hmm_layer_torch.ops import _cuda_build, cuda_forward, cuda_viterbi, recursion
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 1
@@ -388,10 +699,13 @@ def main() -> int:
         f"peaks ({part} data sheet) {peak_bytes / 1e12:.2f} TB/s, {peak_flops / 1e12:.0f} TFLOP/s fp32; "
         f"float32 matmul precision highest, TF32 off")
 
-    # 2. Build
+    # 2. Build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    _cuda_build.load()
-    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s ({_cuda_build.library_path('sum_product').name})")
+    built = _cuda_build.build_all()
+    for name in built:
+        _cuda_build.load(name)
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(path.name for path in built.values())})")
 
     device = torch.device("cuda")
     make = lambda seed, b, length: make_inputs(seed, b, length, device)  # noqa: E731
@@ -400,6 +714,7 @@ def main() -> int:
 
     # 3. Kernels against their plain versions
     records, P = kernel_phase(layer, X, recursion, cuda_forward, peak_bytes, peak_flops)
+    records.update(viterbi_kernel_phase(layer, X, recursion, cuda_viterbi, peak_bytes, peak_flops))
 
     # 4. End to end
     launches, request_ms, post_ms, post_all = e2e_phase(layer, recursion, cuda_forward, make)
@@ -410,6 +725,17 @@ def main() -> int:
     # 5. Where the time goes
     stage_phase(layer, X, recursion, cuda_forward)
 
+    # 6. Decode
+    decode_launches, decode_ms = decode_phase(layer, recursion, cuda_viterbi, make)
+    med = statistics.median(decode_ms)
+    log(f"phase 6 decode: {med:.3f} ms/batch median of {len(decode_ms)} [{min(decode_ms):.3f}, "
+        f"{max(decode_ms):.3f}], {B / (med / 1e3):.1f} seqs/sec (b={B}, L={L}, P={P}) on {smi}")
+    decode_stage_phase(layer, X, recursion, cuda_viterbi)
+
+    # 7. Predict
+    predict_phase(layer, recursion, cuda_viterbi)
+
+    launches.update(decode_launches)
     for name, rec in records.items():
         rec["launches"] = launches[name]
     print(json.dumps({"kernels": list(records.values())}), flush=True)

@@ -30,6 +30,7 @@ _EXPORTS = {
     "backward": ".ops.recursion",
     "posterior": ".ops.recursion",
     "log_likelihood": ".ops.recursion",
+    "viterbi": ".ops.recursion",
     "recommended_parallel_factor": ".ops.recursion",
     "ForwardResult": ".ops.recursion",
     "load_jax_params": ".convert",

@@ -6,7 +6,7 @@ modules and so their parameters. Its methods take the raw inputs
 with their ``params`` argument dropped. The layer lives on one device:
 the GPU unless the caller asks for another (``device="cpu"``).
 
-Not ported yet: ``loss``, ``viterbi``, ``posterior_cross_entropy``,
+Not ported yet: ``loss``, ``posterior_cross_entropy``,
 ``sample_paths``, the prior and sequence weights (ROADMAP Queue 1 items
 5-9), and the ``mesh``/``partition`` routes (item 13).
 """
@@ -81,10 +81,10 @@ class HMMLayer(nn.Module):
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
-    def _pf(self, E) -> int:
+    def _pf(self, E, for_viterbi: bool = False) -> int:
         if self.parallel_factor == "auto":
             m, _, L, q = E.shape
-            return recursion.recommended_parallel_factor(L, q, m)
+            return recursion.recommended_parallel_factor(L, q, m, for_viterbi)
         return self.parallel_factor
 
     def _tensor(self, x):
@@ -131,6 +131,15 @@ class HMMLayer(nn.Module):
         """Per-model per-sequence loglik; (m, b)."""
         init, A, E = self._ingredients(inputs, end_hints, training)
         return recursion.log_likelihood(init, A, E, self._pf(E))
+
+    def viterbi(self, inputs, end_hints=None):
+        """Most likely state paths; (m, b, L) int32.
+
+        ``end_hints`` clamp chunk-border emissions as in
+        :meth:`state_posterior_log_probs` (hint-constrained MAP decoding).
+        """
+        init, A, E = self._ingredients(inputs, end_hints, False)
+        return recursion.viterbi(init, A, E, self._pf(E, for_viterbi=True))
 
     # -- config -----------------------------------------------------------------
 

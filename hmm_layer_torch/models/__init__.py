@@ -1,5 +1,18 @@
-"""Model families of the port: the gene-prediction transitions and emissions."""
+"""Model families of the port: the gene-prediction transitions and
+emissions, their initial class kernel, and the annotation (GFF3) of decoded
+paths."""
 
+from .annotation import (
+    GeneFeature,
+    classify_states,
+    evaluate_annotation,
+    flip_genes,
+    genes_to_gff3,
+    genes_to_states,
+    paths_to_genes,
+    read_gff3,
+    write_gff3,
+)
 from .emission_utils import apply_end_hints
 from .gene_pred_emissions import (
     GenePredEmissions,
@@ -8,6 +21,7 @@ from .gene_pred_emissions import (
     make_codon_probs,
 )
 from .gene_pred_transitions import GenePredTransitions, SimpleGenePredTransitions
+from .initializers import make_15_class_emission_kernel
 from .transition_utils import (
     dense_from_edge_probs,
     gather_edge_probs,
@@ -16,15 +30,25 @@ from .transition_utils import (
 )
 
 __all__ = [
+    "GeneFeature",
     "GenePredEmissions",
     "GenePredTransitions",
     "SimpleGenePredEmissions",
     "SimpleGenePredTransitions",
     "apply_end_hints",
     "assert_codons",
+    "classify_states",
     "dense_from_edge_probs",
+    "evaluate_annotation",
+    "flip_genes",
     "gather_edge_probs",
+    "genes_to_gff3",
+    "genes_to_states",
+    "make_15_class_emission_kernel",
     "make_codon_probs",
     "masked_row_softmax_from_edges",
+    "paths_to_genes",
+    "read_gff3",
     "sparse_edge_softmax",
+    "write_gff3",
 ]

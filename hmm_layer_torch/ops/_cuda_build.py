@@ -5,7 +5,8 @@ interface, for ``sm_90a`` (Hopper), into ``hmm_layer_torch/_build/``; the
 file name carries a hash of the source and the flags, so an edited source
 is rebuilt and an unchanged one is loaded as it is. The library is loaded
 with ``ctypes``. Nothing here runs at import: the first kernel launch calls
-:func:`load`. A missing ``nvcc`` raises.
+:func:`load`, and :func:`build_all` compiles every source at once (one
+``nvcc`` process each, all started together). A missing ``nvcc`` raises.
 """
 
 from __future__ import annotations
@@ -19,7 +20,10 @@ import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = {"sum_product": _PKG / "csrc" / "sum_product.cu"}
+SOURCES = {
+    "sum_product": _PKG / "csrc" / "sum_product.cu",
+    "max_plus": _PKG / "csrc" / "max_plus.cu",
+}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -33,6 +37,11 @@ SIGNATURES = {
         "hmm_sum_chunk_summaries": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "hmm_sum_fwd_outputs": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "hmm_beta_bwd_outputs": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "max_plus": {
+        "hmm_maxplus_chunk_summaries": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        "hmm_maxplus_deltas": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "hmm_maxplus_backtrace": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 
@@ -62,22 +71,44 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"{name}_{digest.hexdigest()[:16]}.so"
 
 
+def _compile(names) -> None:
+    """Compile each source of ``names`` whose library for its hash is
+    missing: one ``nvcc`` process per source, all started before any is
+    waited for. Raises after all have ended if any failed."""
+    jobs = []
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((name, out, tmp, cmd, proc))
+    failures = []
+    for name, out, tmp, cmd, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(
+                f"nvcc failed ({proc.returncode}) building {SOURCES[name].name}:\n"
+                f"{' '.join(cmd)}\n{stdout}{stderr}"
+            )
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
+    if failures:
+        raise RuntimeError("\n".join(failures))
+
+
 def build(name: str) -> Path:
     """Compile ``csrc/<name>.cu`` unless the library for its hash exists."""
-    out = library_path(name)
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCES[name].name}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build never loads a partial file
-    return out
+    _compile([name])
+    return library_path(name)
+
+
+def build_all() -> dict[str, Path]:
+    """Compile every source in :data:`SOURCES` in parallel; their paths."""
+    _compile(SOURCES)
+    return {name: library_path(name) for name in SOURCES}
 
 
 def load(name: str = "sum_product") -> ctypes.CDLL:

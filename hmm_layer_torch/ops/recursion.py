@@ -1,8 +1,9 @@
-"""Core HMM recursions: forward, backward, posterior, log-likelihood.
+"""Core HMM recursions: forward, backward, posterior, log-likelihood and
+Viterbi decoding.
 
 Port of ``hmm_layer_tpu/ops/recursion.py`` (the sum-product functions of
-the posterior-serving path). ``parallel_factor`` P > 1 runs the chunked
-two-pass engine:
+the posterior-serving path and the max-plus decode). ``parallel_factor``
+P > 1 runs the chunked two-pass engine:
 
 * **Summary pass** — every chunk of every sequence runs with a ``q x q``
   row-scaled carry, giving transfer operators ``C_p[i, j] = log P(chunk-p
@@ -13,10 +14,11 @@ two-pass engine:
   boundary value.
 
 On a CUDA tensor with q <= 16 the summary and output passes are the CUDA
-kernels K1–K3 (:mod:`.cuda_forward`), as the JAX package runs its Pallas
-kernels on a TPU (``_use_pallas``); everywhere else the plain chunked
-version below runs. The boundary combine and the posterior combine are
-plain torch ops in both.
+kernels K1–K3 (:mod:`.cuda_forward`) and, for :func:`viterbi`, K6–K8
+(:mod:`.cuda_viterbi`), as the JAX package runs its Pallas kernels on a
+TPU (``_use_pallas``); everywhere else the plain chunked version below
+runs. The boundary combine, the chunk-level backtrace and the posterior
+combine are plain torch ops in both.
 
 Shapes: ``init`` (m, q), ``A`` (m, q, q), ``E`` (m, b, L, q), all linear
 space; outputs are log space. Gradients: the plain paths are differentiable
@@ -29,14 +31,15 @@ from typing import NamedTuple
 
 import torch
 
-from . import cuda_forward
-from .semiring import EPS, logmatmul, logmatvec
+from . import cuda_forward, cuda_viterbi
+from .semiring import EPS, logmatmul, logmatvec, maxargmatvec, maxmatmul
 
 __all__ = [
     "forward",
     "backward",
     "posterior",
     "log_likelihood",
+    "viterbi",
     "recommended_parallel_factor",
     "ForwardResult",
 ]
@@ -346,6 +349,181 @@ def _chunk_summaries_dispatch(A, E, P):
 
 
 # ---------------------------------------------------------------------------
+# Viterbi: sequential, and the chunked max-plus two-pass engine
+# ---------------------------------------------------------------------------
+
+# Sentinel for impossible paths in the tropical semiring: it must never win
+# an argmax against a real path score, including paths of clamped-EPS steps
+# over long chunks. A finite Python float, never -inf.
+_NEG = cuda_viterbi.NEG
+
+
+def _viterbi_seq(init, A, E):
+    """Max-plus Viterbi with backpointers. Returns paths (m, b, L) int32."""
+    log_A = torch.log(_clamped(A))
+    log_E = torch.log(_clamped(E))
+    log_init = torch.log(_clamped(init))
+    L = E.shape[2]
+    delta = log_init[:, None, :] + log_E[:, :, 0]  # (m, b, q)
+    backptrs = []
+    for t in range(1, L):
+        best, arg = maxargmatvec(delta, log_A[:, None])
+        delta = best + log_E[:, :, t]
+        backptrs.append(arg)
+    state = delta.argmax(dim=-1)  # (m, b)
+    path = [state]
+    for bp in reversed(backptrs):
+        state = torch.gather(bp, -1, state[..., None])[..., 0]
+        path.append(state)
+    return torch.stack(path[::-1], dim=-1).to(torch.int32)
+
+
+def _viterbi_chunk_summaries(log_A, Et, P):
+    """Plain max-plus chunk transfer operators in the TRANSPOSED convention
+    ``C_T[p, m, b, j, i] = C_p[i, j]``, as (P, m, b, q, q).
+
+    ``Et`` (c, m, bP, q) log emissions. The first step is the identity
+    (0 / ``_NEG``) for chunk 0 of a sequence and log A's rows otherwise; no
+    rescaling: each step is exact up to one rounded add per term.
+    """
+    c, m, R, q = Et.shape
+    b = R // P
+    log_A_T = log_A.transpose(-1, -2)
+    eye = torch.full((q, q), _NEG, dtype=Et.dtype, device=Et.device)
+    eye.fill_diagonal_(0.0)
+    is_first = (torch.arange(R, device=Et.device) % P == 0)[None, :, None, None]
+    M_T = torch.where(is_first, eye, log_A_T[:, None]) + Et[0][..., None]
+    for t in range(1, c):
+        M_T = maxmatmul(log_A_T[:, None], M_T) + Et[t][..., None]
+    return M_T.reshape(m, b, P, q, q).movedim(2, 0)
+
+
+def _viterbi_boundaries(log_v, C_T):
+    """Max-plus forward values at every chunk's last position, (P, m, b, q):
+    ``T[p](j)`` is the best score of a path up to the end of chunk ``p``
+    ending in ``j``. ``log_v`` is the start vector, (m, q) or (m, b, q).
+
+    A sequential vector fold for P <= 64, a log-depth prefix product above.
+    """
+    P, m, b, q = C_T.shape[:4]
+    if log_v.dim() == 2:
+        log_v = log_v[:, None]  # (m, 1, q): broadcast over the batch
+    if P <= 64:
+        v = log_v.expand(m, b, q)
+        T = []
+        for C_T_p in C_T:
+            # v_new[j] = max_i v[i] + C_p[i, j] = max_i C_T_p[j, i] + v[i].
+            v = (C_T_p + v[..., None, :]).amax(dim=-1)
+            T.append(v)
+        return torch.stack(T)
+    # prefix_T[p] = (C_0 ∘ … ∘ C_p)^T = C_p^T ∘ … ∘ C_0^T, by doubling.
+    Y, d = C_T, 1
+    while d < P:
+        Y = torch.cat([Y[:d], maxmatmul(Y[d:], Y[:-d])], dim=0)
+        d *= 2
+    return (Y + log_v[None, :, :, None, :]).amax(dim=-1)
+
+
+def _boundary_backtrace(T, C_T, j_last=None):
+    """The optimal path's state at the last position of every chunk,
+    (P, m, b) int64.
+
+    A positionwise ``argmax(delta + psi)`` decode is exact only in exact
+    arithmetic: at |score| ~ L in float32 independent roundings splice
+    states of different near-optimal paths into invalid transitions. A
+    backtrace always returns one valid optimal path, so the decode is this
+    chunk-level backtrace followed by within-chunk backtraces from stored
+    deltas. ``j_last`` (m, b) fixes the last chunk's end state; by default
+    ``argmax(T[-1])``. Row ``j`` of ``C_T`` is taken by indexing, which is
+    exact.
+    """
+    P, m, b, q = T.shape
+    j = T[-1].argmax(dim=-1) if j_last is None else j_last.long()
+    out = [j]
+    for p in range(P - 2, -1, -1):
+        row = torch.gather(C_T[p + 1], -2, j[..., None, None].expand(m, b, 1, q))[..., 0, :]
+        j = (T[p] + row).argmax(dim=-1)
+        out.append(j)
+    return torch.stack(out[::-1])
+
+
+def _conditional_viterbi_starts(first_start_log, log_A, j_end):
+    """Per-chunk conditional start vectors and decoded chunk-end states.
+
+    Returns ``r0`` (m, bP, q): chunk 0 starts from ``first_start_log``
+    (m, b, q), chunk p > 0 from the row ``log_A[j_end[p-1], :]``
+    (conditioning on the decoded border state keeps every splice a real
+    transition); and ``last_state`` (m, bP) int64.
+    """
+    P, m, b = j_end.shape
+    q = log_A.shape[-1]
+    models = torch.arange(m, device=log_A.device)[None, :, None]
+    r_later = log_A[models, j_end[:-1]]  # (P-1, m, b, q): log_A[j_end, :]
+    r0 = torch.cat([first_start_log[None], r_later], dim=0).movedim(0, 2).reshape(m, b * P, q)
+    last_state = j_end.movedim(0, 2).reshape(m, b * P)
+    return r0, last_state
+
+
+def _viterbi_outputs(first_start_log, log_A, Et, j_end, P):
+    """Conditional delta passes and within-chunk backtraces (plain route).
+
+    ``first_start_log`` (m, b, q) is chunk 0's pre-emission start; ``Et``
+    (c, m, bP, q) log emissions; ``j_end`` (P, m, b) the decoded state at
+    each chunk's end. Returns paths (m, b, L) int32.
+    """
+    c, m, R, q = Et.shape
+    b = R // P
+    r0, state = _conditional_viterbi_starts(first_start_log, log_A, j_end)
+    delta = r0 + Et[0]
+    deltas = [delta]
+    for t in range(1, c):
+        delta = maxmatmul(delta[..., None, :], log_A[:, None])[..., 0, :] + Et[t]
+        deltas.append(delta)
+
+    log_A_T = log_A.transpose(-1, -2)
+    models = torch.arange(m, device=log_A.device)[:, None]
+    states = [state]
+    for t in range(c - 2, -1, -1):
+        state = (deltas[t] + log_A_T[models, state]).argmax(dim=-1)  # + A[:, state]
+        states.append(state)
+    states = torch.stack(states[::-1], dim=-1)  # (m, bP, c)
+    return states.reshape(m, b, P * c).to(torch.int32)
+
+
+def _viterbi_chunked_plain(init, A, E, P):
+    """Chunked Viterbi, plain route: summaries, boundary fold, chunk-level
+    backtrace, conditional delta passes and within-chunk backtraces."""
+    m, b, L, q = E.shape
+    log_init, log_A = torch.log(_clamped(init)), torch.log(_clamped(A))
+    Ec, _ = _split_chunks(torch.log(_clamped(E)), P)  # (m, bP, c, q)
+    Et = Ec.movedim(2, 0)  # (c, m, bP, q)
+    C_T = _viterbi_chunk_summaries(log_A, Et, P)
+    T = _viterbi_boundaries(log_init, C_T)
+    j_end = _boundary_backtrace(T, C_T)
+    first_start = log_init[:, None, :].expand(m, b, q)
+    return _viterbi_outputs(first_start, log_A, Et, j_end, P)
+
+
+def _viterbi_chunked_kernels(init, A, E, P):
+    """Chunked Viterbi, kernel route: K6 summaries, the plain boundary fold
+    and chunk-level backtrace, then K7 + K8 from the conditional starts."""
+    m, b, L, q = E.shape
+    log_init, log_A = torch.log(_clamped(init)), torch.log(_clamped(A)).contiguous()
+    log_E_T = torch.log(_kernel_chunk_inputs(E, P))  # (m, c, q, R)
+    C_T = cuda_viterbi.maxplus_chunk_summaries(log_A, log_E_T, P)  # (m, R, q, q)
+    C_T = C_T.reshape(m, b, P, q, q).movedim(2, 0)
+    T = _viterbi_boundaries(log_init, C_T)
+    j_end = _boundary_backtrace(T, C_T)
+    first_start = log_init[:, None, :].expand(m, b, q)
+    r0, last_state = _conditional_viterbi_starts(first_start, log_A, j_end)
+    delta0 = (r0.transpose(-1, -2) + log_E_T[:, 0]).contiguous()  # (m, q, R)
+    states = cuda_viterbi.maxplus_decode(
+        log_A, log_E_T, delta0, last_state.to(torch.int32).contiguous()
+    )  # (m, c, R)
+    return states.transpose(-1, -2).reshape(m, b, L)
+
+
+# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
@@ -421,3 +599,32 @@ def posterior(init, A, E, parallel_factor: int = 1, no_loglik: bool = False):
     if _use_kernels(E):
         return _posterior_chunked_kernels(init, A, E, parallel_factor, no_loglik)
     return _posterior_chunked_plain(init, A, E, parallel_factor, no_loglik)
+
+
+@torch.no_grad()
+def viterbi(init, A, E, parallel_factor: int = 1) -> torch.Tensor:
+    """Most likely state path, shape (m, b, L) int32.
+
+    ``parallel_factor == 1`` runs the sequential max-plus scan with
+    backpointers; ``parallel_factor > 1`` the chunked max-plus engine — a
+    chunk-level backtrace over the transfer operators, then per-chunk
+    conditional delta passes and within-chunk backtraces — which always
+    returns one valid optimal path. On a CUDA tensor with q <= 16 the
+    chunked engine runs the kernels K6–K8.
+
+    Engine parity: when distinct paths tie within float32 rounding
+    (inevitable at |score| ~ L for dense emissions), engines may break the
+    tie differently; the paths' true scores then agree to ~1e-7 relative.
+
+    Routing for 16 < q <= 64: the JAX package sends these shapes on a TPU
+    to its blocked sequential Pallas kernels (K7b/K8b) whatever the
+    ``parallel_factor``. Those are not ported yet (ROADMAP Queue 2), so the
+    port routes them as the JAX package does off the TPU: the sequential
+    scan for ``parallel_factor == 1``, the plain chunked engine above.
+    Decoding has no gradient; it runs under ``torch.no_grad``.
+    """
+    if parallel_factor == 1:
+        return _viterbi_seq(init, A, E)
+    if _use_kernels(E):
+        return _viterbi_chunked_kernels(init, A, E, parallel_factor)
+    return _viterbi_chunked_plain(init, A, E, parallel_factor)

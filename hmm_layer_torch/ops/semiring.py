@@ -1,7 +1,9 @@
-"""Log-semiring primitives (port of ``hmm_layer_tpu/ops/semiring.py``).
+"""Log- and max-plus semiring primitives (port of
+``hmm_layer_tpu/ops/semiring.py``).
 
-``(logsumexp, +)`` is the semiring of the forward/backward algorithms. All
-functions broadcast over leading batch dimensions.
+``(logsumexp, +)`` is the semiring of the forward/backward algorithms,
+``(max, +)`` (tropical) that of Viterbi decoding. All functions broadcast
+over leading batch dimensions.
 """
 
 from __future__ import annotations
@@ -33,6 +35,27 @@ def logmatmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def logmatvec(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """Log-space row-vector times matrix: v (..., k), m (..., k, n) -> (..., n)."""
     return logmatmul(v[..., None, :], m)[..., 0, :]
+
+
+def maxmatmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Tropical matrix product ``Z[i, j] = max_k x[i, k] + y[k, j]``.
+
+    x: (..., n, k), y: (..., k, m) -> (..., n, m). Each term is one rounded
+    float add and the max is exact, so the result does not depend on the
+    order of the k terms.
+    """
+    return (x[..., :, :, None] + y[..., None, :, :]).amax(dim=-2)
+
+
+def maxargmatvec(v: torch.Tensor, m: torch.Tensor):
+    """Tropical vector-matrix product with argmax.
+
+    v: (..., k), m: (..., k, n) -> (scores (..., n), argmax (..., n) int64):
+    ``scores[j] = max_i v[i] + m[i, j]``; the argmax is the lowest maximising
+    ``i``, as ``jnp.argmax`` takes it.
+    """
+    s = v[..., :, None] + m
+    return s.amax(dim=-2), s.argmax(dim=-2)
 
 
 def log_normalize(x: torch.Tensor, dim: int = -1):

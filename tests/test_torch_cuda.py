@@ -1,6 +1,6 @@
-"""The port's CUDA kernels K1–K3 on the card: each against its plain
-PyTorch version, the layer's kernel route against its plain route, the
-launch counts and the refusals.
+"""The port's CUDA kernels K1–K3 and K6–K8 on the card: each against its
+plain PyTorch version, the layer's kernel routes (posterior, Viterbi)
+against their plain routes, the launch counts and the refusals.
 
 Every test here needs a CUDA device and skips where there is none. The file
 imports no JAX, so it runs where JAX is not installed:
@@ -15,7 +15,7 @@ import torch
 
 from hmm_layer_torch import HMMLayer
 from hmm_layer_torch.models import GenePredEmissions, GenePredTransitions
-from hmm_layer_torch.ops import cuda_forward, recursion
+from hmm_layer_torch.ops import cuda_forward, cuda_viterbi, recursion
 from oracle import random_hmm
 
 pytestmark = pytest.mark.gpu
@@ -132,3 +132,90 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
         cuda_forward.sum_fwd_outputs(A, E_T, r0.transpose(1, 2).contiguous().transpose(1, 2), ll0)
     with pytest.raises(TypeError, match="float32"):
         cuda_forward.beta_bwd_outputs(A, E_T.double(), r0, ll0)
+
+
+# ---------------------------------------------------------------------------
+# K6–K8 (max-plus Viterbi)
+# ---------------------------------------------------------------------------
+
+
+def _log_inputs(seed, m, c, R, gene_pred, device):
+    A, E_T, _, _ = _inputs(seed, m, c, R, gene_pred, device)
+    return torch.log(A.clamp_min(1e-16)).contiguous(), torch.log(E_T).contiguous()
+
+
+@pytest.mark.parametrize("m,c,R,P,gene_pred", CASES)
+def test_maxplus_kernels_equal_plain(cuda, m, c, R, P, gene_pred):
+    """Bit-equal: the kernels and the plain versions do the same rounded
+    adds in the same order and exact maxes."""
+    log_A, log_E_T = _log_inputs(3, m, c, R, gene_pred, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    delta0 = (torch.randn((m, Q, R), generator=gen, device=cuda) * 5 - 20 + log_E_T[:, 0]).contiguous()
+    last = torch.randint(0, Q, (m, R), generator=gen, device=cuda, dtype=torch.int32)
+    cuda_viterbi.reset_launches()
+    C_T = cuda_viterbi.maxplus_chunk_summaries(log_A, log_E_T, P)
+    deltas = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)
+    states = cuda_viterbi.maxplus_backtrace(log_A, deltas, last)
+    assert cuda_viterbi.LAUNCHES == {
+        "maxplus_chunk_summaries": 1, "maxplus_deltas": 1, "maxplus_backtrace": 1
+    }
+    assert torch.equal(C_T, cuda_viterbi.maxplus_chunk_summaries_plain(log_A, log_E_T, P))
+    assert torch.equal(deltas, cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0))
+    assert torch.equal(states, cuda_viterbi.maxplus_backtrace_plain(log_A, deltas, last))
+    assert torch.equal(cuda_viterbi.maxplus_decode(log_A, log_E_T, delta0, last), states)
+    torch.cuda.synchronize()
+
+
+def _path_score64(init, A, E, path):
+    """float64 score of each path (m, b) and whether each transition it
+    takes has A > 0 (m, b, L-1)."""
+    init, A, E = (x.double().cpu() for x in (init, A, E))
+    path = path.long().cpu()
+    m, b, L = path.shape
+    mi = torch.arange(m)[:, None, None]
+    lA = torch.log(A.clamp_min(1e-16))
+    score = torch.log(init.clamp_min(1e-16)[torch.arange(m)[:, None], path[..., 0]])
+    score = score + torch.log(E.clamp_min(1e-16)).gather(-1, path[..., None])[..., 0].sum(-1)
+    prev, nxt = path[..., :-1], path[..., 1:]
+    return score + lA[mi, prev, nxt].sum(-1), A[mi, prev, nxt] > 0
+
+
+@pytest.mark.parametrize("pf", [8, "auto"])
+def test_layer_viterbi_kernel_route_matches_plain_route(cuda, pf):
+    layer = HMMLayer(GenePredTransitions(), GenePredEmissions(**CODONS), use_prior=False,
+                     parallel_factor=pf)
+    rng = np.random.default_rng(2)
+    b, L = 3, 1200
+    cls = rng.dirichlet(np.ones(15) * 0.3, size=(1, b, L)).astype(np.float32)
+    nuc = np.eye(5, dtype=np.float32)[rng.integers(0, 4, size=(1, b, L))]
+    X = np.concatenate([cls, nuc], axis=-1)
+    with torch.inference_mode():
+        cuda_viterbi.reset_launches()
+        paths = layer.viterbi(X)
+        assert cuda_viterbi.LAUNCHES == {
+            "maxplus_chunk_summaries": 1, "maxplus_deltas": 1, "maxplus_backtrace": 1
+        }
+        init, A = layer.transitions.matrices()
+        E = layer.emission_probs(X)
+        P = layer._pf(E, for_viterbi=True)
+        plain = recursion._viterbi_chunked_plain(init, A, E, P)
+        seq = recursion.viterbi(init, A, E, 1)
+    assert paths.dtype == torch.int32 and tuple(paths.shape) == (1, b, L)
+    assert torch.equal(paths, plain)
+    s_k, used_k = _path_score64(init, A, E, paths)
+    s_s, used_s = _path_score64(init, A, E, seq)
+    assert used_k[used_s.all(-1)].all()
+    torch.testing.assert_close(s_k, s_s, rtol=1e-6, atol=0)
+
+
+def test_maxplus_kernels_refuse_what_they_cannot_take(cuda):
+    log_A, log_E_T = _log_inputs(4, 1, 8, 40, False, cuda)
+    with pytest.raises(ValueError, match="q <= 16"):
+        cuda_viterbi.maxplus_chunk_summaries(
+            torch.zeros((1, 17, 17), device=cuda), torch.zeros((1, 8, 17, 40), device=cuda), 2
+        )
+    with pytest.raises(ValueError, match="delta0"):
+        cuda_viterbi.maxplus_deltas(log_A, log_E_T, torch.zeros((1, Q, 41), device=cuda))
+    deltas = cuda_viterbi.maxplus_deltas(log_A, log_E_T, log_E_T[:, 0].contiguous())
+    with pytest.raises(ValueError, match="int32"):
+        cuda_viterbi.maxplus_backtrace(log_A, deltas, torch.zeros((1, 40), dtype=torch.int64, device=cuda))
