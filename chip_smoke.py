@@ -31,6 +31,17 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    with a seeded class-probability file and a checkpoint of the phase-4
    layer; the launch counts (K6–K8 once per window batch per strand), one
    contig's tracks against the plain route, the GFF3 read back, bp/s.
+8. Training: a ``Trainer`` with Adam(1e-2) takes 5 steps of the posterior
+   cross-entropy (labels: the layer's own Viterbi track, a label mask) and
+   2 MAP steps at b=32, L=9999, P=33; ms/step, seqs/s, the launches of each
+   step (CE: K1–K5 once; MAP: K1, K2, K3 once, C saved), the loss falling,
+   every parameter moving. Gradients of every parameter: the kernel route
+   against the plain route on the card at the flagship shape, and against
+   float64 autograd through the sequential engine at b=2, L=1200. The
+   stage split of one CE backward and the profiler's busy share. Then
+   ``python -m hmm_layer_torch train`` in-process on phase 7's contigs,
+   class probabilities and GFF3 (CE, both strands, window 9999, batch 32,
+   P=33, 10 steps), bp/s, and ``predict --params`` on its checkpoint.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -43,6 +54,7 @@ import math
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -55,6 +67,7 @@ CODONS = dict(
     intron_end_pattern=[("AGN", 0.99), ("ACN", 0.01)],
 )
 B, L, NUM_CLASSES, SEED = 32, 9999, 15, 0
+PF = 33  # the flagship's parallel factor ("auto" at L = 9999)
 N_REQUESTS = 3
 EPS = 1e-16
 PREDICT_CONTIGS = (400_000, 350_000, 250_000)  # ~1 Mbp
@@ -65,6 +78,8 @@ SOURCES = {
     "maxplus_chunk_summaries": "hmm_layer_torch/csrc/max_plus.cu",
     "maxplus_deltas": "hmm_layer_torch/csrc/max_plus.cu",
     "maxplus_backtrace": "hmm_layer_torch/csrc/max_plus.cu",
+    "affine_chunk_composites": "hmm_layer_torch/csrc/affine.cu",
+    "affine_reverse_outputs": "hmm_layer_torch/csrc/affine.cu",
 }
 REPLACES = {
     "sum_chunk_summaries": "hmm_layer_tpu/ops/pallas_forward.py:112",
@@ -73,7 +88,10 @@ REPLACES = {
     "maxplus_chunk_summaries": "hmm_layer_tpu/ops/pallas_viterbi.py:151",
     "maxplus_deltas": "hmm_layer_tpu/ops/pallas_viterbi.py:353",
     "maxplus_backtrace": "hmm_layer_tpu/ops/pallas_viterbi.py:433",
+    "affine_chunk_composites": "hmm_layer_tpu/ops/pallas_adjoint.py:93",
+    "affine_reverse_outputs": "hmm_layer_tpu/ops/pallas_adjoint.py:170",
 }
+TRAIN_STEPS, MAP_STEPS, CLI_STEPS = 5, 2, 10
 # Kernel-only launches per request: the posterior runs K1, K2 and K3 once,
 # the log-likelihood K1 once more.
 PER_REQUEST = {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1}
@@ -313,6 +331,89 @@ def viterbi_kernel_phase(layer, X, recursion, cuda_viterbi, peak_bytes, peak_flo
     return records
 
 
+def ce_targets(layer, X):
+    """Labels and label mask of a posterior-CE batch: the layer's own
+    Viterbi track (grammar-valid states) and a mask that leaves the last
+    1000 positions of every fourth sequence unannotated."""
+    with torch.inference_mode():
+        labels = layer.viterbi(X)[0].long()
+    mask = torch.ones(labels.shape, device=labels.device)
+    mask[::4, -1000:] = 0.0
+    return labels.clone(), mask
+
+
+def adjoint_inputs(layer, X, labels, mask, recursion):
+    """(B2, U, V, S) of the flagship posterior-CE backward: the adjoint
+    weights of a real posterior and the centred source of the CE
+    cotangent, stacked as 2m models and laid out as K4/K5 take them."""
+    with torch.inference_mode():
+        init, A = layer.transitions.matrices()
+        E = layer.emission_probs(X, training=True)
+        m, b, length, q = E.shape
+        P = recursion.recommended_parallel_factor(length, q, m)
+        lg, ll, la = recursion._posterior_chunked_primal(init, A, E, P, False)
+        _, lb, _ = recursion._posterior_vjp_residuals(False, (la, lg, ll))
+        log_E = torch.log(E.clamp_min(EPS))
+        gam = torch.exp(la + lb - ll[..., None, None])
+        ct = -torch.nn.functional.one_hot(labels, q).to(E.dtype)[None] * (mask / mask.sum())[None, ..., None]
+        src = ct - gam * ct.sum(-1)[..., None]
+        f, gbar = recursion._forward_adjoint_weights(la, log_E)
+        fp, gp, _, _ = recursion._backward_adjoint_weights(lb, log_E)
+        B2 = torch.cat([A, A.transpose(-1, -2)], dim=0).contiguous()
+        u2 = torch.cat([f, gp.flip(2)], dim=0)
+        v2 = torch.cat([gbar, fp.flip(2)], dim=0)
+        c2 = torch.cat([src, src.flip(2)], dim=0)
+        U, V, S = (recursion._affine_lanes(x, P) for x in (u2, v2, c2))
+    return B2, U, V, S, P, b
+
+
+def adjoint_kernel_phase(layer, X, labels, mask, recursion, cuda_adjoint, peak_bytes, peak_flops):
+    """K4–K5 against their plain versions at the shapes of the flagship
+    posterior-CE backward (2m = 2 stacked models, c = 303, q = 15,
+    R = 1056), on the real adjoint weights and source."""
+    B2, U, V, S, P, b = adjoint_inputs(layer, X, labels, mask, recursion)
+    m2, c, q, R = U.shape
+    log(f"phase 3 adjoint shapes: 2m={m2} c={c} q={q} R={R} (b={b}, P={P})")
+    records = {}
+    with torch.inference_mode():
+        comp_plain = cuda_adjoint.affine_chunk_composites_plain(B2, U, V, S)
+        comp_kern = cuda_adjoint.affine_chunk_composites(B2, U, V, S)
+        comp5 = comp_plain.reshape(m2, b, P, q, q + 1).movedim(2, 0)
+        rights = recursion._affine_boundary_fold(comp5, torch.zeros_like(comp5[0, ..., 0]))
+        x_right = rights.movedim(0, 2).reshape(m2, R, q).transpose(-1, -2).contiguous()
+        x_plain = cuda_adjoint.affine_reverse_outputs_plain(B2, U, V, S, x_right)
+        x_kern = cuda_adjoint.affine_reverse_outputs(B2, U, V, S, x_right)
+        in_bytes = 3 * 4 * m2 * c * q * R + 4 * m2 * q * q
+        cases = {
+            "affine_chunk_composites": (
+                lambda: cuda_adjoint.affine_chunk_composites(B2, U, V, S),
+                lambda: cuda_adjoint.affine_chunk_composites_plain(B2, U, V, S),
+                comp_kern, comp_plain, in_bytes + 4 * m2 * R * q * (q + 1),
+                # per step and column: v*x (q), B @ (q*q FMAs), u* (q)
+                m2 * R * (q + 1) * c * (2 * q * q + 2 * q),
+            ),
+            "affine_reverse_outputs": (
+                lambda: cuda_adjoint.affine_reverse_outputs(B2, U, V, S, x_right),
+                lambda: cuda_adjoint.affine_reverse_outputs_plain(B2, U, V, S, x_right),
+                x_kern, x_plain, in_bytes + 4 * m2 * q * R + 4 * m2 * c * q * R,
+                m2 * R * c * (2 * q * q + 3 * q),
+            ),
+        }
+        failed = []
+        for name, (kern, plain, got, ref, nbytes, nops) in cases.items():
+            torch.cuda.synchronize()
+            err, ok = within(got, ref, 1e-5, 1e-6)
+            records[name] = measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops)
+            log(f"phase 3 {name}: {'ok' if ok else 'MISMATCH'} max_abs_err={err:.3e} (rtol 1e-05, "
+                f"atol 1e-06; |ref| max {float(ref.abs().max()):.3e}) "
+                f"{timing_text(records[name], nbytes, nops)}")
+            if not ok:
+                failed.append(name)
+    if failed:
+        raise AssertionError(f"kernels disagree with their plain versions: {failed}")
+    return records
+
+
 def e2e_phase(layer, recursion, cuda_forward, make):
     requests = [make(SEED + 1 + i, B, L) for i in range(N_REQUESTS)]
     with torch.inference_mode():
@@ -343,7 +444,7 @@ def e2e_phase(layer, recursion, cuda_forward, make):
                 raise AssertionError(f"request {i}: non-finite output")
             init, A = layer.transitions.matrices()
             E = layer.emission_probs(X)
-            lg_p, ll_p = recursion._posterior_chunked_plain(init, A, E, P, False)
+            lg_p, ll_p, _ = recursion._posterior_chunked_plain(init, A, E, P, False)
             bound = f32_log_bound(ll, L // P)
             norm_err = float(torch.logsumexp(lg, -1).abs().max())
             norm_plain = float(torch.logsumexp(lg_p, -1).abs().max())
@@ -434,12 +535,15 @@ def stage_phase(layer, X, recursion, cuda_forward):
                     ("outputs_kernel", "chunk_summaries_kernel"))
 
 
-def profile_request(phase, request, label, ours_keys):
-    """``torch.profiler`` over one synchronised request: device busy time
-    against the wall time, and the time of the kernels named ``ours_keys``."""
+def profile_request(phase, request, label, ours_keys, inference=True):
+    """``torch.profiler`` over one synchronised request (with autograd on
+    unless ``inference``): device busy time against the wall time, and the
+    time of the kernels named ``ours_keys``."""
+    import contextlib
+
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
+    with torch.inference_mode() if inference else contextlib.nullcontext():
         request()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -588,89 +692,385 @@ def decode_stage_phase(layer, X, recursion, cuda_viterbi):
                                                                    "backtrace_kernel"))
 
 
-def predict_phase(layer, recursion, cuda_viterbi):
-    """``predict`` end to end at full width on ~1 Mbp of seeded contigs."""
-    import tempfile
-
+def predict_phase(layer, recursion, cuda_viterbi, tmp):
+    """``predict`` end to end at full width on ~1 Mbp of seeded contigs,
+    its files written to ``tmp``; returns (FASTA, class probabilities,
+    GFF3)."""
     from hmm_layer_torch import cli, data
     from hmm_layer_torch.models import flip_genes, paths_to_genes, read_gff3
     from hmm_layer_torch.utils import checkpoint
 
-    window, batch, pf, overlap = 9999, 32, 33, 64
+    window, batch, pf, overlap = L, B, PF, 64
     rng = np.random.default_rng(SEED + 7)
     names = [f"ctg{i}" for i in range(len(PREDICT_CONTIGS))]
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        fasta, npz = f"{tmp}/contigs.fa", f"{tmp}/class_probs.npz"
-        ckpt, gff = f"{tmp}/params.npz", f"{tmp}/out.gff3"
-        probs = {}
-        with open(fasta, "w") as fh:
-            for name, n in zip(names, PREDICT_CONTIGS):
-                seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=n)].tobytes().decode()
-                fh.write(f">{name}\n")
-                for i in range(0, n, 80):
-                    fh.write(seq[i : i + 80] + "\n")
-                for key in (name, f"{name}__rc"):
-                    probs[key] = rng.dirichlet(np.ones(NUM_CLASSES), size=n).astype(np.float32)
-        np.savez(npz, **probs)
-        del probs
-        checkpoint.save_checkpoint(ckpt, layer)
-        log(f"phase 7 inputs: {sum(PREDICT_CONTIGS)} bp in {len(names)} contigs, class "
-            f"probabilities for both strands, checkpoint of the phase-4 layer "
-            f"({time.perf_counter() - t0:.1f} s to write)")
+    t0 = time.perf_counter()
+    fasta, npz = f"{tmp}/contigs.fa", f"{tmp}/class_probs.npz"
+    ckpt, gff = f"{tmp}/params.npz", f"{tmp}/out.gff3"
+    probs = {}
+    with open(fasta, "w") as fh:
+        for name, n in zip(names, PREDICT_CONTIGS):
+            seq = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, size=n)].tobytes().decode()
+            fh.write(f">{name}\n")
+            for i in range(0, n, 80):
+                fh.write(seq[i : i + 80] + "\n")
+            for key in (name, f"{name}__rc"):
+                probs[key] = rng.dirichlet(np.ones(NUM_CLASSES), size=n).astype(np.float32)
+    np.savez(npz, **probs)
+    del probs
+    checkpoint.save_checkpoint(ckpt, layer)
+    log(f"phase 7 inputs: {sum(PREDICT_CONTIGS)} bp in {len(names)} contigs, class "
+        f"probabilities for both strands, checkpoint of the phase-4 layer "
+        f"({time.perf_counter() - t0:.1f} s to write)")
 
-        encoded = dict(data.read_fasta_encoded(fasta))
-        n_batches = sum(len(list(data.window_batches(encoded[n], window, batch, overlap)))
-                        for n in names)
-        argv = ["predict", "-i", fasta, "-o", gff, "--class-probs", npz, "--params", ckpt,
-                "--window", str(window), "--batch", str(batch), "--parallel-factor", str(pf),
-                "--both-strands"]
-        torch.cuda.synchronize()
-        cuda_viterbi.reset_launches()
-        t0 = time.perf_counter()
-        if cli.main(argv) != 0:
-            raise AssertionError("predict returned non-zero")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(cuda_viterbi.LAUNCHES)
-        expected = {k: 2 * n_batches for k in cuda_viterbi.LAUNCHES}
-        log(f"phase 7 launches: {launches} ({n_batches} window batches per strand, both strands)")
-        if launches != expected:
-            raise AssertionError(f"predict launch counts {launches}, expected {expected}")
+    encoded = dict(data.read_fasta_encoded(fasta))
+    n_batches = sum(len(list(data.window_batches(encoded[n], window, batch, overlap)))
+                    for n in names)
+    argv = ["predict", "-i", fasta, "-o", gff, "--class-probs", npz, "--params", ckpt,
+            "--window", str(window), "--batch", str(batch), "--parallel-factor", str(pf),
+            "--both-strands"]
+    torch.cuda.synchronize()
+    cuda_viterbi.reset_launches()
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        raise AssertionError("predict returned non-zero")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(cuda_viterbi.LAUNCHES)
+    expected = {k: 2 * n_batches for k in cuda_viterbi.LAUNCHES}
+    log(f"phase 7 launches: {launches} ({n_batches} window batches per strand, both strands)")
+    if launches != expected:
+        raise AssertionError(f"predict launch counts {launches}, expected {expected}")
 
-        genes = read_gff3(gff)
-        n_genes = sum(len(g) for g in genes.values())
+    genes = read_gff3(gff)
+    n_genes = sum(len(g) for g in genes.values())
 
-        # One contig again, kernel route and plain route, both strands.
-        dlayer = checkpoint.load_checkpoint(ckpt, cli._gene_pred_layer(pf))
-        cls_for = cli._class_probs_fn(npz)
+    # One contig again, kernel route and plain route, both strands.
+    dlayer = checkpoint.load_checkpoint(ckpt, cli._gene_pred_layer(pf))
+    cls_for = cli._class_probs_fn(npz)
 
-        def plain_viterbi(x):
-            init, A = dlayer.transitions.matrices()
-            E = dlayer.emission_probs(x)
-            return recursion._viterbi_chunked_plain(init, A, E, pf)
+    def plain_viterbi(x):
+        init, A = dlayer.transitions.matrices()
+        E = dlayer.emission_probs(x)
+        return recursion._viterbi_chunked_plain(init, A, E, pf)
 
-        name = names[-1]
-        enc, n = encoded[name], len(encoded[name])
-        with torch.inference_mode():
-            kern_genes = []
-            for strand, x, cls in (("+", enc, cls_for(name, n)),
-                                   ("-", data.revcomp_onehot(enc), cls_for(f"{name}__rc", n))):
-                track = cli.decode_contig(dlayer.viterbi, x, cls, window, batch, overlap)
-                track_plain = cli.decode_contig(plain_viterbi, x, cls, window, batch, overlap)
-                if not np.array_equal(track, track_plain):
-                    raise AssertionError(f"{name} {strand}: kernel track differs from the plain route")
-                found = paths_to_genes(track, num_states=NUM_CLASSES)
-                kern_genes += found if strand == "+" else flip_genes(found, n)
-        key = lambda g: (g.start, g.end, g.strand, tuple(g.cds), tuple(g.introns))  # noqa: E731
-        if sorted(map(key, kern_genes)) != sorted(map(key, genes.get(name, []))):
-            raise AssertionError(f"{name}: GFF3 genes differ from the decoded tracks")
-        log(f"phase 7 {name}: tracks on both strands identical to the plain route; its "
-            f"{len(kern_genes)} genes equal the GFF3's")
+    name = names[-1]
+    enc, n = encoded[name], len(encoded[name])
+    with torch.inference_mode():
+        kern_genes = []
+        for strand, x, cls in (("+", enc, cls_for(name, n)),
+                               ("-", data.revcomp_onehot(enc), cls_for(f"{name}__rc", n))):
+            track = cli.decode_contig(dlayer.viterbi, x, cls, window, batch, overlap)
+            track_plain = cli.decode_contig(plain_viterbi, x, cls, window, batch, overlap)
+            if not np.array_equal(track, track_plain):
+                raise AssertionError(f"{name} {strand}: kernel track differs from the plain route")
+            found = paths_to_genes(track, num_states=NUM_CLASSES)
+            kern_genes += found if strand == "+" else flip_genes(found, n)
+    key = lambda g: (g.start, g.end, g.strand, tuple(g.cds), tuple(g.introns))  # noqa: E731
+    if sorted(map(key, kern_genes)) != sorted(map(key, genes.get(name, []))):
+        raise AssertionError(f"{name}: GFF3 genes differ from the decoded tracks")
+    log(f"phase 7 {name}: tracks on both strands identical to the plain route; its "
+        f"{len(kern_genes)} genes equal the GFF3's")
     bp = sum(PREDICT_CONTIGS)
     log(f"phase 7 predict: {bp} bp, both strands, {n_genes} genes in {wall:.3f} s: "
         f"{bp / wall:,.0f} bp/s (window {window}, batch {batch}, parallel factor {pf})")
-    return launches
+    return fasta, npz, gff
+
+
+def all_launches(cuda_forward, cuda_adjoint):
+    return {**cuda_forward.LAUNCHES, **cuda_adjoint.LAUNCHES}
+
+
+def reset_all(cuda_forward, cuda_adjoint):
+    cuda_forward.reset_launches()
+    cuda_adjoint.reset_launches()
+
+
+def param_grads(layer, objective, X, labels=None, mask=None):
+    pars = [p for p in layer.parameters() if p.requires_grad]
+    if objective == "ce":
+        value = layer.posterior_cross_entropy(X, labels, label_mask=mask)
+    else:
+        value = layer.loss(X)
+    return value.detach(), torch.autograd.grad(value, pars)
+
+
+def plain_route(recursion):
+    """Context: the layer's recursions take their plain routes on the card
+    (no K1–K5), for the route comparison."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = recursion._use_kernels, recursion._use_affine_kernels
+        recursion._use_kernels = recursion._use_affine_kernels = lambda x: False
+        try:
+            yield
+        finally:
+            recursion._use_kernels, recursion._use_affine_kernels = saved
+
+    return ctx()
+
+
+def training_phase(layer, make, recursion, cuda_forward, cuda_adjoint, smi):
+    """``Trainer`` steps of the posterior CE and of the MAP loss at the
+    flagship shape, with their launch counts and checks. Returns the
+    launches of the CE run."""
+    import functools
+
+    from hmm_layer_torch.training import Trainer
+
+    X = make(SEED + 21, B, L)
+    labels, mask = ce_targets(layer, X)
+    batch = {"x": X, "labels": labels, "mask": mask}
+    before = [p.detach().clone() for p in layer.parameters() if p.requires_grad]
+
+    def ce_loss(batch, indices):
+        return layer.posterior_cross_entropy(batch["x"], batch["labels"], label_mask=batch["mask"])
+
+    adam = functools.partial(torch.optim.Adam, lr=1e-2)
+    trainer = Trainer(layer, optimizer=adam, loss_fn=ce_loss)
+    trainer.init_from_params()
+    torch.cuda.synchronize()
+    total = {}
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        reset_all(cuda_forward, cuda_adjoint)
+        t0 = time.perf_counter()
+        loss = trainer.fit([batch])
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = all_launches(cuda_forward, cuda_adjoint)
+        losses.append(float(loss))
+        log(f"phase 8 CE step {i + 1}: loss {losses[-1]:.6f}, {step_ms[-1]:.3f} ms, launches {launches}")
+        if any(v != 1 for v in launches.values()):
+            raise AssertionError(f"CE step {i + 1}: launch counts {launches}, expected 1 each of K1-K5")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    with torch.no_grad():
+        after = float(ce_loss(batch, None))
+    moved = [not torch.equal(p.detach(), p0) for p, p0 in
+             zip([p for p in layer.parameters() if p.requires_grad], before)]
+    med = statistics.median(step_ms[1:])
+    log(f"phase 8 CE training: {med:.3f} ms/step median of steps 2-{TRAIN_STEPS} "
+        f"{[round(t, 3) for t in step_ms]}, {B / (med / 1e3):.1f} seqs/s (b={B}, L={L}, P={PF}, "
+        f"Adam 1e-2) on {smi}; loss {losses[0]:.6f} at step 1 -> {after:.6f} after step "
+        f"{TRAIN_STEPS}; every trainable parameter moved: {all(moved)}")
+    if not all(np.isfinite(losses + [after])) or not after < losses[0] or not all(moved):
+        raise AssertionError("posterior-CE training: loss not finite, not falling, or a parameter did not move")
+
+    map_trainer = Trainer(layer, optimizer=adam)
+    map_trainer.init_from_params()
+    map_ms = []
+    for i in range(MAP_STEPS):
+        reset_all(cuda_forward, cuda_adjoint)
+        t0 = time.perf_counter()
+        loss = map_trainer.fit([X])
+        torch.cuda.synchronize()
+        map_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = all_launches(cuda_forward, cuda_adjoint)
+        log(f"phase 8 MAP step {i + 1}: loss {float(loss):.3f}, {map_ms[-1]:.3f} ms, launches {launches}")
+        expected = {"sum_chunk_summaries": 1, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1,
+                    "affine_chunk_composites": 0, "affine_reverse_outputs": 0}
+        if launches != expected or not np.isfinite(float(loss)):
+            raise AssertionError(f"MAP step {i + 1}: launch counts {launches}, expected {expected}")
+    log(f"phase 8 MAP training: {map_ms[-1]:.3f} ms/step (step {MAP_STEPS}), "
+        f"{B / (map_ms[-1] / 1e3):.1f} seqs/s")
+    return total, X, labels, mask
+
+
+def gradient_checks(layer, X, labels, mask, make, recursion):
+    """Kernel-route gradients of every parameter against the plain route
+    at the flagship shape, and against float64 autograd through the
+    sequential engine at b=2, L=1200.
+
+    Route limit: 1e-4 of the gradient's max, or, where larger, the largest
+    difference between the two routes' posteriors gamma on the same input.
+    Both routes carry log-scales of |loglik| (1.1e5 at L=9999, float32
+    spacing 2^-7) that they round independently, so their gammas already
+    differ by a few 1e-2 at the flagship (phase 4); the gradients are built
+    from those gammas and cannot agree more closely.
+    """
+    names = [n for n, p in layer.named_parameters() if p.requires_grad]
+    with torch.no_grad():
+        lg_k = layer.state_posterior_log_probs(X)
+        with plain_route(recursion):
+            lg_p = layer.state_posterior_log_probs(X)
+        d_gamma = float((lg_k.exp() - lg_p.exp()).abs().max())
+    limit = max(1e-4, d_gamma)
+    for objective in ("ce", "map"):
+        v_k, g_k = param_grads(layer, objective, X, labels, mask)
+        with plain_route(recursion):
+            v_p, g_p = param_grads(layer, objective, X, labels, mask)
+        rel = [float((a - r).abs().max() / r.abs().max()) for a, r in zip(g_k, g_p)]
+        log(f"phase 8 gradients {objective} (b={B}, L={L}): kernel route vs plain route on the card, "
+            f"max |diff| / max |plain| per parameter {dict(zip(names, [f'{x:.3e}' for x in rel]))} "
+            f"(limit {limit:.3e}: max of 1e-4 and the routes' gamma difference); loss "
+            f"{float(v_k):.6f} vs {float(v_p):.6f}")
+        if max(rel) > limit:
+            raise AssertionError(f"{objective}: kernel-route gradients differ from the plain route")
+
+    # float64 oracle: the same float32 init, A and E, the sequential
+    # recursion in float64, autograd back to the parameters.
+    Xs = make(SEED + 31, 2, 1200)
+    labels_s, mask_s = ce_targets(layer, Xs)
+    pars = [p for p in layer.parameters() if p.requires_grad]
+    init, A = layer.transitions.matrices()
+    E = layer.emission_probs(Xs, training=True)
+    lg, _ = recursion.posterior(init.double(), A.double(), E.double(), 1)
+    ce = -torch.gather(lg, -1, labels_s[None, ..., None])[..., 0]
+    g64 = torch.autograd.grad((ce * mask_s).sum() / mask_s.sum(), pars)
+    _, g_k = param_grads(layer, "ce", Xs, labels_s, mask_s)
+    with plain_route(recursion):
+        _, g_p = param_grads(layer, "ce", Xs, labels_s, mask_s)
+    err_k = [float((a - r).abs().max() / r.abs().max()) for a, r in zip(g_k, g64)]
+    err_p = [float((a - r).abs().max() / r.abs().max()) for a, r in zip(g_p, g64)]
+    limits = [max(5e-4, 1.25 * e + 1e-5) for e in err_p]
+    log(f"phase 8 gradients ce (b=2, L=1200, P={layer._pf(E)}) vs float64 sequential autograd, "
+        f"max |diff| / max |f64| per parameter: kernel route {[f'{x:.3e}' for x in err_k]}, plain "
+        f"route {[f'{x:.3e}' for x in err_p]}; limit max(5e-4, 1.25 x plain route + 1e-5)")
+    if any(e > lim for e, lim in zip(err_k, limits)):
+        raise AssertionError("kernel-route gradients are further from float64 than the float32 bound")
+
+
+def stage_clock(recursion, stage_of, stages):
+    """Context: each function ``name`` of ``recursion`` in ``stage_of`` is
+    wrapped with a synchronised host clock whose ms add up under
+    ``stages[stage_of[name]]``; the originals are restored on exit."""
+    import contextlib
+
+    originals = {name: getattr(recursion, name) for name in stage_of}
+
+    def wrap(name):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            key = stage_of[name]
+            stages[key] = stages.get(key, 0.0) + 1e3 * (time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    @contextlib.contextmanager
+    def ctx():
+        for name in stage_of:
+            setattr(recursion, name, wrap(name))
+        try:
+            yield
+        finally:
+            for name, fn in originals.items():
+                setattr(recursion, name, fn)
+
+    return ctx()
+
+
+def backward_stage_split(layer, X, labels, mask, recursion):
+    """One posterior-CE backward split into its stages (each stage function
+    of the analytic VJP timed, synchronised), then one MAP step's forward
+    and backward likewise."""
+    stage_of = {
+        "_forward_adjoint_weights": "adjoint weights",
+        "_backward_adjoint_weights": "adjoint weights",
+        "_affine_composites": "K4 affine_chunk_composites (with lane layout)",
+        "_affine_boundary_fold": "boundary fold (P affine steps)",
+        "_affine_outputs": "K5 affine_reverse_outputs (with lane layout)",
+        "_posterior_analytic_vjp": "analytic VJP",
+    }
+    stages = {}
+    pars = [p for p in layer.parameters() if p.requires_grad]
+    for _ in range(2):  # second pass is the one kept
+        stages.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = layer.posterior_cross_entropy(X, labels, label_mask=mask)
+        torch.cuda.synchronize()
+        forward_ms = 1e3 * (time.perf_counter() - t0)
+        with stage_clock(recursion, stage_of, stages):
+            t0 = time.perf_counter()
+            torch.autograd.grad(loss, pars)
+            torch.cuda.synchronize()
+            backward_ms = 1e3 * (time.perf_counter() - t0)
+    vjp = stages.pop("analytic VJP")
+    inner = sum(stages.values())
+    stages["gamma, centred source, stacking; gE, ginit and gA assembly"] = vjp - inner
+    stages["CE, emission and transition backward (autograd)"] = backward_ms - vjp
+    log(f"phase 8 forward (posterior CE, K1-K3): {forward_ms:.3f} ms")
+    for name, ms in stages.items():
+        log(f"phase 8 backward stage {name}: {ms:.3f} ms ({100 * ms / backward_ms:.1f}%)")
+    log(f"phase 8 backward total: {backward_ms:.3f} ms (synchronised after each stage)")
+
+    map_stage_of = {
+        "_chunk_summaries_dispatch": "K1 sum_chunk_summaries (with layout)",
+        "_loglik_from_C": "forward fold (P logmatvec steps)",
+        "_boundary_values": "backward boundary fold (prefix and suffix)",
+        "_outputs_kernels": "K2 + K3 (with boundary starts)",
+        "_loglik_bw_stats": "Baum-Welch statistics (gE, ginit, gA)",
+    }
+    for _ in range(2):
+        stages.clear()
+        with stage_clock(recursion, map_stage_of, stages):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.autograd.grad(layer.loss(X), pars)
+            torch.cuda.synchronize()
+            map_ms = 1e3 * (time.perf_counter() - t0)
+    stages["emissions, transitions, loss and autograd"] = map_ms - sum(stages.values())
+    for name, ms in stages.items():
+        log(f"phase 8 MAP stage {name}: {ms:.3f} ms ({100 * ms / map_ms:.1f}%)")
+    log(f"phase 8 MAP forward + backward total: {map_ms:.3f} ms (synchronised after each stage)")
+
+
+def train_cli_phase(fasta, npz, gff, cuda_forward, cuda_adjoint, tmp):
+    """``python -m hmm_layer_torch train`` in-process on phase 7's files,
+    then ``predict --params`` on the checkpoint it wrote."""
+    from hmm_layer_torch import cli
+    from hmm_layer_torch.models import flip_genes, genes_to_states, read_gff3, write_gff3
+
+    window, batch, pf = L, B, PF
+    out, pred = f"{tmp}/trained.npz", f"{tmp}/trained_pred.gff3"
+    lengths = {f"ctg{i}": n for i, n in enumerate(PREDICT_CONTIGS)}
+
+    def labelable(g, n):
+        """Whether a state track can label ``g``: fragments cut at window
+        borders (introns without CDS, CDS phases that do not chain) cannot."""
+        if g.strand == "-":
+            g = flip_genes([g], n)[0]
+        try:
+            genes_to_states([g], n, num_states=NUM_CLASSES)
+        except ValueError:
+            return False
+        return True
+
+    found = read_gff3(gff)
+    genes = {name: [g for g in gs if labelable(g, lengths[name])] for name, gs in found.items()}
+    gff = f"{tmp}/reference.gff3"
+    write_gff3(genes, gff)
+    log(f"phase 8 reference annotation: {sum(map(len, genes.values()))} of phase 7's "
+        f"{sum(map(len, found.values()))} genes (the rest are window-border fragments)")
+    argv = ["train", "-i", fasta, "-a", gff, "-o", out, "--class-probs", npz, "--objective", "ce",
+            "--both-strands", "--window", str(window), "--batch", str(batch),
+            "--parallel-factor", str(pf), "--steps", str(CLI_STEPS)]
+    torch.cuda.synchronize()
+    reset_all(cuda_forward, cuda_adjoint)
+    t0 = time.perf_counter()
+    if cli.main(argv) != 0:
+        raise AssertionError("train returned non-zero")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches(cuda_forward, cuda_adjoint)
+    log(f"phase 8 train CLI launches: {launches} ({CLI_STEPS} steps)")
+    if launches != {k: CLI_STEPS for k in launches}:
+        raise AssertionError(f"train launch counts {launches}, expected {CLI_STEPS} each")
+    bp = CLI_STEPS * batch * window
+    log(f"phase 8 train CLI: {CLI_STEPS} steps of {batch} x {window} bp = {bp} bp in {wall:.3f} s "
+        f"(whole command: FASTA, GFF3 and class probabilities read, windows and labels built): "
+        f"{bp / wall:,.0f} bp/s")
+    if cli.main(["predict", "-i", fasta, "-o", pred, "--class-probs", npz, "--params", out,
+                 "--window", str(window), "--batch", str(batch), "--parallel-factor", str(pf)]) != 0:
+        raise AssertionError("predict --params on the trained checkpoint returned non-zero")
+    n_genes = sum(len(g) for g in read_gff3(pred).values())
+    log(f"phase 8 predict --params {out.rsplit('/', 1)[-1]}: loaded, {n_genes} genes on the plus strands")
 
 
 def main() -> int:
@@ -680,7 +1080,7 @@ def main() -> int:
         return 1
     try:
         from hmm_layer_torch import HMMLayer, models
-        from hmm_layer_torch.ops import _cuda_build, cuda_forward, cuda_viterbi, recursion
+        from hmm_layer_torch.ops import _cuda_build, cuda_adjoint, cuda_forward, cuda_viterbi, recursion
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 1
@@ -715,6 +1115,9 @@ def main() -> int:
     # 3. Kernels against their plain versions
     records, P = kernel_phase(layer, X, recursion, cuda_forward, peak_bytes, peak_flops)
     records.update(viterbi_kernel_phase(layer, X, recursion, cuda_viterbi, peak_bytes, peak_flops))
+    labels, mask = ce_targets(layer, X)
+    records.update(adjoint_kernel_phase(layer, X, labels, mask, recursion, cuda_adjoint,
+                                        peak_bytes, peak_flops))
 
     # 4. End to end
     launches, request_ms, post_ms, post_all = e2e_phase(layer, recursion, cuda_forward, make)
@@ -732,10 +1135,30 @@ def main() -> int:
         f"{max(decode_ms):.3f}], {B / (med / 1e3):.1f} seqs/sec (b={B}, L={L}, P={P}) on {smi}")
     decode_stage_phase(layer, X, recursion, cuda_viterbi)
 
-    # 7. Predict
-    predict_phase(layer, recursion, cuda_viterbi)
+    with tempfile.TemporaryDirectory() as tmp:
+        # 7. Predict
+        fasta, npz, gff = predict_phase(layer, recursion, cuda_viterbi, tmp)
+
+        # 8. Training
+        t0 = time.perf_counter()
+        train_launches, Xt, labels, mask = training_phase(
+            layer, make, recursion, cuda_forward, cuda_adjoint, smi)
+        gradient_checks(layer, Xt, labels, mask, make, recursion)
+        backward_stage_split(layer, Xt, labels, mask, recursion)
+        trainer_step = torch.optim.Adam([p for p in layer.parameters() if p.requires_grad], lr=1e-2)
+
+        def ce_step():
+            trainer_step.zero_grad()
+            layer.posterior_cross_entropy(Xt, labels, label_mask=mask).backward()
+            trainer_step.step()
+
+        profile_request("phase 8", ce_step, "K1-K5", ("outputs_kernel", "chunk_summaries_kernel",
+                                                       "affine_"), inference=False)
+        train_cli_phase(fasta, npz, gff, cuda_forward, cuda_adjoint, tmp)
+        log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
     launches.update(decode_launches)
+    launches.update({k: train_launches[k] for k in cuda_adjoint.LAUNCHES})
     for name, rec in records.items():
         rec["launches"] = launches[name]
     print(json.dumps({"kernels": list(records.values())}), flush=True)

@@ -33,6 +33,7 @@ _EXPORTS = {
     "viterbi": ".ops.recursion",
     "recommended_parallel_factor": ".ops.recursion",
     "ForwardResult": ".ops.recursion",
+    "Trainer": ".training",
     "load_jax_params": ".convert",
     "params_from_jax": ".convert",
 }

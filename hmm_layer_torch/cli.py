@@ -1,16 +1,24 @@
-"""Command-line entry point of the port: ``python -m hmm_layer_torch predict``.
+"""Command-line entry points of the port: ``python -m hmm_layer_torch
+<command>``, with the JAX package's arguments and defaults
+(``python -m hmm_layer_tpu <command>``).
 
-``predict`` Viterbi-decodes DNA contigs through the 15-state gene-pred HMM
-(optionally with upstream class probabilities and trained parameters) and
-writes a GFF3 annotation, with the JAX package's arguments and defaults
-(``python -m hmm_layer_tpu predict``). It runs on the GPU unless ``--cpu``
-is given, and raises where there is no GPU. ``--params`` reads the
-``.npz`` checkpoints that both packages write
-(:mod:`~hmm_layer_torch.utils.checkpoint`).
+* ``predict`` — Viterbi-decode DNA contigs through the 15-state gene-pred
+  HMM (optionally with upstream class probabilities and trained
+  parameters) and write a GFF3 annotation.
+* ``train`` — supervised training of the gene-pred HMM against a reference
+  GFF3 (posterior cross-entropy on state labels from
+  :func:`~hmm_layer_torch.models.annotation.genes_to_states`) or
+  unsupervised MAP training; writes a parameter checkpoint that
+  ``predict --params`` reads.
+* ``evaluate`` — nucleotide/exon/gene precision, recall and F1 of one GFF3
+  against another.
 
-The ``align``, ``train`` and ``evaluate`` commands are not ported yet
-(ROADMAP Queue 1 items 8, 10, 12). Heavy imports happen inside the
-commands, so ``import hmm_layer_torch.cli`` initialises no CUDA.
+``predict`` and ``train`` run on the GPU unless ``--cpu`` is given, and
+raise where there is no GPU. Checkpoints are the ``.npz`` files that both
+packages write (:mod:`~hmm_layer_torch.utils.checkpoint`). The ``align``
+command is not ported yet (ROADMAP Queue 1 items 10, 12). Heavy imports
+happen inside the commands, so ``import hmm_layer_torch.cli`` initialises
+no CUDA.
 """
 
 from __future__ import annotations
@@ -55,6 +63,43 @@ def build_parser() -> argparse.ArgumentParser:
     pr.add_argument("--parallel-factor", type=int, default=8)
     pr.add_argument("--cpu", action="store_true",
                     help="run on the CPU (default: the GPU)")
+
+    tr = sub.add_parser(
+        "train", help="train the gene-prediction HMM on annotated contigs"
+    )
+    tr.add_argument("-i", "--input", required=True, help="DNA FASTA")
+    tr.add_argument("-a", "--annotation", default=None,
+                    help="reference GFF3 (required for --objective ce)")
+    tr.add_argument("-o", "--output", required=True,
+                    help="parameter checkpoint out (.npz; predict --params "
+                         "loads it)")
+    tr.add_argument("--objective", choices=("ce", "map"), default="ce",
+                    help="ce = posterior cross-entropy vs annotation labels "
+                         "(supervised); map = maximum a-posteriori "
+                         "log-likelihood (unsupervised)")
+    tr.add_argument("--class-probs", default=None,
+                    help=".npz of per-contig (L, 15) class probabilities "
+                         "(keys = contig names)")
+    tr.add_argument("--both-strands", action="store_true",
+                    help="also train on reverse-complemented contigs "
+                         "labeled from minus-strand genes")
+    tr.add_argument("--resume", default=None,
+                    help="parameter checkpoint to start from")
+    tr.add_argument("--steps", type=int, default=200)
+    tr.add_argument("--lr", type=float, default=0.01)
+    tr.add_argument("--window", type=int, default=512)
+    tr.add_argument("--overlap", type=int, default=0)
+    tr.add_argument("--batch", type=int, default=8)
+    tr.add_argument("--parallel-factor", type=int, default=8)
+    tr.add_argument("--seed", type=int, default=0)
+    tr.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (default: the GPU)")
+
+    ev = sub.add_parser(
+        "evaluate", help="score a predicted GFF3 against a reference GFF3"
+    )
+    ev.add_argument("--pred", required=True, help="predicted GFF3")
+    ev.add_argument("--truth", required=True, help="reference GFF3")
     return ap
 
 
@@ -186,10 +231,136 @@ def _predict(args) -> int:
     return 0
 
 
+def _training_windows(enc, cls, track, window, batch, overlap, device):
+    """Supervised window batches of one (possibly reverse-complemented)
+    encoded contig: ``{"x", "labels", "mask"}`` on ``device``, the mask 1
+    on the contig's positions and 0 on padding and fill windows."""
+    import numpy as np
+    import torch
+
+    from . import data
+
+    L = enc.shape[0]
+    enc = np.concatenate([cls, enc], axis=-1)
+    out = []
+    for wins, starts in data.window_batches(enc, window, batch, overlap):
+        labels = np.zeros(wins.shape[:2], np.int32)
+        mask = np.zeros(wins.shape[:2], np.float32)
+        for i, st in enumerate(starts):
+            if st < 0:
+                continue
+            n = min(st + window, L) - st
+            mask[i, :n] = 1.0
+            if track is not None:
+                labels[i, :n] = track[st : st + n]
+        out.append({
+            key: torch.from_numpy(value[None]).to(device)
+            for key, value in (("x", wins), ("labels", labels), ("mask", mask))
+        })
+    return out
+
+
+def _train(args) -> int:
+    if args.objective == "ce" and not args.annotation:
+        print("error: --objective ce requires -a/--annotation", file=sys.stderr)
+        return 2
+
+    import functools
+
+    import torch
+
+    from . import data
+    from .models import flip_genes, genes_to_states, read_gff3
+    from .training import Trainer
+    from .utils import checkpoint as ckpt
+
+    pf = max(1, args.parallel_factor)
+    window = max(pf, args.window - args.window % pf)
+    overlap = min(args.overlap, window - 1)
+    layer = _gene_pred_layer(pf, "cpu" if args.cpu else None)
+    class_probs_for = _class_probs_fn(args.class_probs)
+    annot = read_gff3(args.annotation) if args.annotation else {}
+
+    def windows_of(name, enc, genes):
+        L = enc.shape[0]
+        track = None if genes is None else genes_to_states(genes, L, num_states=15)
+        cls = class_probs_for(name, L, required=False)
+        return _training_windows(enc, cls, track, window, args.batch, overlap, layer.device)
+
+    batches, skipped_minus = [], 0
+    for name, enc in data.read_fasta_encoded(args.input):
+        L = enc.shape[0]
+        plus = minus = None
+        if args.objective == "ce":
+            # Window-truncated intron-only fragments cannot be labeled;
+            # complete annotations never contain them.
+            plus = [g for g in annot.get(name, []) if g.strand == "+"]
+            minus = flip_genes([g for g in annot.get(name, []) if g.strand == "-"], L)
+            for g in minus:
+                g.strand = "+"  # now in reverse-complement forward coordinates
+            if minus and not args.both_strands:
+                skipped_minus += len(minus)
+        batches.extend(windows_of(name, enc, plus))
+        if args.both_strands:
+            batches.extend(windows_of(f"{name}__rc", data.revcomp_onehot(enc), minus))
+    if not batches:
+        print(f"error: no sequences in {args.input}", file=sys.stderr)
+        return 2
+    if skipped_minus:
+        print(f"note: {skipped_minus} minus-strand genes ignored "
+              "(pass --both-strands to train on them)")
+
+    if args.objective == "ce":
+        def loss_fn(batch, indices):
+            return layer.posterior_cross_entropy(
+                batch["x"], batch["labels"], label_mask=batch["mask"]
+            )
+    else:
+        def loss_fn(batch, indices):
+            return layer.loss(batch["x"])
+
+    trainer = Trainer(
+        layer, optimizer=functools.partial(torch.optim.Adam, lr=args.lr), loss_fn=loss_fn
+    )
+    trainer.init(args.seed, input_dim=15)
+    if args.resume:
+        ckpt.load_checkpoint(args.resume, layer)
+
+    def cycle(n_steps):
+        step = 0
+        while True:
+            for b in batches:
+                if step >= n_steps:
+                    return
+                yield b
+                step += 1
+
+    print(f"training ({args.objective}) on {len(batches)} window batches "
+          f"(window={window}, batch={args.batch}) for {args.steps} steps ...")
+    loss = trainer.fit(cycle(args.steps))
+    ckpt.save_checkpoint(args.output, layer, step=args.steps)
+    print(f"final loss {float(loss):.4f}; wrote {args.output}")
+    return 0
+
+
+def _evaluate(args) -> int:
+    import json
+
+    from .models import evaluate_annotation, read_gff3
+
+    metrics = evaluate_annotation(read_gff3(args.pred), read_gff3(args.truth))
+    print(json.dumps(metrics, indent=2))
+    return 0
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.command == "predict":
         return _predict(args)
+    if args.command == "train":
+        return _train(args)
+    if args.command == "evaluate":
+        return _evaluate(args)
     raise AssertionError(args.command)
 
 

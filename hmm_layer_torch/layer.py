@@ -6,9 +6,15 @@ modules and so their parameters. Its methods take the raw inputs
 with their ``params`` argument dropped. The layer lives on one device:
 the GPU unless the caller asks for another (``device="cpu"``).
 
-Not ported yet: ``loss``, ``posterior_cross_entropy``,
-``sample_paths``, the prior and sequence weights (ROADMAP Queue 1 items
-5-9), and the ``mesh``/``partition`` routes (item 13).
+Training objectives: :meth:`HMMLayer.loss` (MAP: weighted mean
+log-likelihood, scaled prior, auxiliary losses) and
+:meth:`HMMLayer.posterior_cross_entropy` (supervised, against state
+labels); their gradients at ``parallel_factor`` > 1 are the analytic
+chunked VJPs of :mod:`.ops.recursion`.
+
+Not ported yet: ``sample_paths`` (ROADMAP Queue 1 item 9), the sparse
+route and its fused cross-entropy (item 11), and the ``mesh``/``partition``
+routes (item 13).
 """
 
 from __future__ import annotations
@@ -40,10 +46,11 @@ class HMMLayer(nn.Module):
         transitions: transition module (``matrices() -> (init, A)``).
         emissions: emission module or list of modules; their per-state
             probabilities are multiplied.
-        num_seqs: dataset size used to scale the prior (kept in the config;
-            the prior itself is not ported yet).
-        use_prior: add the prior to the training objective (kept in the
-            config; likewise).
+        num_seqs: dataset size used to scale the prior.
+        use_prior: add the prior to the training objective.
+        sequence_weights: optional per-sequence weights, looked up by the
+            ``indices`` argument of :meth:`loss` (a buffer, not a
+            parameter: it is left out of ``state_dict`` and checkpoints).
         parallel_factor: chunked-parallel factor along the sequence axis
             (must divide the sequence length), or ``"auto"`` for
             :func:`~hmm_layer_torch.ops.recursion.recommended_parallel_factor`
@@ -58,6 +65,7 @@ class HMMLayer(nn.Module):
         emissions,
         num_seqs: int | None = None,
         use_prior: bool = True,
+        sequence_weights=None,
         parallel_factor: int | str = 1,
         device=None,
     ):
@@ -74,6 +82,12 @@ class HMMLayer(nn.Module):
         )
         self.num_seqs = num_seqs
         self.use_prior = use_prior
+        self.register_buffer(
+            "sequence_weights",
+            None if sequence_weights is None
+            else torch.as_tensor(sequence_weights, dtype=torch.float32),
+            persistent=False,
+        )
         self.parallel_factor = parallel_factor
         self.to(_resolve_device(device))
 
@@ -141,6 +155,114 @@ class HMMLayer(nn.Module):
         init, A, E = self._ingredients(inputs, end_hints, False)
         return recursion.viterbi(init, A, E, self._pf(E, for_viterbi=True))
 
+    # -- priors / weights / losses ------------------------------------------------
+
+    def reset_parameters(self, generator: torch.Generator | None = None, input_dim: int | None = None):
+        """Every component back to its initial parameters (the JAX
+        ``init_params``): transition noise from ``generator``, emission
+        kernels ``input_dim`` class channels wide."""
+        self.transitions.reset_parameters(generator)
+        for em in self.emissions:
+            em.reset_parameters(input_dim)
+
+    def compute_prior(self, scaled: bool = True):
+        """Summed parameter prior per model; (m,)."""
+        prior = self.transitions.prior_log_density()
+        for em in self.emissions:
+            prior = prior + em.prior_log_density()
+        return self._scale_prior(prior) if scaled else prior
+
+    def _scale_prior(self, prior):
+        if self.sequence_weights is not None:
+            return prior / self.sequence_weights.sum()
+        if self.num_seqs is not None:
+            return prior / self.num_seqs
+        return prior
+
+    def aux_loss(self):
+        return sum(em.aux_loss() for em in self.emissions)
+
+    def apply_sequence_weights(self, loglik, indices, aggregate: bool = False):
+        """``loglik`` (m, b) times each sequence's weight (looked up by
+        ``indices``); with ``aggregate`` the weighted mean, a scalar."""
+        if self.sequence_weights is not None:
+            if indices is None:
+                raise ValueError(
+                    "sequence_weights are set but no batch `indices` were "
+                    "passed — weights are looked up per sequence; indexing "
+                    "with None would silently add an axis instead"
+                )
+            weights = self.sequence_weights[torch.as_tensor(indices, device=self.device).long()]
+            loglik = loglik * weights
+            if aggregate:
+                loglik = (loglik.sum(1) / weights.sum(1)).mean()
+        elif aggregate:
+            loglik = loglik.mean()
+        return loglik
+
+    def loss(self, inputs, indices=None, training=True, end_hints=None):
+        """Negative (MAP) training objective, scalar: mean weighted loglik
+        + scaled prior − aux losses, negated. ``end_hints`` clamp
+        chunk-border emissions (hint-constrained MAP training)."""
+        ll = self.log_likelihood(inputs, end_hints=end_hints, training=training)
+        objective = self.apply_sequence_weights(ll, indices, aggregate=True)
+        if self.use_prior:
+            objective = objective + self.compute_prior().mean()
+        return -objective + self.aux_loss()
+
+    def posterior_cross_entropy(
+        self,
+        inputs,
+        labels,
+        label_mask=None,
+        end_hints=None,
+        training=True,
+        no_loglik=False,
+    ):
+        """Supervised training objective: mean cross-entropy between the
+        posterior state marginals and per-position state labels, scalar.
+
+        The Tiberius training mode of the gene-pred family; labels come
+        from reference annotations via
+        :func:`~hmm_layer_torch.models.annotation.genes_to_states`.
+
+        Args:
+          labels: int state tracks, ``(m, b, L)`` or ``(b, L)`` (broadcast
+            over models).
+          label_mask: optional weights of the same shape (mask padding or
+            unannotated positions); the mean is over their sum (at least 1).
+          no_loglik: skip the loglik normalisation inside the posterior (the
+            CE then also penalises total mass).
+
+        Returns:
+          scalar loss: mean CE − scaled prior (if ``use_prior``) + aux.
+        """
+        lg = self.state_posterior_log_probs(
+            inputs, end_hints=end_hints, training=training, no_loglik=no_loglik
+        )
+        labels = torch.as_tensor(labels, device=lg.device).long()
+        if labels.dim() == lg.dim() - 2:
+            labels = labels[None].expand(lg.shape[:-1])
+        ce = -torch.gather(lg, -1, labels[..., None])[..., 0]
+        if label_mask is not None:
+            mask = torch.as_tensor(label_mask, dtype=ce.dtype, device=ce.device).expand(ce.shape)
+            ce_mean = (ce * mask).sum() / mask.sum().clamp_min(1.0)
+        else:
+            ce_mean = ce.mean()
+        loss = ce_mean
+        if self.use_prior:
+            loss = loss - self.compute_prior().mean()
+        return loss + self.aux_loss()
+
+    def forward(self, inputs, indices=None, training=False, end_hints=None):
+        """``layer(inputs)``: (loglik (m, b), aggregated loglik[, prior
+        (m,), aux_loss])."""
+        ll = self.log_likelihood(inputs, end_hints=end_hints, training=training)
+        ll_mean = self.apply_sequence_weights(ll, indices, aggregate=True)
+        if self.use_prior:
+            return ll, ll_mean, self.compute_prior(), self.aux_loss()
+        return ll, ll_mean
+
     # -- config -----------------------------------------------------------------
 
     def get_config(self) -> dict:
@@ -155,6 +277,36 @@ class HMMLayer(nn.Module):
             "emissions": [spec(em) for em in self.emissions],
             "num_seqs": self.num_seqs,
             "use_prior": self.use_prior,
-            "sequence_weights": None,
+            "sequence_weights": (
+                None
+                if self.sequence_weights is None
+                else self.sequence_weights.cpu().numpy().tolist()
+            ),
             "parallel_factor": self.parallel_factor,
         }
+
+    @classmethod
+    def from_config(cls, config: dict, device=None):
+        """The layer :meth:`get_config` describes, its components built by
+        class name from :mod:`hmm_layer_torch.models`, on ``device`` (the
+        GPU unless told otherwise)."""
+        from . import models
+
+        def build(spec):
+            component_cls = getattr(models, spec["class"], None)
+            if component_cls is None:
+                raise ValueError(
+                    f"unknown component class {spec['class']!r} (must be "
+                    "exported from hmm_layer_torch.models)"
+                )
+            return component_cls.from_config(spec["config"])
+
+        return cls(
+            build(config["transitions"]),
+            [build(s) for s in config["emissions"]],
+            num_seqs=config.get("num_seqs"),
+            use_prior=config.get("use_prior", True),
+            sequence_weights=config.get("sequence_weights"),
+            parallel_factor=config.get("parallel_factor", 1),
+            device=device,
+        )

@@ -131,6 +131,21 @@ class SimpleGenePredEmissions(nn.Module):
     def make_B(self):
         return torch.softmax(self.emission_kernel, dim=-1)
 
+    def reset_parameters(self, input_dim: int | None = None) -> None:
+        """A fresh ``emission_kernel`` from ``init``, ``input_dim`` class
+        channels wide for a scalar ``init``."""
+        kernel = self._initial_kernel(input_dim).to(self.emission_kernel.device)
+        self.emission_kernel = nn.Parameter(kernel, requires_grad=self.trainable_emissions)
+
+    def prior_log_density(self) -> torch.Tensor:
+        """(num_models,) zeros: no emission prior in the default modes."""
+        return torch.zeros(self.num_models, device=self.emission_kernel.device)
+
+    def aux_loss(self) -> torch.Tensor:
+        """Scalar zero: only the unported ``emit_embeddings`` mode has an
+        auxiliary loss (ROADMAP Queue 1 item 4)."""
+        return torch.zeros((), device=self.emission_kernel.device)
+
     def _expand_shared_introns(self, emit):
         if not self.share_intron_parameters:
             return emit

@@ -159,6 +159,18 @@ class SimpleGenePredTransitions(nn.Module):
         """(init (m, q), A (m, q, q))."""
         return self.make_initial_distribution(), self.make_A()
 
+    def prior_log_density(self) -> torch.Tensor:
+        """(num_models,) zeros: the grammar carries no prior by default."""
+        return torch.zeros(self.num_models, device=self.transition_kernel.device)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """Back to the initial logits, with fresh ``init_component_sd``
+        noise from ``generator``."""
+        init = torch.from_numpy(self.make_transition_init(generator))
+        self.transition_kernel.copy_(init)
+        self.starting_distribution_kernel.zero_()
+
     def get_config(self) -> dict:
         return {
             "num_models": self.num_models,

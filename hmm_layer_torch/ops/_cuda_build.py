@@ -23,6 +23,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "sum_product": _PKG / "csrc" / "sum_product.cu",
     "max_plus": _PKG / "csrc" / "max_plus.cu",
+    "affine": _PKG / "csrc" / "affine.cu",
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -42,6 +43,10 @@ SIGNATURES = {
         "hmm_maxplus_chunk_summaries": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "hmm_maxplus_deltas": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "hmm_maxplus_backtrace": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "affine": {
+        "hmm_affine_chunk_composites": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "hmm_affine_reverse_outputs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

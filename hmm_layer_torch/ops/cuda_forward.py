@@ -19,10 +19,12 @@ Layouts (R = b·P chunk elements, lane ``r`` = sequence ``r // P``, chunk
   border j | left border i)``.
 * log alpha / log beta (m, c, q, R).
 
-The kernels are forward only: on CUDA each launch is wrapped in an
-``autograd.Function`` whose backward raises (the analytic adjoints and
-their kernels are ROADMAP Queue 1 item 6), so no gradient is silently
-dropped.
+The kernels have no backward of their own: on CUDA each launch is wrapped
+in an ``autograd.Function`` whose backward raises, so no gradient is
+silently dropped. Gradients come from the analytic VJPs of
+:mod:`.recursion` (``_LoglikChunked``, ``_PosteriorChunked``, ...), which
+launch these kernels in their forward, where autograd records nothing, and
+solve the adjoints with K4–K5 (:mod:`.cuda_adjoint`).
 """
 
 from __future__ import annotations
@@ -136,9 +138,10 @@ class _KernelOnly(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         raise NotImplementedError(
-            "gradients through the CUDA sum-product kernels are not ported "
-            "yet (ROADMAP Queue 1 item 6: chunked analytic VJPs and kernels "
-            "K4-K5); differentiate the plain path on the CPU meanwhile"
+            "a CUDA kernel launch has no autograd backward: gradients come "
+            "from the analytic chunked VJPs of hmm_layer_torch.ops.recursion "
+            "(forward, backward, log_likelihood, posterior; ROADMAP Queue 1 "
+            "item 6), whose adjoint solves run K4-K5; call those instead"
         )
 
 

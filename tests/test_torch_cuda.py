@@ -1,6 +1,7 @@
-"""The port's CUDA kernels K1–K3 and K6–K8 on the card: each against its
-plain PyTorch version, the layer's kernel routes (posterior, Viterbi)
-against their plain routes, the launch counts and the refusals.
+"""The port's CUDA kernels K1–K8 on the card: each against its plain
+PyTorch version, the layer's kernel routes (posterior, Viterbi, and the
+gradients of the training objectives) against their plain routes, the
+launch counts and the refusals.
 
 Every test here needs a CUDA device and skips where there is none. The file
 imports no JAX, so it runs where JAX is not installed:
@@ -15,7 +16,7 @@ import torch
 
 from hmm_layer_torch import HMMLayer
 from hmm_layer_torch.models import GenePredEmissions, GenePredTransitions
-from hmm_layer_torch.ops import cuda_forward, cuda_viterbi, recursion
+from hmm_layer_torch.ops import cuda_adjoint, cuda_forward, cuda_viterbi, recursion
 from oracle import random_hmm
 
 pytestmark = pytest.mark.gpu
@@ -102,7 +103,7 @@ def test_layer_kernel_route_matches_plain_route(cuda, pf):
         init, A = layer.transitions.matrices()
         E = layer.emission_probs(X)
         P = layer._pf(E)
-        lg_p, ll_p = recursion._posterior_chunked_plain(init, A, E, P, False)
+        lg_p, ll_p, _ = recursion._posterior_chunked_plain(init, A, E, P, False)
         lg_s, ll_s = recursion.posterior(init, A, E, 1)
     torch.testing.assert_close(lg.exp(), lg_p.exp(), rtol=0, atol=1e-3)
     torch.testing.assert_close(ll, ll_p, rtol=1e-5, atol=0)
@@ -115,11 +116,117 @@ def test_layer_kernel_route_matches_plain_route(cuda, pf):
 
 
 def test_kernel_route_backward_raises(cuda):
-    init, A = (t.to(cuda) for t in GenePredTransitions().matrices())
+    """A raw kernel launch has no backward; the public recursions on CUDA
+    differentiate through their analytic VJPs instead."""
+    init, A = (t.detach().to(cuda) for t in GenePredTransitions().matrices())
     E = torch.rand((1, 2, 64, Q), device=cuda).requires_grad_()
-    ll = recursion.log_likelihood(init.detach(), A.detach(), E, parallel_factor=4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ll.sum().backward()
+    E_T = recursion._kernel_chunk_inputs(E, 4)
+    C = cuda_forward.sum_chunk_summaries(A.contiguous(), E_T, 4)
+    with pytest.raises(NotImplementedError, match="analytic chunked VJPs"):
+        C.sum().backward()
+    ll = recursion.log_likelihood(init, A, E, parallel_factor=4)
+    (g,) = torch.autograd.grad(ll.sum(), E)
+    (g_seq,) = torch.autograd.grad(recursion.log_likelihood(init, A, E, 1).sum(), E)
+    torch.testing.assert_close(g, g_seq, rtol=1e-3, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# K4–K5 (affine adjoint solves) and the gradient routes
+# ---------------------------------------------------------------------------
+
+AFFINE_CASES = [
+    pytest.param(1, 6, 24, 5, id="m1-q5"),
+    pytest.param(2, 303, 1056, 15, id="m2-flagship"),
+    pytest.param(2, 17, 21, 15, id="m2-ragged"),
+    pytest.param(3, 40, 130, 3, id="m3-q3"),
+]
+
+
+@pytest.mark.parametrize("m,c,R,q", AFFINE_CASES)
+def test_affine_kernels_match_plain(cuda, m, c, R, q):
+    gen = torch.Generator(device=cuda).manual_seed(m * 1000 + c)
+    B = torch.rand((m, q, q), generator=gen, device=cuda)
+    B = (B / B.sum(-1, keepdim=True)).contiguous()
+    U, V = (torch.rand((m, c, q, R), generator=gen, device=cuda) for _ in range(2))
+    S = torch.randn((m, c, q, R), generator=gen, device=cuda)
+    S = S - S.mean(2, keepdim=True)  # centred sources, as the posterior VJP builds them
+    x_right = torch.randn((m, q, R), generator=gen, device=cuda)
+    cuda_adjoint.reset_launches()
+    comp = cuda_adjoint.affine_chunk_composites(B, U, V, S)
+    x = cuda_adjoint.affine_reverse_outputs(B, U, V, S, x_right)
+    assert cuda_adjoint.LAUNCHES == {"affine_chunk_composites": 1, "affine_reverse_outputs": 1}
+    torch.testing.assert_close(comp, cuda_adjoint.affine_chunk_composites_plain(B, U, V, S),
+                               rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(x, cuda_adjoint.affine_reverse_outputs_plain(B, U, V, S, x_right),
+                               rtol=1e-5, atol=1e-6)
+    torch.cuda.synchronize()
+
+
+def test_affine_kernels_refuse_what_they_cannot_take(cuda):
+    U = torch.zeros((1, 4, 16, 8), device=cuda)
+    with pytest.raises(ValueError, match="q <= 15"):
+        cuda_adjoint.affine_chunk_composites(torch.zeros((1, 16, 16), device=cuda), U, U, U)
+    U = torch.zeros((1, 4, 5, 8), device=cuda)
+    with pytest.raises(ValueError, match="x_right"):
+        cuda_adjoint.affine_reverse_outputs(torch.zeros((1, 5, 5), device=cuda), U, U, U,
+                                            torch.zeros((1, 5, 9), device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        cuda_adjoint.affine_chunk_composites(torch.zeros((1, 5, 5), device=cuda), U.double(), U, U)
+
+
+def _training_layer(pf, device):
+    layer = HMMLayer(GenePredTransitions(), GenePredEmissions(**CODONS), use_prior=False,
+                     parallel_factor=pf, device=device)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.add_((0.5 * torch.randn(p.shape, generator=gen)).to(p.device))
+    return layer
+
+
+@pytest.mark.parametrize("objective", ["ce", "map"])
+def test_kernel_route_gradients_match_plain_route(cuda, monkeypatch, objective):
+    """Gradients of the training objectives with respect to every
+    parameter: the kernel route (K1–K5) against the plain route on the
+    card, with the launches of one step."""
+    layer = _training_layer(8, cuda)
+    rng = np.random.default_rng(3)
+    b, L = 3, 1200
+    cls = rng.dirichlet(np.ones(15), size=(1, b, L)).astype(np.float32)
+    nuc = np.eye(5, dtype=np.float32)[rng.integers(0, 4, size=(1, b, L))]
+    X = np.concatenate([cls, nuc], axis=-1)
+    labels = rng.integers(0, 15, size=(b, L))
+    mask = (rng.uniform(size=(b, L)) > 0.2).astype(np.float32)
+    pars = list(layer.parameters())
+
+    def grads():
+        if objective == "ce":
+            value = layer.posterior_cross_entropy(X, labels, label_mask=mask)
+        else:
+            value = layer.loss(X)
+        return value, torch.autograd.grad(value, pars)
+
+    cuda_forward.reset_launches()
+    cuda_adjoint.reset_launches()
+    value, kern = grads()
+    launches = {**cuda_forward.LAUNCHES, **cuda_adjoint.LAUNCHES}
+    if objective == "ce":
+        assert launches == {"sum_chunk_summaries": 1, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1,
+                            "affine_chunk_composites": 1, "affine_reverse_outputs": 1}
+    else:  # C is saved: the backward runs K2 and K3 only
+        assert launches == {"sum_chunk_summaries": 1, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1,
+                            "affine_chunk_composites": 0, "affine_reverse_outputs": 0}
+    monkeypatch.setattr(recursion, "_use_kernels", lambda E: False)
+    monkeypatch.setattr(recursion, "_use_affine_kernels", lambda x: False)
+    value_plain, plain = grads()
+    torch.testing.assert_close(value, value_plain, rtol=1e-5, atol=0)
+    # 1e-4 of the max, or one float32 spacing at |loglik| where larger: the
+    # log-scales both routes carry round independently at that resolution.
+    with torch.no_grad():
+        ll = layer.log_likelihood(X)
+    limit = max(1e-4, 2.0 ** (math.floor(math.log2(float(ll.abs().max()))) - 23))
+    for g, r in zip(kern, plain):
+        assert float((g - r).abs().max()) <= limit * float(r.abs().max())
 
 
 def test_kernel_refuses_what_it_cannot_take(cuda):

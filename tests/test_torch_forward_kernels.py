@@ -137,15 +137,16 @@ def test_kernel_route_matches_jax_pallas_route(monkeypatch, no_loglik):
     rng = np.random.default_rng(5)
     b, L, P = 2, 48, 4
     E = rng.uniform(0.05, 1.0, size=(1, b, L, Q)).astype(np.float32)
-    lg_j, ll_j, _ = jrec._posterior_chunked_pallas(
+    lg_j, ll_j, la_j = jrec._posterior_chunked_pallas(
         jnp.asarray(init[None]), jnp.asarray(A[None]), jnp.asarray(E), P, no_loglik
     )
-    lg_t, ll_t = recursion._posterior_chunked_kernels(
+    lg_t, ll_t, la_t = recursion._posterior_chunked_kernels(
         torch.from_numpy(init[None]), torch.from_numpy(A[None]),
         torch.from_numpy(E), P, no_loglik,
     )
     np.testing.assert_allclose(ll_t.numpy(), np.asarray(ll_j), rtol=2e-4)
     np.testing.assert_allclose(lg_t.numpy(), np.asarray(lg_j), rtol=1e-3, atol=2e-3)
+    np.testing.assert_allclose(la_t.numpy(), np.asarray(la_j), rtol=1e-3, atol=2e-3)
 
 
 def test_wrappers_take_plain_version_on_cpu():
