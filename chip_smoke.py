@@ -42,6 +42,19 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    ``python -m hmm_layer_torch train`` in-process on phase 7's contigs,
    class probabilities and GFF3 (CE, both strands, window 9999, batch 32,
    P=33, 10 steps), bp/s, and ``predict --params`` on its checkpoint.
+9. Multi-copy gene prediction: ``GenePredMultiTransitions(k=2)`` +
+   ``GenePredEmissions(num_copies=2)`` (q=29) from the 15-class kernel,
+   seeded random weights. K7b and K8b against their plain versions
+   (bit-equal) at q=29 and q=57 (b=32, L=9999); K9 against its plain
+   version within a float32 accumulation bound at q=29 (b=32, P=33) and
+   q=127 (b=4, P=33). ``HMMLayer.viterbi`` serves 3 requests (K7b, K8b once
+   each per request; paths identical to the glue on the plain versions,
+   valid and score-equal to the sequential decode), ms/batch and the
+   profiler's busy share; ``HMMLayer.log_likelihood`` serves 3 requests
+   with the K9 gate off, then on (K9 once per request, K1 never; equal to
+   the gate-off result and, on a small input, to the sequential
+   recursion), ms/batch for both; one MAP ``loss`` step with the gate on
+   (K9 once, finite gradients).
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -80,6 +93,9 @@ SOURCES = {
     "maxplus_backtrace": "hmm_layer_torch/csrc/max_plus.cu",
     "affine_chunk_composites": "hmm_layer_torch/csrc/affine.cu",
     "affine_reverse_outputs": "hmm_layer_torch/csrc/affine.cu",
+    "maxplus_deltas_blocked": "hmm_layer_torch/csrc/max_plus.cu",
+    "maxplus_backtrace_blocked": "hmm_layer_torch/csrc/max_plus.cu",
+    "sum_chunk_summaries_mxu": "hmm_layer_torch/csrc/mxu.cu",
 }
 REPLACES = {
     "sum_chunk_summaries": "hmm_layer_tpu/ops/pallas_forward.py:112",
@@ -90,7 +106,12 @@ REPLACES = {
     "maxplus_backtrace": "hmm_layer_tpu/ops/pallas_viterbi.py:433",
     "affine_chunk_composites": "hmm_layer_tpu/ops/pallas_adjoint.py:93",
     "affine_reverse_outputs": "hmm_layer_tpu/ops/pallas_adjoint.py:170",
+    "maxplus_deltas_blocked": "hmm_layer_tpu/ops/pallas_viterbi.py:279",
+    "maxplus_backtrace_blocked": "hmm_layer_tpu/ops/pallas_viterbi.py:317",
+    "sum_chunk_summaries_mxu": "hmm_layer_tpu/ops/pallas_mxu.py:147",
 }
+# The q <= 16 decode kernels; the blocked bodies K7b/K8b count separately.
+DECODE_Q16 = ("maxplus_chunk_summaries", "maxplus_deltas", "maxplus_backtrace")
 TRAIN_STEPS, MAP_STEPS, CLI_STEPS = 5, 2, 10
 # Kernel-only launches per request: the posterior runs K1, K2 and K3 once,
 # the log-likelihood K1 once more.
@@ -243,12 +264,13 @@ def kernel_phase(layer, X, recursion, cuda_forward, peak_bytes, peak_flops):
     return records, P
 
 
-def measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops):
-    """The kernel's record: kernel ms (median of 20 samples of 10 launches),
-    plain ms (20 samples of 1), and the bound from the bytes and operations
-    of this call."""
-    ms = cuda_median_ms(kern, samples=20, reps=10)
-    plain_ms = cuda_median_ms(plain, samples=20, reps=1, warmup=1)
+def measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops,
+            reps=10, plain_samples=20):
+    """The kernel's record: kernel ms (median of 20 samples of ``reps``
+    launches), plain ms (``plain_samples`` samples of 1), and the bound from
+    the bytes and operations of this call."""
+    ms = cuda_median_ms(kern, samples=20, reps=reps)
+    plain_ms = cuda_median_ms(plain, samples=plain_samples, reps=1, warmup=1)
     bytes_ms, ops_ms = 1e3 * nbytes / peak_bytes, 1e3 * nops / peak_flops
     return {
         "name": name,
@@ -597,8 +619,9 @@ def decode_phase(layer, recursion, cuda_viterbi, make):
         torch.cuda.synchronize()
         launches = dict(cuda_viterbi.LAUNCHES)
         log(f"phase 6 launches over {N_REQUESTS} decode requests: {launches}")
-        if launches != {k: N_REQUESTS for k in cuda_viterbi.LAUNCHES}:
-            raise AssertionError(f"decode launch counts {launches}, expected {N_REQUESTS} each")
+        expected = {k: N_REQUESTS if k in DECODE_Q16 else 0 for k in cuda_viterbi.LAUNCHES}
+        if launches != expected:
+            raise AssertionError(f"decode launch counts {launches}, expected {expected}")
 
         for i, (X, path) in enumerate(zip(requests, paths)):
             if tuple(path.shape) != (1, B, L) or path.dtype != torch.int32:
@@ -736,7 +759,7 @@ def predict_phase(layer, recursion, cuda_viterbi, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(cuda_viterbi.LAUNCHES)
-    expected = {k: 2 * n_batches for k in cuda_viterbi.LAUNCHES}
+    expected = {k: 2 * n_batches if k in DECODE_Q16 else 0 for k in cuda_viterbi.LAUNCHES}
     log(f"phase 7 launches: {launches} ({n_batches} window batches per strand, both strands)")
     if launches != expected:
         raise AssertionError(f"predict launch counts {launches}, expected {expected}")
@@ -1073,6 +1096,273 @@ def train_cli_phase(fasta, npz, gff, cuda_forward, cuda_adjoint, tmp):
     log(f"phase 8 predict --params {out.rsplit('/', 1)[-1]}: loaded, {n_genes} genes on the plus strands")
 
 
+# ---------------------------------------------------------------------------
+# 9. Multi-copy gene prediction (q = 1 + 14k)
+# ---------------------------------------------------------------------------
+
+MC_K = 2  # the multi-copy cell: k = 2 copies, q = 29
+BLOCKED_KEYS = ("maxplus_deltas_blocked", "maxplus_backtrace_blocked")
+
+
+def build_multicopy_layer(HMMLayer, models, k):
+    """``GenePredMultiTransitions(k)`` + ``GenePredEmissions(num_copies=k)``
+    from the 15-class kernel, random weights around that init (seeded)."""
+    gen = torch.Generator().manual_seed(SEED + k)
+    layer = HMMLayer(
+        models.GenePredMultiTransitions(k=k, generator=gen),
+        models.GenePredEmissions(num_copies=k, init=models.make_15_class_emission_kernel(num_copies=k),
+                                 **CODONS),
+        use_prior=False,
+        parallel_factor="auto",
+    )
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.add_((0.5 * torch.randn(p.shape, generator=gen)).to(p.device))
+    return layer
+
+
+def seq_decode_inputs(layer, X):
+    """log A, log E_T (m, L, q, b), delta0 (m, q, b) of the sequential
+    decode, as ``recursion._viterbi_seq_kernels`` builds them."""
+    init, A = layer.transitions.matrices()
+    E = layer.emission_probs(X)
+    log_A = torch.log(A.clamp_min(EPS)).contiguous()
+    log_E_T = torch.log(E.clamp_min(EPS)).permute(0, 2, 3, 1).contiguous()
+    delta0 = (torch.log(init.clamp_min(EPS))[:, :, None] + log_E_T[:, 0]).contiguous()
+    return log_A, log_E_T, delta0
+
+
+def blocked_kernel_phase(layers, make, cuda_viterbi, peak_bytes, peak_flops):
+    """K7b and K8b against their plain versions (bit-equal) at b=32,
+    L=9999, q=29 (recorded) and q=57. The plain versions loop 9,999 eager
+    steps: 3 samples each."""
+    records = {}
+    for k, layer in layers.items():
+        with torch.inference_mode():
+            log_A, log_E_T, delta0 = seq_decode_inputs(layer, make(SEED + 40 + k, B, L))
+            m, c, q, R = log_E_T.shape
+            d_plain = cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0)
+            d_kern = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)
+            last = d_plain[:, -1].argmax(dim=1).to(torch.int32).contiguous()
+            s_plain = cuda_viterbi.maxplus_backtrace_plain(log_A, d_plain, last)
+            s_kern = cuda_viterbi.maxplus_backtrace(log_A, d_plain, last)
+            e_bytes, a_bytes = 4 * m * c * q * R, 4 * m * q * q
+            cases = {
+                "maxplus_deltas_blocked": (
+                    lambda: cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0),
+                    lambda: cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0),
+                    d_kern, d_plain, a_bytes + 2 * e_bytes + 4 * m * q * R, m * R * (c - 1) * 2 * q * q,
+                ),
+                "maxplus_backtrace_blocked": (
+                    lambda: cuda_viterbi.maxplus_backtrace(log_A, d_plain, last),
+                    lambda: cuda_viterbi.maxplus_backtrace_plain(log_A, d_plain, last),
+                    s_kern, s_plain, a_bytes + e_bytes + 4 * m * R + 4 * m * c * R,
+                    m * R * (c - 1) * 2 * q,
+                ),
+            }
+            failed = []
+            for name, (kern, plain, got, ref, nbytes, nops) in cases.items():
+                torch.cuda.synchronize()
+                equal = torch.equal(got, ref)
+                err = float((got.double() - ref.double()).abs().max())
+                rec = measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops,
+                              reps=5, plain_samples=3)
+                if q == 1 + 14 * MC_K:
+                    records[name] = rec
+                log(f"phase 9 {name} q={q} (b={R}, L={c}): {'equal' if equal else 'MISMATCH'} "
+                    f"max_abs_err={err:.3e} (bit-equality required) {timing_text(rec, nbytes, nops)}")
+                if not equal:
+                    failed.append(f"{name} q={q}")
+        if failed:
+            raise AssertionError(f"blocked kernels differ from their plain versions: {failed}")
+    return records
+
+
+def mxu_inputs(layer, X, recursion, P):
+    """(A, E_S (m, c, R, q)) of a K9 call, as the gated log-likelihood lays
+    them out ("auto" gives P = 33 at q = 29)."""
+    _, A = layer.transitions.matrices()
+    Ec, _ = recursion._split_chunks(layer.emission_probs(X).clamp_min(EPS), P)
+    return A.contiguous(), Ec.transpose(1, 2).contiguous()
+
+
+def mxu_kernel_phase(layers, make, recursion, cuda_mxu, peak_bytes, peak_flops):
+    """K9 against its plain version at q=29 (b=32, P=33: recorded), at
+    q=29 with short chunks (P=303, c=33: |C| small enough that the order of
+    the sums shows) and at q=127 (b=4, P=33: A takes 64 KB of shared
+    memory). Sums run in another order, so the limit is a float32
+    accumulation bound: on entries within 30 nats of their row's maximum,
+    |kernel - plain| <= 2e-4 + the ``f32_log_bound`` of |C| over c steps."""
+    records = {}
+    for k, b, P in ((MC_K, B, PF), (MC_K, B, 303), (9, 4, PF)):
+        with torch.inference_mode():
+            A, E_S = mxu_inputs(layers[k], make(SEED + 45 + k, b, L), recursion, P)
+            m, c, R, q = E_S.shape
+            C_plain = cuda_mxu.sum_chunk_summaries_mxu_plain(A, E_S, P)
+            C_kern = cuda_mxu.sum_chunk_summaries_mxu(A, E_S, P)
+            torch.cuda.synchronize()
+            mask = C_plain >= C_plain.amax(-1, keepdim=True) - 30.0
+            atol = 2e-4 + f32_log_bound(C_plain[mask], c)
+            err, ok = within(C_kern, C_plain, 0.0, atol, mask)
+            name = "sum_chunk_summaries_mxu"
+            nbytes = 4 * m * q * q + 4 * m * c * R * q + 4 * m * R * q * q
+            nops = m * R * q * (c - 1) * q * (2 * q + 4)  # FMA = 2; clamp, product, sum, divide
+            rec = measure(name, lambda: cuda_mxu.sum_chunk_summaries_mxu(A, E_S, P),
+                          lambda: cuda_mxu.sum_chunk_summaries_mxu_plain(A, E_S, P),
+                          err, nbytes, nops, peak_bytes, peak_flops, reps=5 if q < 64 else 2,
+                          plain_samples=5)
+            if (k, P) == (MC_K, PF):
+                records[name] = rec
+            log(f"phase 9 {name} q={q} (b={b}, P={P}, c={c}, R={R}): {'ok' if ok else 'MISMATCH'} "
+                f"max_abs_err={err:.3e} (limit {atol:.3e} within 30 nats of the row max; |C| max "
+                f"{float(C_plain.abs().max()):.1f}) {timing_text(rec, nbytes, nops)}")
+            if not ok:
+                raise AssertionError(f"K9 disagrees with its plain version at q={q}")
+    return records
+
+
+def plain_decode_wrappers(cuda_viterbi):
+    """Context: the decode glue calls the plain versions on the card."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = cuda_viterbi.maxplus_deltas, cuda_viterbi.maxplus_backtrace
+        cuda_viterbi.maxplus_deltas = cuda_viterbi.maxplus_deltas_plain
+        cuda_viterbi.maxplus_backtrace = cuda_viterbi.maxplus_backtrace_plain
+        try:
+            yield
+        finally:
+            cuda_viterbi.maxplus_deltas, cuda_viterbi.maxplus_backtrace = saved
+
+    return ctx()
+
+
+def multicopy_decode_phase(layer, make, recursion, cuda_viterbi):
+    """``HMMLayer.viterbi`` serving 3 multi-copy requests (q=29, b=32,
+    L=9999): K7b and K8b once each per request, paths identical to the same
+    glue on the plain versions, valid and score-equal to ``_viterbi_seq``."""
+    q = 1 + 14 * MC_K
+    requests = [make(SEED + 50 + i, B, L) for i in range(N_REQUESTS)]
+    with torch.inference_mode():
+        layer.viterbi(requests[0])  # warm-up, not counted
+        torch.cuda.synchronize()
+
+        cuda_viterbi.reset_launches()
+        paths = [layer.viterbi(X) for X in requests]
+        torch.cuda.synchronize()
+        launches = dict(cuda_viterbi.LAUNCHES)
+        log(f"phase 9 launches over {N_REQUESTS} multi-copy decode requests: {launches}")
+        expected = {k: N_REQUESTS if k in BLOCKED_KEYS else 0 for k in cuda_viterbi.LAUNCHES}
+        if launches != expected:
+            raise AssertionError(f"multi-copy decode launch counts {launches}, expected {expected}")
+
+        for i, (X, path) in enumerate(zip(requests, paths)):
+            if tuple(path.shape) != (1, B, L) or path.dtype != torch.int32:
+                raise AssertionError(f"request {i}: paths {path.dtype} {tuple(path.shape)}")
+            if int(path.min()) < 0 or int(path.max()) >= q:
+                raise AssertionError(f"request {i}: states out of range")
+            init, A = layer.transitions.matrices()
+            E = layer.emission_probs(X)
+            with plain_decode_wrappers(cuda_viterbi):
+                plain = recursion._viterbi_seq_kernels(init, A, E)
+            seq = recursion._viterbi_seq(init, A, E)
+            same = torch.equal(path, plain)
+            s_k, used_k = path_score64(init, A, E, path)
+            s_s, used_s = path_score64(init, A, E, seq)
+            rel = float(((s_k - s_s).abs() / s_s.abs()).max())
+            valid = bool(used_k[used_s.all(-1)].all())
+            log(f"phase 9 request {i}: paths {'identical to' if same else 'DIFFER FROM'} the plain "
+                f"versions' route; vs _viterbi_seq: float64 path score max rel diff {rel:.3e} "
+                f"(limit 1e-6), positions differing {int((path != seq).sum())}, A = 0 transitions "
+                f"avoided as the sequential path avoids them: {valid}")
+            if not same or rel > 1e-6 or not valid:
+                raise AssertionError(f"multi-copy request {i}: decode disagrees")
+
+        decode_ms = []
+        for X in requests * 3:
+            t0 = time.perf_counter()
+            layer.viterbi(X)
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+    return launches, decode_ms
+
+
+def multicopy_loglik_phase(layer, make, recursion, cuda_mxu, cuda_forward):
+    """``HMMLayer.log_likelihood`` serving 3 multi-copy requests with the
+    K9 gate off (plain summaries), then on (K9 once per request, K1 never);
+    the two against each other and, on a small input, against the
+    sequential recursion; then one MAP ``loss`` step with the gate on."""
+    requests = [make(SEED + 60 + i, B, L) for i in range(N_REQUESTS)]
+    saved_gate = cuda_mxu.MXU_KERNELS
+
+    def serve(n=3):
+        times, out = [], []
+        for X in requests * n:
+            t0 = time.perf_counter()
+            out.append(layer.log_likelihood(X))
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        return out[:N_REQUESTS], times
+
+    try:
+        with torch.inference_mode():
+            cuda_mxu.MXU_KERNELS = False
+            off, off_ms = serve()
+            cuda_mxu.MXU_KERNELS = True
+            layer.log_likelihood(requests[0])  # warm-up, not counted
+            torch.cuda.synchronize()
+            cuda_mxu.reset_launches()
+            cuda_forward.reset_launches()
+            on, _ = serve(1)
+            launches = {**cuda_mxu.LAUNCHES, "sum_chunk_summaries": cuda_forward.LAUNCHES["sum_chunk_summaries"]}
+            log(f"phase 9 launches over {N_REQUESTS} multi-copy loglik requests (gate on): {launches}")
+            if launches != {"sum_chunk_summaries_mxu": N_REQUESTS, "sum_chunk_summaries": 0}:
+                raise AssertionError(f"gated loglik launch counts {launches}")
+            for i, (ll_on, ll_off) in enumerate(zip(on, off)):
+                if tuple(ll_on.shape) != (1, B) or not torch.isfinite(ll_on).all():
+                    raise AssertionError(f"request {i}: loglik {tuple(ll_on.shape)} or not finite")
+                err, ok = within(ll_on, ll_off, 1e-5, 0.0)
+                log(f"phase 9 request {i}: loglik {float(ll_on.mean()):.2f} mean, gate on vs off "
+                    f"max abs {err:.3e} (rtol 1e-5)")
+                if not ok:
+                    raise AssertionError(f"request {i}: K9 loglik disagrees with the plain summaries")
+            _, on_ms = serve()
+
+            Xs = make(SEED + 97, 2, 600)
+            init, A = layer.transitions.matrices()
+            Es = layer.emission_probs(Xs)
+            P_small = recursion.recommended_parallel_factor(600, Es.shape[-1], 1)
+            ll_k = recursion.log_likelihood(init, A, Es, P_small)
+            ll_s = recursion.log_likelihood(init, A, Es, 1)
+            err, ok = within(ll_k, ll_s, 2e-4, 0.0)
+            log(f"phase 9 small input (b=2, L=600, P={P_small}, gate on) vs sequential: loglik max "
+                f"abs {err:.3e} (rtol 2e-4)")
+            if not ok:
+                raise AssertionError("small input: K9 loglik disagrees with the sequential recursion")
+
+        pars = [p for p in layer.parameters() if p.requires_grad]
+        X = requests[0]
+        cuda_mxu.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = layer.loss(X)
+        grads = torch.autograd.grad(loss, pars)
+        torch.cuda.synchronize()
+        map_ms = 1e3 * (time.perf_counter() - t0)
+        k9 = cuda_mxu.LAUNCHES["sum_chunk_summaries_mxu"]
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        loss = float(loss.detach())
+        log(f"phase 9 MAP loss step (gate on): loss {loss:.3f}, forward + backward "
+            f"{map_ms:.3f} ms, K9 launches {k9} (C saved), every gradient finite: {finite}")
+        if k9 != 1 or not finite or not math.isfinite(loss):
+            raise AssertionError("multi-copy MAP step: K9 launches or gradients wrong")
+    finally:
+        cuda_mxu.MXU_KERNELS = saved_gate
+    return launches, off_ms, on_ms
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device",
@@ -1080,7 +1370,14 @@ def main() -> int:
         return 1
     try:
         from hmm_layer_torch import HMMLayer, models
-        from hmm_layer_torch.ops import _cuda_build, cuda_adjoint, cuda_forward, cuda_viterbi, recursion
+        from hmm_layer_torch.ops import (
+            _cuda_build,
+            cuda_adjoint,
+            cuda_forward,
+            cuda_mxu,
+            cuda_viterbi,
+            recursion,
+        )
     except ImportError as exc:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 1
@@ -1157,8 +1454,32 @@ def main() -> int:
         train_cli_phase(fasta, npz, gff, cuda_forward, cuda_adjoint, tmp)
         log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
-    launches.update(decode_launches)
+    # 9. Multi-copy gene prediction: k = 2 (q = 29) serving; k = 4 and 9
+    # for the kernels' other shapes
+    t0 = time.perf_counter()
+    mc = {k: build_multicopy_layer(HMMLayer, models, k) for k in (MC_K, 4, 9)}
+    records.update(blocked_kernel_phase({MC_K: mc[MC_K], 4: mc[4]}, make, cuda_viterbi,
+                                        peak_bytes, peak_flops))
+    records.update(mxu_kernel_phase(mc, make, recursion, cuda_mxu, peak_bytes, peak_flops))
+    mc_decode_launches, mc_decode_ms = multicopy_decode_phase(mc[MC_K], make, recursion, cuda_viterbi)
+    med = statistics.median(mc_decode_ms)
+    log(f"phase 9 decode (q={1 + 14 * MC_K}): {med:.3f} ms/batch median of {len(mc_decode_ms)} "
+        f"[{min(mc_decode_ms):.3f}, {max(mc_decode_ms):.3f}], {B / (med / 1e3):.1f} seqs/sec "
+        f"(b={B}, L={L}, sequential decode through K7b + K8b) on {smi}")
+    X_mc = make(SEED + 59, B, L)
+    profile_request("phase 9", lambda: mc[MC_K].viterbi(X_mc), "K7b-K8b", ("blocked_kernel",))
+    mc_ll_launches, off_ms, on_ms = multicopy_loglik_phase(mc[MC_K], make, recursion, cuda_mxu, cuda_forward)
+    P_mc = recursion.recommended_parallel_factor(L, 1 + 14 * MC_K, 1)
+    log(f"phase 9 loglik (q={1 + 14 * MC_K}, b={B}, L={L}, P={P_mc}): gate off (plain summaries) "
+        f"{statistics.median(off_ms):.3f} ms/batch median of {len(off_ms)} [{min(off_ms):.3f}, "
+        f"{max(off_ms):.3f}]; gate on (K9) {statistics.median(on_ms):.3f} ms/batch median of "
+        f"{len(on_ms)} [{min(on_ms):.3f}, {max(on_ms):.3f}] on {smi}")
+    log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    launches.update({k: v for k, v in decode_launches.items() if k in DECODE_Q16})
     launches.update({k: train_launches[k] for k in cuda_adjoint.LAUNCHES})
+    launches.update({k: mc_decode_launches[k] for k in BLOCKED_KEYS})
+    launches["sum_chunk_summaries_mxu"] = mc_ll_launches["sum_chunk_summaries_mxu"]
     for name, rec in records.items():
         rec["launches"] = launches[name]
     print(json.dumps({"kernels": list(records.values())}), flush=True)

@@ -1,11 +1,13 @@
 // Max-plus (tropical) kernels of the chunked Viterbi decode, for Hopper
 // (sm_90a).
 //
-// These are the CUDA counterparts of the q <= 16 Pallas TPU kernels in
-// hmm_layer_tpu/ops/pallas_viterbi.py. They compute what those kernels
-// compute, with the TPU tiling dropped: q <= 16 states exactly (no padding
-// to 16 sublanes in memory), R chunk elements exactly (the ragged last block
-// is masked), and the model axis m as a grid dimension.
+// These are the CUDA counterparts of the Pallas TPU kernels in
+// hmm_layer_tpu/ops/pallas_viterbi.py: the q <= 16 bodies (K6-K8) and the
+// blocked 16 < q <= 64 bodies of the delta pass and the backtrace (K7b,
+// K8b, below K8). They compute what those kernels compute, with the TPU
+// tiling dropped: q states exactly (no padding to sublanes in memory), R
+// chunk elements exactly (the ragged last block is masked), and the model
+// axis m as a grid dimension.
 //
 // Layouts (float32 unless stated, contiguous; R = b * P chunk elements, lane
 // r is sequence r / P and chunk r % P):
@@ -16,6 +18,7 @@
 //                          border i to right border j (TRANSPOSED)
 //   deltas   (m, c, q, R)  max-plus forward values at every position
 //   states   (m, c, R)     int32 decoded state at every position
+// (K7b and K8b take these sequence-major instead; see their section.)
 //
 // Exactness: the tropical semiring needs no rescaling. Every step is one
 // rounded float add per term (delta[k] + log_A[k, p]), an exact max, and one
@@ -32,7 +35,11 @@
 // wrapper raises if it is not cudaSuccess. Launches go to the caller's
 // stream and never synchronise.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <climits>
+#include <cmath>
 
 namespace {
 
@@ -208,6 +215,224 @@ __global__ void __launch_bounds__(BLOCK)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Blocked bodies for 16 < q <= 64 (K7b, K8b)
+// ---------------------------------------------------------------------------
+//
+// The sequential decode of 16 < q <= 64 states runs the delta pass and the
+// backtrace over whole sequences with the batch on the lanes: R = b (32 at
+// the multi-copy flagship), c = L (9,999). One thread per lane (K7, K8)
+// would leave 32 threads for 9,999 dependent steps of q * q work each, so
+// these bodies take their parallelism from the states instead: ONE WARP PER
+// SEQUENCE, lane l owning output states l and l + 32 (NPER = 1 for q <= 32,
+// 2 for q <= 64), one warp per block so that the b warps land on b SMs. No
+// TPU blocking is carried over (no time blocks of the grid, no 8-sublane
+// groups, no lane padding in memory).
+//
+// Layouts are SEQUENCE-MAJOR, unlike the rest of this file: log E and
+// deltas (m, R, c, q), delta0 (m, R, q), states (m, R, c); the wrappers
+// transpose from and to their (m, c, q, R) contract around the launch. A
+// warp's inputs for TILE steps are then one contiguous run, which it copies
+// into shared memory with cp.async while it works through the previous
+// tile (double buffering), so the step loop reads only registers and shared
+// memory. A global load in every step, even issued several steps ahead of
+// its use, kept the chain waiting on memory.
+//
+// No branch depends on q inside a step: a branch per k keeps the compiler
+// from overlapping the shuffles, and each k then costs a shuffle's full
+// latency. States past q are padded with NEG instead, as in K6-K8. (Both
+// together took K7b from 9.6 ms to 1.9 ms at q = 29, b = 32, L = 9,999 on
+// an H100.)
+
+constexpr int MAX_BLOCKED_Q = 64;
+constexpr int TILE = 32;  // steps staged in shared memory per copy
+constexpr unsigned FULL = 0xffffffffu;
+
+// Copies n floats from global src to shared dst with cp.async (one lane
+// per 4 bytes), as one commit group.
+__device__ __forceinline__ void stage(float* dst, const float* src, int n,
+                                      int lane) {
+  for (int i = lane; i < n; i += 32) __pipeline_memcpy_async(dst + i, src + i, 4);
+  __pipeline_commit();
+}
+
+// K7b — replaces the 16 < q <= 64 body of maxplus_deltas
+// (hmm_layer_tpu/ops/pallas_viterbi.py:353, branch :408-429, body
+// _fwd_kernel_blocked :279-314).
+//
+// Lane l holds column l (and l + 32) of log A in registers and delta_{t-1}
+// of its states. Each step broadcasts delta_{t-1}[k] with __shfl_sync and
+// takes, per owned state p, the exact max over k of ONE rounded add
+// delta[k] + log_A[k, p] (four independent running maxima, combined at the
+// end: max is exact, so the grouping changes nothing), then one rounded add
+// of log e_t[p]: bit-equal to maxplus_deltas_plain. The terms of k >= q
+// are NEG + NEG (delta and log A padded) and never win against a real
+// term.
+//
+// Bound on an H100: bytes (log E in, deltas out: 74 MB at q = 29, b = 32,
+// L = 9,999) against 0.5 G operations. What holds it far above that bound
+// is the chain of c dependent steps per warp (32 * NPER shuffles and twice
+// as many adds and maxes each) on only b warps.
+template <int NPER>
+__global__ void __launch_bounds__(32)
+    deltas_blocked_kernel(const float* __restrict__ log_A,
+                          const float* __restrict__ log_E,
+                          const float* __restrict__ delta0,
+                          float* __restrict__ deltas, int c, int q, int R) {
+  constexpr int K = 32 * NPER;
+  __shared__ __align__(16) float sE[2][TILE * MAX_BLOCKED_Q];
+  const int lane = threadIdx.x;
+  const int mi = blockIdx.y;
+  const int r = blockIdx.x;
+
+  const float* A = log_A + (size_t)mi * q * q;
+  float acol[NPER][K];
+#pragma unroll
+  for (int u = 0; u < NPER; ++u) {
+    const int p = lane + 32 * u;
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      acol[u][k] = (k < q && p < q) ? A[k * q + p] : NEG;
+  }
+
+  const size_t seq = (size_t)mi * R + r;
+  const float* e = log_E + seq * c * q;  // e[t * q + p]
+  float* out = deltas + seq * c * q;
+
+  float v[NPER];
+#pragma unroll
+  for (int u = 0; u < NPER; ++u) {
+    const int p = lane + 32 * u;
+    v[u] = p < q ? delta0[seq * q + p] : NEG;
+    if (p < q) out[p] = v[u];
+  }
+
+  // Tile i holds steps 1 + i * TILE ... (fewer in the last tile).
+  const int tiles = (c - 1 + TILE - 1) / TILE;
+  auto steps_of = [&](int i) { return min(TILE, c - 1 - i * TILE); };
+  if (tiles > 0) stage(sE[0], e + (size_t)q, steps_of(0) * q, lane);
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles)
+      stage(sE[(i + 1) % 2], e + (size_t)(1 + (i + 1) * TILE) * q, steps_of(i + 1) * q, lane);
+    else
+      __pipeline_commit();  // an empty group keeps the count below uniform
+    __pipeline_wait_prior(1);  // tile i has landed (this lane's copies)
+    __syncwarp();              // ... and every other lane's
+    const float* et = sE[i % 2];
+    const int n = steps_of(i);
+    for (int tt = 0; tt < n; ++tt, et += q) {
+      float acc[NPER][4];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const float dk = __shfl_sync(FULL, v[k / 32], k % 32);
+#pragma unroll
+        for (int u = 0; u < NPER; ++u) {
+          const float term = dk + acol[u][k];
+          acc[u][k % 4] = k < 4 ? term : fmaxf(acc[u][k % 4], term);
+        }
+      }
+      const size_t t = 1 + (size_t)i * TILE + tt;
+#pragma unroll
+      for (int u = 0; u < NPER; ++u) {
+        const int p = lane + 32 * u;
+        if (p < q) {
+          v[u] = fmaxf(fmaxf(acc[u][0], acc[u][1]), fmaxf(acc[u][2], acc[u][3])) + et[p];
+          out[t * q + p] = v[u];
+        }
+      }
+    }
+    __syncwarp();  // tile i's buffer is read before it is staged again
+  }
+}
+
+// K8b — replaces the 16 < q <= 64 body of maxplus_backtrace
+// (hmm_layer_tpu/ops/pallas_viterbi.py:433, branch :475-500, body
+// _backtrace_kernel_blocked :317-349).
+//
+// One warp per sequence walks t = c-2 ... 0 from the given last state.
+// Lane l scores its states k = l, l + 32 as w = deltas[t, k] +
+// log_A[k, s_{t+1}] (log A TRANSPOSED in shared memory, so a warp reads one
+// row of consecutive words). The argmax is taken on integer keys that
+// order as the floats do (w + 0 first, so -0 and +0 tie as they compare):
+// one __reduce_max_sync gives the best key, and a ballot per owned-state
+// slot (states 0-31 first, then 32-63) the LOWEST state holding it, as
+// jnp.argmax, torch.argmax and the Pallas kernel's
+// min(where(w >= vmax, idx, qp)) take it. Lanes past q take no part in the
+// ballots. A state outside [0, q) selects an all-NEG column, as K8 does.
+// The deltas are staged in shared memory TILE steps at a time, walking
+// back.
+//
+// Bound on an H100: bytes (deltas in, states out: 38 MB at q = 29, b = 32,
+// L = 9,999). The walk is a chain of c dependent steps (a shared-memory
+// read, an add, the reduction and a ballot each) on b warps.
+template <int NPER>
+__global__ void __launch_bounds__(32)
+    backtrace_blocked_kernel(const float* __restrict__ log_A,
+                             const float* __restrict__ deltas,
+                             const int* __restrict__ last_state,
+                             int* __restrict__ states, int c, int q, int R) {
+  __shared__ float sAT[MAX_BLOCKED_Q * MAX_BLOCKED_Q];  // sAT[s * q + k] = log_A[k, s]
+  __shared__ __align__(16) float sD[2][TILE * MAX_BLOCKED_Q];
+  const int lane = threadIdx.x;
+  const int mi = blockIdx.y;
+  const int r = blockIdx.x;
+  const float* A = log_A + (size_t)mi * q * q;
+  for (int idx = lane; idx < q * q; idx += 32) {
+    const int k = idx / q, s = idx % q;
+    sAT[s * q + k] = A[idx];
+  }
+  __syncwarp();
+
+  const size_t seq = (size_t)mi * R + r;
+  const float* d = deltas + seq * c * q;  // d[t * q + p]
+  int* out = states + seq * c;
+  int s = last_state[seq];
+  if (lane == 0) out[c - 1] = s;
+
+  // Tile i holds steps lo(i) ... c - 2 - i * TILE, walked downwards.
+  const int tiles = (c - 1 + TILE - 1) / TILE;
+  auto lo_of = [&](int i) { return max(0, c - 1 - (i + 1) * TILE); };
+  auto steps_of = [&](int i) { return c - 1 - i * TILE - lo_of(i); };
+  if (tiles > 0) stage(sD[0], d + (size_t)lo_of(0) * q, steps_of(0) * q, lane);
+  for (int i = 0; i < tiles; ++i) {
+    if (i + 1 < tiles)
+      stage(sD[(i + 1) % 2], d + (size_t)lo_of(i + 1) * q, steps_of(i + 1) * q, lane);
+    else
+      __pipeline_commit();
+    __pipeline_wait_prior(1);
+    __syncwarp();
+    const int lo = lo_of(i);
+    for (int t = lo + steps_of(i) - 1; t >= lo; --t) {
+      const float* dt = sD[i % 2] + (t - lo) * q;
+      const bool valid = (unsigned)s < (unsigned)q;
+      int key[NPER];
+      int best = INT_MIN;
+#pragma unroll
+      for (int u = 0; u < NPER; ++u) {
+        const int p = lane + 32 * u;
+        key[u] = INT_MIN;
+        if (p < q) {
+          const float w = dt[p] + (valid ? sAT[s * q + p] : NEG) + 0.f;
+          const int bits = __float_as_int(w);
+          key[u] = bits ^ ((bits >> 31) & 0x7fffffff);  // float order as int order
+          best = max(best, key[u]);
+        }
+      }
+      best = __reduce_max_sync(FULL, best);
+#pragma unroll
+      for (int u = 0; u < NPER; ++u) {
+        const unsigned hit = __ballot_sync(FULL, lane + 32 * u < q && key[u] == best);
+        if (hit) {  // the same in every lane
+          s = 32 * u + __ffs(hit) - 1;
+          break;
+        }
+      }
+      if (lane == 0) out[t] = s;
+    }
+    __syncwarp();
+  }
+}
+
 inline unsigned blocks_for(int R) { return (unsigned)((R + BLOCK - 1) / BLOCK); }
 
 }  // namespace
@@ -244,6 +469,41 @@ int hmm_maxplus_backtrace(const float* log_A, const float* deltas,
   dim3 grid(blocks_for(R), (unsigned)m);
   backtrace_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
       log_A, deltas, last_state, states, c, q, R);
+  return (int)cudaGetLastError();
+}
+
+// The blocked entry points take 16 < q <= 64 (the wrapper checks it) and
+// the sequence-major layouts above.
+int hmm_maxplus_deltas_blocked(const float* log_A, const float* log_E,
+                               const float* delta0, float* deltas, int m,
+                               int c, int q, int R, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (q <= MAXQ || q > MAX_BLOCKED_Q) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)R, (unsigned)m);
+  if (q <= 32)
+    deltas_blocked_kernel<1><<<grid, 32, 0, (cudaStream_t)stream>>>(
+        log_A, log_E, delta0, deltas, c, q, R);
+  else
+    deltas_blocked_kernel<2><<<grid, 32, 0, (cudaStream_t)stream>>>(
+        log_A, log_E, delta0, deltas, c, q, R);
+  return (int)cudaGetLastError();
+}
+
+int hmm_maxplus_backtrace_blocked(const float* log_A, const float* deltas,
+                                  const int* last_state, int* states, int m,
+                                  int c, int q, int R, int device,
+                                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (q <= MAXQ || q > MAX_BLOCKED_Q) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)R, (unsigned)m);
+  if (q <= 32)
+    backtrace_blocked_kernel<1><<<grid, 32, 0, (cudaStream_t)stream>>>(
+        log_A, deltas, last_state, states, c, q, R);
+  else
+    backtrace_blocked_kernel<2><<<grid, 32, 0, (cudaStream_t)stream>>>(
+        log_A, deltas, last_state, states, c, q, R);
   return (int)cudaGetLastError();
 }
 

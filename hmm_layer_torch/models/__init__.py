@@ -1,6 +1,6 @@
-"""Model families of the port: the gene-prediction transitions and
-emissions, their initial class kernel, and the annotation (GFF3) of decoded
-paths."""
+"""Model families of the port: the gene-prediction transitions (one gene
+model, or ``k`` copies sharing the intergenic state) and emissions, their
+initial class kernel, and the annotation (GFF3) of decoded paths."""
 
 from .annotation import (
     GeneFeature,
@@ -20,7 +20,11 @@ from .gene_pred_emissions import (
     assert_codons,
     make_codon_probs,
 )
-from .gene_pred_transitions import GenePredTransitions, SimpleGenePredTransitions
+from .gene_pred_transitions import (
+    GenePredMultiTransitions,
+    GenePredTransitions,
+    SimpleGenePredTransitions,
+)
 from .initializers import make_15_class_emission_kernel
 from .transition_utils import (
     dense_from_edge_probs,
@@ -32,6 +36,7 @@ from .transition_utils import (
 __all__ = [
     "GeneFeature",
     "GenePredEmissions",
+    "GenePredMultiTransitions",
     "GenePredTransitions",
     "SimpleGenePredEmissions",
     "SimpleGenePredTransitions",

@@ -4,11 +4,16 @@
 * :class:`SimpleGenePredTransitions` — 7 states ``Ir, I0-2, E0-2``, 15 edges.
 * :class:`GenePredTransitions` — 15 states adding ``START, EI0-2, IE0-2,
   STOP`` that enforce the gene grammar, 23 edges.
+* :class:`GenePredMultiTransitions` — ``k`` gene-model copies sharing one
+  intergenic state, ``1 + 14k`` states, ``1 + 22k`` edges.
 
 Each module owns its parameters: one logit per allowed edge
 (``transition_kernel``) and the starting-distribution logits
-(``starting_distribution_kernel``). At the defaults (``init_component_sd=0``)
-they are deterministic and equal the JAX package's ``init_params``.
+(``starting_distribution_kernel``). At ``init_component_sd=0`` (the default
+of the first two) they are deterministic and equal the JAX package's
+``init_params``; the multi-copy grammar draws noise by default (sd 0.2), so
+compare it with JAX on parameters carried across
+(:func:`~hmm_layer_torch.convert.load_jax_params`).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ from torch import nn
 
 from .transition_utils import masked_row_softmax_from_edges
 
-__all__ = ["SimpleGenePredTransitions", "GenePredTransitions"]
+__all__ = ["SimpleGenePredTransitions", "GenePredTransitions", "GenePredMultiTransitions"]
 
 
 class SimpleGenePredTransitions(nn.Module):
@@ -227,4 +232,47 @@ class GenePredTransitions(SimpleGenePredTransitions):
     def get_config(self) -> dict:
         config = super().get_config()
         config["use_experimental_prior"] = self.use_experimental_prior
+        return config
+
+
+class GenePredMultiTransitions(GenePredTransitions):
+    """``k`` gene-model copies sharing one intergenic state.
+
+    State order: ``Ir, I0*k, I1*k, I2*k, E0*k, E1*k, E2*k, START*k,
+    EI0*k, EI1*k, EI2*k, IE0*k, IE1*k, IE2*k, STOP*k``.
+    """
+
+    def __init__(self, k: int = 1, init_component_sd: float = 0.2, **kwargs):
+        # Set before the base class builds the edge list and parameters.
+        self.k = k
+        self.num_states = 1 + 14 * k
+        super().__init__(init_component_sd=init_component_sd, **kwargs)
+
+    def make_transition_indices(self) -> np.ndarray:
+        k = self.k
+        Ir = 0
+        I = list(range(1, 1 + 3 * k))
+        E = list(range(1 + 3 * k, 1 + 6 * k))
+        START = list(range(1 + 6 * k, 1 + 7 * k))
+        EI = list(range(1 + 7 * k, 1 + 10 * k))
+        IE = list(range(1 + 10 * k, 1 + 13 * k))
+        STOP = list(range(1 + 13 * k, 1 + 14 * k))
+        edges = [(Ir, Ir)]
+        for h in range(k):
+            edges += [(Ir, START[h]), (STOP[h], Ir), (START[h], E[k + h]), (E[k + h], STOP[h])]
+            for cds in range(3):
+                edges += [
+                    (E[k * cds + h], E[k * ((cds + 1) % 3) + h]),
+                    (E[k * cds + h], EI[k * cds + h]),
+                    (EI[k * cds + h], I[k * cds + h]),
+                    (I[k * cds + h], I[k * cds + h]),
+                    (I[k * cds + h], IE[k * cds + h]),
+                    (IE[k * cds + h], E[k * cds + h]),
+                ]
+        assert len(edges) == 1 + 22 * k
+        return np.asarray(edges, np.int64)
+
+    def get_config(self) -> dict:
+        config = super().get_config()
+        config["k"] = self.k
         return config

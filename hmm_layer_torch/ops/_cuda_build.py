@@ -24,6 +24,7 @@ SOURCES = {
     "sum_product": _PKG / "csrc" / "sum_product.cu",
     "max_plus": _PKG / "csrc" / "max_plus.cu",
     "affine": _PKG / "csrc" / "affine.cu",
+    "mxu": _PKG / "csrc" / "mxu.cu",
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -43,10 +44,15 @@ SIGNATURES = {
         "hmm_maxplus_chunk_summaries": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         "hmm_maxplus_deltas": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "hmm_maxplus_backtrace": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "hmm_maxplus_deltas_blocked": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "hmm_maxplus_backtrace_blocked": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "affine": {
         "hmm_affine_chunk_composites": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "hmm_affine_reverse_outputs": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    },
+    "mxu": {
+        "hmm_sum_chunk_summaries_mxu": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

@@ -166,12 +166,12 @@ def _raise_on(name, err):
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
-def _kernel_shapes(name, A, E_T):
+def _kernel_shapes(name, A, E_T, max_q=KERNEL_MAX_Q):
     if E_T.device.type != "cuda":
         raise ValueError(f"{name}: tensors on {E_T.device} have no kernel")
     m, c, q, R = E_T.shape
-    if not 1 <= q <= KERNEL_MAX_Q:
-        raise ValueError(f"{name}: the kernel takes 1 <= q <= {KERNEL_MAX_Q}, got q={q}")
+    if not 1 <= q <= max_q:
+        raise ValueError(f"{name}: the kernel takes 1 <= q <= {max_q}, got q={q}")
     if tuple(A.shape) != (m, q, q):
         raise ValueError(f"{name}: A has shape {tuple(A.shape)}, expected {(m, q, q)}")
     if min(m, c, R) < 1:

@@ -1,7 +1,8 @@
-"""Max-plus Viterbi kernels K6–K8: CUDA wrappers, plain versions, counters.
+"""Max-plus Viterbi kernels K6–K8, K7b, K8b: CUDA wrappers, plain versions,
+counters.
 
-Port of the q <= 16 kernels of ``hmm_layer_tpu/ops/pallas_viterbi.py``.
-Each kernel of ``csrc/max_plus.cu`` has here
+Port of ``hmm_layer_tpu/ops/pallas_viterbi.py``. Each kernel of
+``csrc/max_plus.cu`` has here
 
 * a wrapper (:func:`maxplus_chunk_summaries`, :func:`maxplus_deltas`,
   :func:`maxplus_backtrace`) that takes the plain version for a tensor on
@@ -12,7 +13,16 @@ Each kernel of ``csrc/max_plus.cu`` has here
 * a launch count in :data:`LAUNCHES`, raised by one where the wrapper
   launches its kernel and nowhere else.
 
-:func:`maxplus_decode` is K7 then K8, as ``pallas_viterbi.maxplus_decode``.
+As in the JAX package, :func:`maxplus_deltas` and :func:`maxplus_backtrace`
+pick their body by q: the q <= 16 kernels K7 and K8, or for
+16 < q <= :data:`MAX_BLOCKED_Q` the blocked bodies K7b and K8b (one warp
+per lane, counted under ``maxplus_deltas_blocked`` and
+``maxplus_backtrace_blocked``). The blocked bodies work sequence-major,
+(m, R, c, q), where a warp's q states of a step are one line; their
+wrappers transpose from and to the layouts below around the launch. The
+plain versions are generic in q and are the plain versions of both
+bodies. :func:`maxplus_decode` is the delta pass then the backtrace, as
+``pallas_viterbi.maxplus_decode``.
 
 Layouts (R = b·P chunk elements, lane ``r`` = sequence ``r // P``, chunk
 ``r % P``; the model axis ``m`` leads; everything log space):
@@ -23,12 +33,12 @@ Layouts (R = b·P chunk elements, lane ``r`` = sequence ``r // P``, chunk
   from left border ``i`` to right border ``j``.
 * ``deltas`` (m, c, q, R); ``states`` (m, c, R) int32.
 
+The sequential decode at 16 < q <= 64 (``recursion._viterbi_seq_kernels``)
+calls K7b and K8b with the batch on the lanes: c = L, R = b.
+
 Decoding has no gradient: on CUDA the float-valued launches are wrapped in
 an ``autograd.Function`` whose backward raises, so none is silently
 dropped.
-
-The blocked bodies of ``maxplus_deltas`` / ``maxplus_backtrace`` for
-16 < q <= 64 (K7b, K8b) are not ported yet (ROADMAP Queue 2).
 """
 
 from __future__ import annotations
@@ -36,10 +46,18 @@ from __future__ import annotations
 import torch
 
 from . import _cuda_build
-from .cuda_forward import _check, _kernel_shapes, _KernelOnly, _launch_args, _raise_on
+from .cuda_forward import (
+    KERNEL_MAX_Q,
+    _check,
+    _kernel_shapes,
+    _KernelOnly,
+    _launch_args,
+    _raise_on,
+)
 
 __all__ = [
     "NEG",
+    "MAX_BLOCKED_Q",
     "LAUNCHES",
     "reset_launches",
     "maxplus_chunk_summaries",
@@ -53,11 +71,16 @@ __all__ = [
 
 # Sentinel for impossible paths: finite, never -inf (the JAX ``_NEG``).
 NEG = -1e30
+# Largest state count of the blocked delta/backtrace bodies (the JAX
+# ``pallas_viterbi.MAX_BLOCKED_Q``); K6 keeps q <= 16.
+MAX_BLOCKED_Q = 64
 
 LAUNCHES = {
     "maxplus_chunk_summaries": 0,
     "maxplus_deltas": 0,
     "maxplus_backtrace": 0,
+    "maxplus_deltas_blocked": 0,
+    "maxplus_backtrace_blocked": 0,
 }
 
 
@@ -88,8 +111,8 @@ def maxplus_chunk_summaries_plain(log_A, log_E_T, P: int):
 
 
 def maxplus_deltas_plain(log_A, log_E_T, delta0):
-    """K7's plain version: deltas (m, c, q, R) from the start delta0
-    (m, q, R) (conditional start plus first emission)."""
+    """K7's and K7b's plain version: deltas (m, c, q, R) from the start
+    delta0 (m, q, R) (conditional start plus first emission)."""
     m, c, q, R = log_E_T.shape
     e = log_E_T.transpose(-1, -2)  # (m, c, R, q)
     A_b = log_A[:, None]  # (m, 1, k, p)
@@ -102,7 +125,7 @@ def maxplus_deltas_plain(log_A, log_E_T, delta0):
 
 
 def maxplus_backtrace_plain(log_A, deltas, last_state):
-    """K8's plain version: states (m, c, R) int32, walking back from
+    """K8's and K8b's plain version: states (m, c, R) int32, walking back from
     ``last_state`` (m, R) with the lowest argmax of
     ``deltas[t, k] + log_A[k, s_{t+1}]``."""
     m, c, q, R = deltas.shape
@@ -163,8 +186,15 @@ def maxplus_chunk_summaries(log_A, log_E_T, P: int):
     return C_T
 
 
+def _seq_major(x):
+    """(m, c, q, R) -> (m, R, c, q), or (m, q, R) -> (m, R, q): the blocked
+    bodies' layout."""
+    return x.movedim(-1, 1).contiguous()
+
+
 def maxplus_deltas(log_A, log_E_T, delta0):
-    """K7: max-plus forward values (m, c, q, R) at every position.
+    """K7 (q <= 16) or K7b (16 < q <= 64): max-plus forward values
+    (m, c, q, R) at every position.
 
     Args:
         log_A: (m, q, q); log_E_T: (m, c, q, R) as for
@@ -175,30 +205,34 @@ def maxplus_deltas(log_A, log_E_T, delta0):
     if log_E_T.device.type == "cpu":
         return maxplus_deltas_plain(log_A, log_E_T, delta0)
     name = "maxplus_deltas"
-    m, c, q, R = _kernel_shapes(name, log_A, log_E_T)
+    m, c, q, R = _kernel_shapes(name, log_A, log_E_T, MAX_BLOCKED_Q)
     _check(name, log_E_T.device, log_A=log_A, log_E_T=log_E_T, delta0=delta0)
     if tuple(delta0.shape) != (m, q, R):
         raise ValueError(f"{name}: delta0 {tuple(delta0.shape)} does not match "
                          f"log_E_T {tuple(log_E_T.shape)}")
-    lib = _cuda_build.load("max_plus")
+    blocked = q > KERNEL_MAX_Q
+    key = f"{name}_blocked" if blocked else name  # launch count and entry point
+    fn = getattr(_cuda_build.load("max_plus"), f"hmm_{key}")
 
     def launch(log_A, log_E_T, delta0):
-        out = torch.empty((m, c, q, R), dtype=torch.float32, device=log_E_T.device)
+        if blocked:
+            log_E_T, delta0 = _seq_major(log_E_T), _seq_major(delta0)
+        out = torch.empty(log_E_T.shape, dtype=torch.float32, device=log_E_T.device)
         device, stream = _launch_args(log_E_T.device)
-        _raise_on(name, lib.hmm_maxplus_deltas(
+        _raise_on(name, fn(
             log_A.data_ptr(), log_E_T.data_ptr(), delta0.data_ptr(), out.data_ptr(),
             m, c, q, R, device, stream,
         ))
-        return out
+        return out.movedim(1, -1).contiguous() if blocked else out
 
     out = _NoGradient.apply(launch, log_A, log_E_T, delta0)
-    LAUNCHES[name] += 1
+    LAUNCHES[key] += 1
     return out
 
 
 def maxplus_backtrace(log_A, deltas, last_state):
-    """K8: decoded states (m, c, R) int32 from stored deltas; always one
-    valid optimal path per chunk element.
+    """K8 (q <= 16) or K8b (16 < q <= 64): decoded states (m, c, R) int32
+    from stored deltas; always one valid optimal path per chunk element.
 
     Args:
         log_A: (m, q, q); deltas: (m, c, q, R) from :func:`maxplus_deltas`.
@@ -208,25 +242,29 @@ def maxplus_backtrace(log_A, deltas, last_state):
     if deltas.device.type == "cpu":
         return maxplus_backtrace_plain(log_A, deltas, last_state)
     name = "maxplus_backtrace"
-    m, c, q, R = _kernel_shapes(name, log_A, deltas)
+    m, c, q, R = _kernel_shapes(name, log_A, deltas, MAX_BLOCKED_Q)
     _check(name, deltas.device, log_A=log_A, deltas=deltas)
     if (tuple(last_state.shape) != (m, R) or last_state.dtype != torch.int32
             or last_state.device != deltas.device or not last_state.is_contiguous()):
         raise ValueError(f"{name}: last_state must be a contiguous int32 {(m, R)} "
                          f"tensor on {deltas.device}, got {last_state.dtype} "
                          f"{tuple(last_state.shape)} on {last_state.device}")
-    lib = _cuda_build.load("max_plus")
-    states = torch.empty((m, c, R), dtype=torch.int32, device=deltas.device)
+    blocked = q > KERNEL_MAX_Q
+    key = f"{name}_blocked" if blocked else name
+    fn = getattr(_cuda_build.load("max_plus"), f"hmm_{key}")
+    if blocked:
+        deltas = _seq_major(deltas)
+    states = torch.empty((m, R, c) if blocked else (m, c, R), dtype=torch.int32, device=deltas.device)
     device, stream = _launch_args(deltas.device)
-    _raise_on(name, lib.hmm_maxplus_backtrace(
+    _raise_on(name, fn(
         log_A.data_ptr(), deltas.data_ptr(), last_state.data_ptr(), states.data_ptr(),
         m, c, q, R, device, stream,
     ))
-    LAUNCHES[name] += 1
-    return states
+    LAUNCHES[key] += 1
+    return states.transpose(1, 2).contiguous() if blocked else states
 
 
 def maxplus_decode(log_A, log_E_T, delta0, last_state):
-    """Chunk-local delta pass (K7) then within-chunk backtrace (K8):
-    states (m, c, R) int32."""
+    """Delta pass (K7 or K7b) then backtrace (K8 or K8b): states (m, c, R)
+    int32."""
     return maxplus_backtrace(log_A, maxplus_deltas(log_A, log_E_T, delta0), last_state)

@@ -18,7 +18,12 @@ kernels K1–K3 (:mod:`.cuda_forward`) and, for :func:`viterbi`, K6–K8
 (:mod:`.cuda_viterbi`), as the JAX package runs its Pallas kernels on a
 TPU (``_use_pallas``); everywhere else the plain chunked version below
 runs. The boundary combine, the chunk-level backtrace and the posterior
-combine are plain torch ops in both.
+combine are plain torch ops in both. At 16 < q <= 64 on CUDA,
+:func:`viterbi` runs the sequential decode through the blocked kernels
+K7b/K8b whatever the ``parallel_factor``; at 16 < q <= 128 the summary
+pass of the log-likelihood, ``forward`` and ``backward`` runs K9
+(:mod:`.cuda_mxu`) when its opt-in gate ``HMM_PALLAS_MXU=1`` is set, as in
+the JAX package.
 
 Gradients at ``parallel_factor`` > 1 come from analytic VJPs
 (``torch.autograd.Function``s, the JAX ``custom_vjp``\\ s), not from taping
@@ -39,7 +44,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import cuda_adjoint, cuda_forward, cuda_viterbi
+from . import cuda_adjoint, cuda_forward, cuda_mxu, cuda_viterbi
 from .semiring import EPS, logmatmul, logmatvec, maxargmatvec, maxmatmul
 
 __all__ = [
@@ -378,10 +383,30 @@ def _chunked_values(init, A, E, C, P):
     return _forward_outputs(init, A, E, T, P), _backward_outputs(A, E, S, P), ll
 
 
+def _use_mxu_kernel(E) -> bool:
+    """K9 runs where its opt-in gate is set, 16 < q <= 128 and the tensors
+    are on CUDA (the JAX gate: ``pallas_mxu.MXU_KERNELS``,
+    ``mxu_supported`` and a TPU)."""
+    return cuda_mxu.MXU_KERNELS and cuda_mxu.mxu_supported(E.shape[-1]) and E.is_cuda
+
+
+def _chunk_summaries_mxu(A, E, P):
+    """K9 over all models, as (P, m, b, q, q); emissions clamped to >= EPS
+    in K9's (m, c, R, q) layout, states last."""
+    m, b, L, q = E.shape
+    Ec, _ = _split_chunks(_clamped(E), P)  # (m, bP, c, q)
+    C = cuda_mxu.sum_chunk_summaries_mxu(A.contiguous(), Ec.transpose(1, 2).contiguous(), P)
+    return C.reshape(m, b, P, q, q).movedim(2, 0)
+
+
 def _chunk_summaries_dispatch(A, E, P):
+    """Chunk operators (P, m, b, q, q) for the log-likelihood, ``forward``
+    and ``backward``: K1, else K9 behind its gate, else the plain pass."""
     if _use_kernels(E):
         b = E.shape[1]
         return _chunk_summaries_kernels(A.contiguous(), _kernel_chunk_inputs(E, P), P, b)
+    if _use_mxu_kernel(E):
+        return _chunk_summaries_mxu(A, E, P)
     return _chunk_summaries(A, E, P)[0]
 
 
@@ -966,6 +991,28 @@ def _viterbi_chunked_plain(init, A, E, P):
     return _viterbi_outputs(first_start, log_A, Et, j_end, P)
 
 
+def _use_seq_viterbi_kernels(E) -> bool:
+    """The blocked decode K7b/K8b runs where the tensors are on CUDA and
+    16 < q <= 64 (the JAX gate ``_use_pallas_seq_viterbi``, on a TPU)."""
+    return E.is_cuda and cuda_forward.KERNEL_MAX_Q < E.shape[-1] <= cuda_viterbi.MAX_BLOCKED_Q
+
+
+def _viterbi_seq_kernels(init, A, E):
+    """Sequential decode through the delta pass and the backtrace with the
+    batch on the lanes (K7b + K8b on CUDA), as ``_viterbi_seq_pallas``.
+    Returns paths (m, b, L) int32, the same as :func:`_viterbi_seq`'s: the
+    deltas are bit-equal and both take the lowest argmax."""
+    m, b, L, q = E.shape
+    log_A = torch.log(_clamped(A)).contiguous()
+    log_init = torch.log(_clamped(init))
+    log_E_T = torch.log(_clamped(E)).permute(0, 2, 3, 1).contiguous()  # (m, L, q, b)
+    delta0 = (log_init[:, :, None] + log_E_T[:, 0]).contiguous()  # (m, q, b)
+    deltas = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)
+    last = deltas[:, -1].argmax(dim=1).to(torch.int32).contiguous()  # (m, b)
+    states = cuda_viterbi.maxplus_backtrace(log_A, deltas, last)  # (m, L, b)
+    return states.transpose(-1, -2).contiguous()
+
+
 def _viterbi_chunked_kernels(init, A, E, P):
     """Chunked Viterbi, kernel route: K6 summaries, the plain boundary fold
     and chunk-level backtrace, then K7 + K8 from the conditional starts."""
@@ -1089,13 +1136,17 @@ def viterbi(init, A, E, parallel_factor: int = 1) -> torch.Tensor:
     (inevitable at |score| ~ L for dense emissions), engines may break the
     tie differently; the paths' true scores then agree to ~1e-7 relative.
 
-    Routing for 16 < q <= 64: the JAX package sends these shapes on a TPU
-    to its blocked sequential Pallas kernels (K7b/K8b) whatever the
-    ``parallel_factor``. Those are not ported yet (ROADMAP Queue 2), so the
-    port routes them as the JAX package does off the TPU: the sequential
-    scan for ``parallel_factor == 1``, the plain chunked engine above.
-    Decoding has no gradient; it runs under ``torch.no_grad``.
+    Routing for 16 < q <= 64: on a CUDA tensor these shapes take the
+    sequential decode through the blocked kernels K7b/K8b
+    (:func:`_viterbi_seq_kernels`) whatever the ``parallel_factor``, as the
+    JAX package sends them to its blocked Pallas kernels on a TPU; the path
+    is the sequential scan's. Off CUDA they route as the JAX package does
+    off the TPU: the sequential scan for ``parallel_factor == 1``, the plain
+    chunked engine above. Decoding has no gradient; it runs under
+    ``torch.no_grad``.
     """
+    if _use_seq_viterbi_kernels(E):
+        return _viterbi_seq_kernels(init, A, E)
     if parallel_factor == 1:
         return _viterbi_seq(init, A, E)
     if _use_kernels(E):

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels K1–K8 on the card: each against its plain
-PyTorch version, the layer's kernel routes (posterior, Viterbi, and the
-gradients of the training objectives) against their plain routes, the
-launch counts and the refusals.
+"""The port's CUDA kernels K1–K9 on the card: each against its plain
+PyTorch version, the layer's kernel routes (posterior, Viterbi, the
+gradients of the training objectives, the multi-copy decode and the gated
+K9 log-likelihood) against their plain routes, the launch counts and the
+refusals.
 
 Every test here needs a CUDA device and skips where there is none. The file
 imports no JAX, so it runs where JAX is not installed:
@@ -15,8 +16,13 @@ import pytest
 import torch
 
 from hmm_layer_torch import HMMLayer
-from hmm_layer_torch.models import GenePredEmissions, GenePredTransitions
-from hmm_layer_torch.ops import cuda_adjoint, cuda_forward, cuda_viterbi, recursion
+from hmm_layer_torch.models import (
+    GenePredEmissions,
+    GenePredMultiTransitions,
+    GenePredTransitions,
+    make_15_class_emission_kernel,
+)
+from hmm_layer_torch.ops import cuda_adjoint, cuda_forward, cuda_mxu, cuda_viterbi, recursion
 from oracle import random_hmm
 
 pytestmark = pytest.mark.gpu
@@ -264,7 +270,8 @@ def test_maxplus_kernels_equal_plain(cuda, m, c, R, P, gene_pred):
     deltas = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)
     states = cuda_viterbi.maxplus_backtrace(log_A, deltas, last)
     assert cuda_viterbi.LAUNCHES == {
-        "maxplus_chunk_summaries": 1, "maxplus_deltas": 1, "maxplus_backtrace": 1
+        "maxplus_chunk_summaries": 1, "maxplus_deltas": 1, "maxplus_backtrace": 1,
+        "maxplus_deltas_blocked": 0, "maxplus_backtrace_blocked": 0,
     }
     assert torch.equal(C_T, cuda_viterbi.maxplus_chunk_summaries_plain(log_A, log_E_T, P))
     assert torch.equal(deltas, cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0))
@@ -300,7 +307,8 @@ def test_layer_viterbi_kernel_route_matches_plain_route(cuda, pf):
         cuda_viterbi.reset_launches()
         paths = layer.viterbi(X)
         assert cuda_viterbi.LAUNCHES == {
-            "maxplus_chunk_summaries": 1, "maxplus_deltas": 1, "maxplus_backtrace": 1
+            "maxplus_chunk_summaries": 1, "maxplus_deltas": 1, "maxplus_backtrace": 1,
+            "maxplus_deltas_blocked": 0, "maxplus_backtrace_blocked": 0,
         }
         init, A = layer.transitions.matrices()
         E = layer.emission_probs(X)
@@ -326,3 +334,147 @@ def test_maxplus_kernels_refuse_what_they_cannot_take(cuda):
     deltas = cuda_viterbi.maxplus_deltas(log_A, log_E_T, log_E_T[:, 0].contiguous())
     with pytest.raises(ValueError, match="int32"):
         cuda_viterbi.maxplus_backtrace(log_A, deltas, torch.zeros((1, 40), dtype=torch.int64, device=cuda))
+
+
+# ---------------------------------------------------------------------------
+# K7b–K8b (blocked max-plus, 16 < q <= 64) and K9 (summaries, 16 < q <= 128)
+# ---------------------------------------------------------------------------
+
+
+def _blocked_inputs(seed, q, c, R, device):
+    """log A with structural zeros (m = 1), log E_T (1, c, q, R), delta0 and
+    last states."""
+    rng = np.random.default_rng(seed)
+    A = rng.dirichlet(np.ones(q), size=q)
+    A[:, q // 2] = 0.0
+    A = A / A.sum(-1, keepdims=True)
+    E = rng.dirichlet(np.ones(q) * 0.3, size=(c, R)).transpose(0, 2, 1)
+    log = lambda x: torch.log(torch.from_numpy(np.ascontiguousarray(x, np.float32)).clamp_min(1e-16))  # noqa: E731
+    log_A, log_E_T = log(A)[None].to(device), log(E)[None].contiguous().to(device)
+    delta0 = (log_E_T[:, 0] - 20.0).contiguous()
+    last = torch.from_numpy(rng.integers(0, q, size=(1, R)).astype(np.int32)).to(device)
+    return log_A.contiguous(), log_E_T, delta0, last
+
+
+@pytest.mark.parametrize("q", [17, 29, 33, 57, 64])
+def test_blocked_maxplus_kernels_equal_plain(cuda, q):
+    """K7b and K8b bit-equal to their plain versions, at a sequential
+    decode's shape (c = L = 777, R = b = 37: a ragged last block)."""
+    log_A, log_E_T, delta0, last = _blocked_inputs(q, q, 777, 37, cuda)
+    cuda_viterbi.reset_launches()
+    deltas = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)
+    states = cuda_viterbi.maxplus_backtrace(log_A, deltas, last)
+    assert cuda_viterbi.LAUNCHES == {
+        "maxplus_chunk_summaries": 0, "maxplus_deltas": 0, "maxplus_backtrace": 0,
+        "maxplus_deltas_blocked": 1, "maxplus_backtrace_blocked": 1,
+    }
+    assert torch.equal(deltas, cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0))
+    assert torch.equal(states, cuda_viterbi.maxplus_backtrace_plain(log_A, deltas, last))
+    flat = torch.zeros_like(deltas)  # every state ties: the lowest index wins
+    tied = cuda_viterbi.maxplus_backtrace(torch.zeros_like(log_A), flat, last)
+    assert (tied[:, :-1] == 0).all()
+    torch.cuda.synchronize()
+
+
+def _multi_copy_layer(k, pf, device):
+    layer = HMMLayer(
+        GenePredMultiTransitions(k=k),
+        GenePredEmissions(num_copies=k, init=make_15_class_emission_kernel(num_copies=k), **CODONS),
+        use_prior=False, parallel_factor=pf, device=device,
+    )
+    gen = torch.Generator().manual_seed(k)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.add_((0.3 * torch.randn(p.shape, generator=gen)).to(p.device))
+    return layer
+
+
+def _multi_copy_inputs(seed, b, L):
+    rng = np.random.default_rng(seed)
+    cls = rng.dirichlet(np.ones(15), size=(1, b, L)).astype(np.float32)
+    nuc = np.eye(5, dtype=np.float32)[rng.integers(0, 4, size=(1, b, L))]
+    return np.concatenate([cls, nuc], axis=-1)
+
+
+@pytest.mark.parametrize("pf", [1, 8])
+def test_multi_copy_viterbi_takes_blocked_kernels(cuda, monkeypatch, pf):
+    """At q = 29 ``viterbi`` runs K7b + K8b whatever the parallel factor;
+    the paths equal the same glue on the plain versions on the card, and
+    are valid and score-equal to the sequential decode."""
+    layer = _multi_copy_layer(2, pf, cuda)
+    X = _multi_copy_inputs(4, 3, 1200)
+    with torch.inference_mode():
+        cuda_viterbi.reset_launches()
+        paths = layer.viterbi(X)
+        assert cuda_viterbi.LAUNCHES == {
+            "maxplus_chunk_summaries": 0, "maxplus_deltas": 0, "maxplus_backtrace": 0,
+            "maxplus_deltas_blocked": 1, "maxplus_backtrace_blocked": 1,
+        }
+        init, A = layer.transitions.matrices()
+        E = layer.emission_probs(X)
+        seq = recursion._viterbi_seq(init, A, E)
+        monkeypatch.setattr(cuda_viterbi, "maxplus_deltas", cuda_viterbi.maxplus_deltas_plain)
+        monkeypatch.setattr(cuda_viterbi, "maxplus_backtrace", cuda_viterbi.maxplus_backtrace_plain)
+        plain = recursion._viterbi_seq_kernels(init, A, E)
+    assert paths.dtype == torch.int32 and tuple(paths.shape) == (1, 3, 1200)
+    assert torch.equal(paths, plain)
+    s_k, used_k = _path_score64(init, A, E, paths)
+    s_s, used_s = _path_score64(init, A, E, seq)
+    assert used_k[used_s.all(-1)].all()
+    torch.testing.assert_close(s_k, s_s, rtol=1e-6, atol=0)
+
+
+def _mxu_inputs(seed, m, q, c, R, device):
+    rng = np.random.default_rng(seed)
+    A = rng.dirichlet(np.ones(q), size=(m, q))
+    A[:, :, 1] = 0.0
+    A = A / A.sum(-1, keepdims=True)
+    E_S = rng.uniform(0.05, 1.0, size=(m, c, R, q))
+    return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device) for x in (A, E_S)]
+
+
+@pytest.mark.parametrize("q", [17, 29, 64, 127])
+def test_mxu_kernel_matches_plain(cuda, q):
+    """K9 against its plain version: another order of the sums, so within
+    rtol = atol = 2e-4 (the JAX suite's tolerance for this kernel) where
+    the operator lies within 30 nats of its row's maximum."""
+    A, E_S = _mxu_inputs(q, 2, q, 40, 24, cuda)
+    cuda_mxu.reset_launches()
+    C = cuda_mxu.sum_chunk_summaries_mxu(A, E_S, 4)
+    assert cuda_mxu.LAUNCHES == {"sum_chunk_summaries_mxu": 1}
+    ref = cuda_mxu.sum_chunk_summaries_mxu_plain(A, E_S, 4)
+    mask = ref >= ref.amax(-1, keepdim=True) - 30.0
+    torch.testing.assert_close(C[mask], ref[mask], rtol=2e-4, atol=2e-4)
+    torch.cuda.synchronize()
+
+
+def test_mxu_branch_only_with_the_gate(cuda, monkeypatch):
+    layer = _multi_copy_layer(2, 4, cuda)
+    X = _multi_copy_inputs(5, 2, 600)
+    with torch.inference_mode():
+        monkeypatch.setattr(cuda_mxu, "MXU_KERNELS", False)
+        cuda_mxu.reset_launches()
+        cuda_forward.reset_launches()
+        ll_off = layer.log_likelihood(X)
+        assert cuda_mxu.LAUNCHES["sum_chunk_summaries_mxu"] == 0
+        monkeypatch.setattr(cuda_mxu, "MXU_KERNELS", True)
+        ll_on = layer.log_likelihood(X)
+        assert cuda_mxu.LAUNCHES["sum_chunk_summaries_mxu"] == 1
+        assert cuda_forward.LAUNCHES["sum_chunk_summaries"] == 0
+        init, A = layer.transitions.matrices()
+        ll_seq = recursion.log_likelihood(init, A, layer.emission_probs(X), 1)
+    torch.testing.assert_close(ll_on, ll_off, rtol=1e-5, atol=0)
+    torch.testing.assert_close(ll_on, ll_seq, rtol=2e-4, atol=0)
+
+
+def test_blocked_and_mxu_kernels_refuse_what_they_cannot_take(cuda):
+    with pytest.raises(ValueError, match="q <= 64"):
+        cuda_viterbi.maxplus_deltas(torch.zeros((1, 65, 65), device=cuda),
+                                    torch.zeros((1, 4, 65, 3), device=cuda),
+                                    torch.zeros((1, 65, 3), device=cuda))
+    with pytest.raises(ValueError, match="16 < q <= 128"):
+        cuda_mxu.sum_chunk_summaries_mxu(torch.zeros((1, 129, 129), device=cuda),
+                                         torch.zeros((1, 4, 3, 129), device=cuda), 1)
+    with pytest.raises(TypeError, match="float32"):
+        cuda_mxu.sum_chunk_summaries_mxu(torch.zeros((1, 29, 29), device=cuda),
+                                         torch.zeros((1, 4, 3, 29), device=cuda, dtype=torch.float64), 1)

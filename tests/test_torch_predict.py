@@ -346,14 +346,14 @@ def test_new_modules_import_no_jax_and_no_cuda():
         "from hmm_layer_torch import cli, data, viterbi\n"
         "from hmm_layer_torch.models import annotation, initializers\n"
         "from hmm_layer_torch.utils import checkpoint\n"
-        "from hmm_layer_torch.ops import cuda_adjoint, cuda_viterbi, _cuda_build\n"
+        "from hmm_layer_torch.ops import cuda_adjoint, cuda_mxu, cuda_viterbi, _cuda_build\n"
         "from hmm_layer_torch import training\n"
         "from hmm_layer_torch.utils import metrics, resilience\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert not any(m.startswith('hmm_layer_tpu') for m in sys.modules)\n"
         "assert not torch.cuda.is_initialized(), 'CUDA initialised at import'\n"
         "assert not _cuda_build._libs, 'kernels loaded at import'\n"
-        "assert set(_cuda_build.SOURCES) == {'sum_product', 'max_plus', 'affine'}\n"
+        "assert set(_cuda_build.SOURCES) == {'sum_product', 'max_plus', 'affine', 'mxu'}\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

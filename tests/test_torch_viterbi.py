@@ -210,8 +210,9 @@ def test_viterbi_matches_jax_peaked(monkeypatch, force_interpret, m, q, b, L, pf
 
 @pytest.mark.parametrize("pf", [1, 4])
 def test_viterbi_matches_jax_q33(pf):
-    """q = 33: the port's sequential and plain chunked routes against JAX's
-    off-TPU routes (the blocked K7b/K8b route is not ported yet)."""
+    """q = 33 on the CPU: the port's sequential and plain chunked routes
+    against JAX's off-TPU routes (the blocked K7b/K8b route, taken on CUDA,
+    is held in tests/test_torch_multicopy.py and tests/test_torch_cuda.py)."""
     init, A, E = _hmm(5, 1, 33, 2, 64, peaked=True)
     got, ref = _both(init, A, E, pf)
     np.testing.assert_array_equal(got, ref)
