@@ -13,7 +13,9 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    card, at the shapes the flagship request gives them (gene-pred model,
    q=15, b=32, L=9999, parallel_factor "auto" = 33: c=303, R=1056); K6–K8
    must be bit-equal; median time over 20 samples (CUDA events), the plain
-   version's time and the bound.
+   version's time and the bound. K2 and K5 are timed cold as well (each
+   launch after 256 MB written to a scratch buffer, so that their inputs
+   are not in the 50 MB L2), and their bound shares are taken from that.
 4. End to end: ``HMMLayer`` serves 3 requests of b=32, L=9999 through
    ``state_posterior_log_probs`` and ``log_likelihood``; the launch counts
    of that run, the checks (normalised posteriors, finite logliks, the
@@ -72,6 +74,7 @@ import time
 
 import numpy as np
 import torch
+from hmm_layer_torch.utils.cuda_timing import FLUSH_BYTES, cold_median_ms, median_ms
 
 CODONS = dict(
     start_codons=[("ATG", 1.0)],
@@ -116,6 +119,10 @@ TRAIN_STEPS, MAP_STEPS, CLI_STEPS = 5, 2, 10
 # Kernel-only launches per request: the posterior runs K1, K2 and K3 once,
 # the log-likelihood K1 once more.
 PER_REQUEST = {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1}
+# Kernels timed cold as well as warm in phase 3: K2's 38 MB of inputs and
+# outputs stay in the 50 MB L2 over back-to-back launches (K5's 154 MB do
+# not, and its cold time shows that).
+COLD = ("sum_fwd_outputs", "affine_reverse_outputs")
 
 # NVIDIA data-sheet peaks: (memory bytes/s, float32 non-tensor FLOP/s).
 PEAKS = {
@@ -136,21 +143,13 @@ def peaks_for(name):
     return "SXM", PEAKS["SXM"]
 
 
-def cuda_median_ms(fn, samples=20, reps=1, warmup=2):
-    """Median over ``samples`` of (CUDA-event time of ``reps`` back-to-back
-    calls) / reps, in ms."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(samples):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
+def cold_text(name, kern, rec):
+    """For the kernels of COLD: their cold time and the bound's share of it."""
+    if name not in COLD:
+        return ""
+    cold = cold_median_ms(kern)
+    return (f"; cold {cold:.4f} ms (median of 20 single launches after a {FLUSH_BYTES >> 20} MB "
+            f"write), bound share {100 * rec['bound_ms'] / cold:.1f}% of the cold time")
 
 
 def within(got, ref, rtol, atol, mask=None):
@@ -256,7 +255,8 @@ def kernel_phase(layer, X, recursion, cuda_forward, peak_bytes, peak_flops):
             err, ok = within(got, ref, rtol, atol, msk)
             records[name] = measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops)
             log(f"phase 3 {name}: {'ok' if ok else 'MISMATCH'} max_abs_err={err:.3e} "
-                f"(rtol {rtol}, atol {atol}) {timing_text(records[name], nbytes, nops)}")
+                f"(rtol {rtol}, atol {atol}) {timing_text(records[name], nbytes, nops)}"
+                f"{cold_text(name, kern, records[name])}")
             if not ok:
                 failed.append(name)
     if failed:
@@ -269,8 +269,8 @@ def measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops,
     """The kernel's record: kernel ms (median of 20 samples of ``reps``
     launches), plain ms (``plain_samples`` samples of 1), and the bound from
     the bytes and operations of this call."""
-    ms = cuda_median_ms(kern, samples=20, reps=reps)
-    plain_ms = cuda_median_ms(plain, samples=plain_samples, reps=1, warmup=1)
+    ms = median_ms(kern, samples=20, reps=reps)
+    plain_ms = median_ms(plain, samples=plain_samples, reps=1, warmup=1)
     bytes_ms, ops_ms = 1e3 * nbytes / peak_bytes, 1e3 * nops / peak_flops
     return {
         "name": name,
@@ -428,7 +428,7 @@ def adjoint_kernel_phase(layer, X, labels, mask, recursion, cuda_adjoint, peak_b
             records[name] = measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops)
             log(f"phase 3 {name}: {'ok' if ok else 'MISMATCH'} max_abs_err={err:.3e} (rtol 1e-05, "
                 f"atol 1e-06; |ref| max {float(ref.abs().max()):.3e}) "
-                f"{timing_text(records[name], nbytes, nops)}")
+                f"{timing_text(records[name], nbytes, nops)}{cold_text(name, kern, records[name])}")
             if not ok:
                 failed.append(name)
     if failed:

@@ -33,6 +33,7 @@
 // wrapper raises if it is not cudaSuccess. Launches go to the caller's
 // stream and never synchronise.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -136,42 +137,137 @@ __global__ void __launch_bounds__(BLOCK)
     if (p < q) out[(size_t)p * (q + 1)] = X[p];
 }
 
+// Lane groups for the output scan K5: LANES lanes (a half-warp) own one
+// chunk element, lane j its state j, and a block holds OUT_G chunk elements.
+// The u, v and s of OUT_TS steps at a time are staged in shared memory with
+// cp.async, in a ring of OUT_NB tiles, and the outputs go back through the s
+// tile; the step loop is unrolled OUT_UNROLL times. These may be set with -D
+// to try other tilings (hmm_layer_torch/tune_scans.py); the build uses the
+// values below.
+constexpr int LANES = 16;
+constexpr unsigned FULL = 0xffffffffu;
+#ifndef OUT_G
+#define OUT_G 16
+#endif
+#ifndef OUT_TS
+#define OUT_TS 8
+#endif
+#ifndef OUT_NB
+#define OUT_NB 4
+#endif
+#ifndef OUT_UNROLL
+#define OUT_UNROLL 2
+#endif
+
+// Word of state p of element g in a tile row of LANES words per element.
+// The xor spreads the staging copies and the flush (G elements by 32 / G
+// states a warp) over all 32 banks; a half-warp's own run of 16 words stays
+// its own.
+template <int G>
+__device__ __forceinline__ int swz(int g, int p) {
+  return g * LANES + (p ^ (((g >> 1) * (32 / G)) & (LANES - 1)));
+}
+
 // K5 — replaces affine_reverse_outputs
 // (hmm_layer_tpu/ops/pallas_adjoint.py:170, body _affine_out_kernel
 // :145-166).
 //
-// One thread per (model, chunk element r), carrying x from x_right in reverse
-// time and writing x_t at every position.
+// One lane group per (model, chunk element r), carrying x from x_right in
+// reverse time and writing x_t at every position: lane j keeps row j of B in
+// registers and x_j. A step forms w_j = v_j x_j in its own lane, broadcasts
+// w with LANES shuffles and runs one FMA chain over k in ascending order
+// (sum_k B[j, k] w_k), then x_j = u_j * that + s_j with the product
+// rounded before the add: the roundings of the thread-per-element version,
+// in its order. Lanes j >= q carry exact zeros
+// (a zero row of B, zero u, v and s). No branch surrounds a shuffle, and a
+// group past R stays in the loop with its loads and stores masked (a
+// full-mask shuffle needs the whole warp).
 //
 // Bound on an H100: bytes — u, v and s in and x out, 154 MB at the flagship
-// posterior VJP, against 0.29 GFLOP. Design: reads and writes coalesce along
-// r. First version: only 2m * R threads (2,112 at the flagship) run a c-step
-// dependent chain, far from that bound.
-__global__ void __launch_bounds__(BLOCK)
+// posterior VJP (2m = 2, q = 15, c = 303, R = 1056), against 0.29 GFLOP.
+// Design: a step is LANES lanes wide instead of one thread's q*q FMAs, short
+// enough that the chain of c steps is no longer the limit; the loads stay
+// out of the chain (a ring of OUT_NB tiles keeps the copies of the next
+// steps in flight with cp.async while the current ones are worked through);
+// each row (t, p) of the block's OUT_G elements is read and written as
+// whole sectors (64 bytes at OUT_G = 16, one block of 8 warps per SM at the
+// flagship), the outputs through the s tile.
+template <int G, int TS, int NB, int UNROLL>
+__global__ void __launch_bounds__(G * LANES)
     affine_outputs_kernel(const float* __restrict__ B,
                           const float* __restrict__ U,
                           const float* __restrict__ V,
                           const float* __restrict__ S,
                           const float* __restrict__ x_right,
                           float* __restrict__ out, int c, int q, int R) {
-  __shared__ float sB[MAXQ][MAXQ];
+  extern __shared__ __align__(16) float tiles_mem[];  // [NB][u, v, s][TS][G * LANES]
+  constexpr int ROW = G * LANES, PLANE = TS * ROW, TILE = 3 * PLANE;
+  const int j = threadIdx.x % LANES;  // this lane's state
+  const int g = threadIdx.x / LANES;  // this group's element in the block
   const int mi = blockIdx.y;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  load_B(sB, B + (size_t)mi * q * q, q);
-  if (r >= R) return;
+  const int rb = blockIdx.x * G;      // first element of the block
+  const int r = rb + g;
+  const bool real = r < R && j < q;   // other lanes read zeros, never the tile
+  const int nr = min(G, R - rb);      // elements of the block below R
+  // Staging and flush: thread (sg, sp) moves row sp of element sg.
+  const int sg = threadIdx.x % G, sp = threadIdx.x / G;
+  const bool mover = sg < nr && sp < q;
 
-  const size_t base = (size_t)mi * c * q * R + r;
-  float x[MAXQ];
+  const float* Bm = B + (size_t)mi * q * q;
+  float brow[LANES];
 #pragma unroll
-  for (int p = 0; p < MAXQ; ++p)
-    x[p] = p < q ? x_right[((size_t)mi * q + p) * R + r] : 0.f;
+  for (int k = 0; k < LANES; ++k) brow[k] = (k < q && j < q) ? Bm[j * q + k] : 0.f;
 
-  for (int t = c - 1; t >= 0; --t) {
-    const size_t at = base + (size_t)t * q * R;
-    affine_step(x, sB, U + at, V + at, S + at, q, R);
+  const size_t plane = (size_t)q * R;  // one step of U, V, S or out
+  const size_t at = (size_t)mi * c * plane + (size_t)sp * R + rb + sg;
+  const float *u = U + at, *v = V + at, *s = S + at;
+  float* o = out + at;
+
+  // Tile i holds steps lo_of(i) ... c-1 - i*TS, walked downwards.
+  const int ntiles = (c + TS - 1) / TS;
+  auto lo_of = [&](int i) { return max(0, c - (i + 1) * TS); };
+  auto stage = [&](int i) {  // copy the steps of tile i, one commit group
+    if (mover && i < ntiles) {
+      float* dst = tiles_mem + (i % NB) * TILE + swz<G>(sg, sp);
+      const int lo = lo_of(i), n = c - i * TS - lo;
+      for (int tt = 0; tt < n; ++tt) {
+        const size_t off = (size_t)(lo + tt) * plane;
+        __pipeline_memcpy_async(dst + tt * ROW, u + off, 4);
+        __pipeline_memcpy_async(dst + PLANE + tt * ROW, v + off, 4);
+        __pipeline_memcpy_async(dst + 2 * PLANE + tt * ROW, s + off, 4);
+      }
+    }
+    __pipeline_commit();  // empty past the last tile: the count stays uniform
+  };
+
+  float x = real ? x_right[((size_t)mi * q + j) * R + r] : 0.f;
+  for (int i = 0; i < NB - 1; ++i) stage(i);
+  for (int i = 0; i < ntiles; ++i) {
+    const int lo = lo_of(i), n = c - i * TS - lo;
+    float* tile = tiles_mem + (i % NB) * TILE;
+    __pipeline_wait_prior(NB - 2);  // this thread's copies of tile i are done
+    __syncthreads();  // ... and every thread's; tile i-1 is flushed
+    stage(i + NB - 1);  // into the buffer of tile i-1
+#pragma unroll UNROLL
+    for (int tt = n - 1; tt >= 0; --tt) {
+      float* slot = tile + tt * ROW + swz<G>(g, j);
+      const float ut = real ? slot[0] : 0.f;
+      const float vt = real ? slot[PLANE] : 0.f;
+      const float st = real ? slot[2 * PLANE] : 0.f;
+      const float w = vt * x;
+      float acc = 0.f;
 #pragma unroll
-    for (int p = 0; p < MAXQ; ++p)
-      if (p < q) out[at + (size_t)p * R] = x[p];
+      for (int k = 0; k < LANES; ++k) acc = fmaf(brow[k], __shfl_sync(FULL, w, k, LANES), acc);
+      acc = __fmul_rn(ut, acc);  // rounded before s is added: never fused
+      acc += st;
+      x = acc;
+      slot[2 * PLANE] = x;
+    }
+    __syncthreads();  // the outputs of tile i are in place
+    if (mover) {
+      const float* src = tile + 2 * PLANE + swz<G>(sg, sp);
+      for (int k = 0; k < n; ++k) o[(size_t)(lo + k) * plane] = src[k * ROW];
+    }
   }
 }
 
@@ -198,9 +294,15 @@ int hmm_affine_reverse_outputs(const float* B, const float* U, const float* V,
                                int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(blocks_for(R), (unsigned)m);
-  affine_outputs_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      B, U, V, S, x_right, out, c, q, R);
+  constexpr int G = OUT_G, TS = OUT_TS, NB = OUT_NB;
+  constexpr int smem = NB * 3 * TS * G * LANES * (int)sizeof(float);
+  auto kernel = affine_outputs_kernel<G, TS, NB, OUT_UNROLL>;
+  if (smem > 48 * 1024) {  // above the default limit of dynamic shared memory
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((unsigned)((R + G - 1) / G), (unsigned)m);
+  kernel<<<grid, G * LANES, smem, (cudaStream_t)stream>>>(B, U, V, S, x_right, out, c, q, R);
   return (int)cudaGetLastError();
 }
 

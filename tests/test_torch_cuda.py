@@ -40,6 +40,18 @@ CASES = [
     pytest.param(1, 303, 1056, 33, True, id="m1-genepred-flagship"),
     pytest.param(2, 17, 21, 7, True, id="m2-genepred-ragged"),
 ]
+# The edges of K2's lane groups (8 chunk elements a block, tiles of 16
+# staged steps in the build): c around the tile, R not a multiple of 8, q
+# from 1 to the 16 lanes, and a state whose emission is 0 everywhere (log
+# alpha at the TINY floor). Fields: m, c, R, P, gene_pred, q, dead state.
+SUM_CASES = [pytest.param(*p.values, Q, False, id=p.id) for p in CASES] + [
+    pytest.param(1, 1, 7, 1, False, 15, False, id="c1-R7"),
+    pytest.param(3, 2, 9, 3, False, 3, False, id="m3-c2-R9-q3"),
+    pytest.param(1, 15, 1, 1, False, 16, False, id="c15-R1-q16"),
+    pytest.param(3, 17, 1057, 7, False, 1, False, id="m3-c17-R1057-q1"),
+    pytest.param(1, 33, 9, 3, False, 16, True, id="c33-R9-q16-dead"),
+    pytest.param(1, 15, 1057, 7, False, 15, True, id="c15-R1057-dead"),
+]
 
 
 def _f32_log_bound(ll, steps):
@@ -56,22 +68,24 @@ def cuda():
     return torch.device("cuda")
 
 
-def _inputs(seed, m, c, R, gene_pred, device):
+def _inputs(seed, m, c, R, gene_pred, device, q=Q, dead=False):
     rng = np.random.default_rng(seed)
     if gene_pred:
         A = GenePredTransitions().make_A().detach()[0].numpy()
         A = np.stack([A] * m)
     else:
-        A = np.stack([random_hmm(rng, Q, 1)[1] for _ in range(m)])
-    E_T = rng.uniform(0.05, 1.0, size=(m, c, Q, R)).astype(np.float32)
-    r0 = rng.dirichlet(np.ones(Q), size=(m, R)).astype(np.float32).transpose(0, 2, 1)
+        A = np.stack([random_hmm(rng, q, 1)[1] for _ in range(m)])
+    E_T = rng.uniform(0.05, 1.0, size=(m, c, q, R)).astype(np.float32)
+    if dead:
+        E_T[:, :, q // 2] = 0.0
+    r0 = rng.dirichlet(np.ones(q), size=(m, R)).astype(np.float32).transpose(0, 2, 1)
     ll0 = rng.normal(-50.0, 10.0, size=(m, R)).astype(np.float32)
     return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device) for x in (A, E_T, r0, ll0)]
 
 
-@pytest.mark.parametrize("m,c,R,P,gene_pred", CASES)
-def test_kernels_match_plain(cuda, m, c, R, P, gene_pred):
-    A, E_T, r0, ll0 = _inputs(0, m, c, R, gene_pred, cuda)
+@pytest.mark.parametrize("m,c,R,P,gene_pred,q,dead", SUM_CASES)
+def test_kernels_match_plain(cuda, m, c, R, P, gene_pred, q, dead):
+    A, E_T, r0, ll0 = _inputs(0, m, c, R, gene_pred, cuda, q, dead)
     C = cuda_forward.sum_chunk_summaries(A, E_T, P)
     C_ref = cuda_forward.sum_chunk_summaries_plain(A, E_T, P)
     mask = C_ref >= C_ref.amax(-1, keepdim=True) - 30.0
@@ -145,6 +159,15 @@ AFFINE_CASES = [
     pytest.param(2, 303, 1056, 15, id="m2-flagship"),
     pytest.param(2, 17, 21, 15, id="m2-ragged"),
     pytest.param(3, 40, 130, 3, id="m3-q3"),
+    # The edges of K5's lane groups (16 chunk elements a block, tiles of 8
+    # staged steps in the build): c around the tile, R not a multiple of
+    # 16, q = 1.
+    pytest.param(1, 1, 7, 15, id="c1-R7"),
+    pytest.param(3, 2, 9, 3, id="m3-c2-R9-q3"),
+    pytest.param(1, 7, 1, 15, id="c7-R1"),
+    pytest.param(3, 9, 1057, 1, id="m3-c9-R1057-q1"),
+    pytest.param(1, 17, 9, 15, id="c17-R9"),
+    pytest.param(1, 33, 1057, 15, id="c33-R1057"),
 ]
 
 
