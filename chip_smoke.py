@@ -13,9 +13,10 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    card, at the shapes the flagship request gives them (gene-pred model,
    q=15, b=32, L=9999, parallel_factor "auto" = 33: c=303, R=1056); K6–K8
    must be bit-equal; median time over 20 samples (CUDA events), the plain
-   version's time and the bound. K2 and K5 are timed cold as well (each
-   launch after 256 MB written to a scratch buffer, so that their inputs
-   are not in the 50 MB L2), and their bound shares are taken from that.
+   version's time and the bound. K1, K2, K3 and K5 are timed cold as well
+   (each launch after 256 MB written to a scratch buffer, so that their
+   inputs are not in the 50 MB L2; ``cold_ms`` in the kernels' record), and
+   their bound shares are taken from that.
 4. End to end: ``HMMLayer`` serves 3 requests of b=32, L=9999 through
    ``state_posterior_log_probs`` and ``log_likelihood``; the launch counts
    of that run, the checks (normalised posteriors, finite logliks, the
@@ -119,10 +120,10 @@ TRAIN_STEPS, MAP_STEPS, CLI_STEPS = 5, 2, 10
 # Kernel-only launches per request: the posterior runs K1, K2 and K3 once,
 # the log-likelihood K1 once more.
 PER_REQUEST = {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1}
-# Kernels timed cold as well as warm in phase 3: K2's 38 MB of inputs and
-# outputs stay in the 50 MB L2 over back-to-back launches (K5's 154 MB do
-# not, and its cold time shows that).
-COLD = ("sum_fwd_outputs", "affine_reverse_outputs")
+# Kernels timed cold as well as warm in phase 3: K1's 19 MB and K2's and
+# K3's 38 MB of inputs and outputs stay in the 50 MB L2 over back-to-back
+# launches (K5's 154 MB do not, and its cold time shows that).
+COLD = ("sum_chunk_summaries", "sum_fwd_outputs", "beta_bwd_outputs", "affine_reverse_outputs")
 
 # NVIDIA data-sheet peaks: (memory bytes/s, float32 non-tensor FLOP/s).
 PEAKS = {
@@ -144,10 +145,11 @@ def peaks_for(name):
 
 
 def cold_text(name, kern, rec):
-    """For the kernels of COLD: their cold time and the bound's share of it."""
+    """For the kernels of COLD: their cold time (kept in ``rec`` as
+    ``cold_ms``) and the bound's share of it."""
     if name not in COLD:
         return ""
-    cold = cold_median_ms(kern)
+    cold = rec["cold_ms"] = cold_median_ms(kern)
     return (f"; cold {cold:.4f} ms (median of 20 single launches after a {FLUSH_BYTES >> 20} MB "
             f"write), bound share {100 * rec['bound_ms'] / cold:.1f}% of the cold time")
 
@@ -554,7 +556,7 @@ def stage_phase(layer, X, recursion, cuda_forward):
     log(f"phase 5 stages total: {total:.3f} ms (synchronised after each stage)")
 
     profile_request("phase 5", lambda: layer.state_posterior_log_probs(X), "K1-K3",
-                    ("outputs_kernel", "chunk_summaries_kernel"))
+                    ("outputs_kernel", "chunk_summaries_rows_kernel"))
 
 
 def profile_request(phase, request, label, ours_keys, inference=True):
@@ -1449,8 +1451,8 @@ def main() -> int:
             layer.posterior_cross_entropy(Xt, labels, label_mask=mask).backward()
             trainer_step.step()
 
-        profile_request("phase 8", ce_step, "K1-K5", ("outputs_kernel", "chunk_summaries_kernel",
-                                                       "affine_"), inference=False)
+        profile_request("phase 8", ce_step, "K1-K5",
+                        ("outputs_kernel", "chunk_summaries_rows_kernel", "affine_"), inference=False)
         train_cli_phase(fasta, npz, gff, cuda_forward, cuda_adjoint, tmp)
         log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
 

@@ -10,11 +10,14 @@ Training objectives: :meth:`HMMLayer.loss` (MAP: weighted mean
 log-likelihood, scaled prior, auxiliary losses) and
 :meth:`HMMLayer.posterior_cross_entropy` (supervised, against state
 labels); their gradients at ``parallel_factor`` > 1 are the analytic
-chunked VJPs of :mod:`.ops.recursion`.
+chunked VJPs of :mod:`.ops.recursion`. The recursions take the JAX
+layer's ``return_prior`` and then append the unscaled prior and the
+auxiliary loss.
 
 Not ported yet: ``sample_paths`` (ROADMAP Queue 1 item 9), the sparse
-route and its fused cross-entropy (item 11), and the ``mesh``/``partition``
-routes (item 13).
+route and its fused cross-entropy (item 11), the profile family's
+``structured_forward`` log-likelihood and ``resize`` (item 10), and the
+``mesh``/``partition`` routes (item 13).
 """
 
 from __future__ import annotations
@@ -122,24 +125,31 @@ class HMMLayer(nn.Module):
 
     # -- inference -------------------------------------------------------------
 
-    def forward_recursion(self, inputs, end_hints=None, training=False):
-        """(log_forward (m, b, L, q), loglik (m, b))."""
-        init, A, E = self._ingredients(inputs, end_hints, training)
-        return recursion.forward(init, A, E, self._pf(E))
+    def _prior_and_aux(self):
+        """(unscaled prior (m,), aux loss): what ``return_prior`` appends."""
+        return self.compute_prior(scaled=False), self.aux_loss()
 
-    def backward_recursion(self, inputs, end_hints=None, training=False):
-        """log_backward (m, b, L, q)."""
+    def forward_recursion(self, inputs, end_hints=None, return_prior=False, training=False):
+        """(log_forward (m, b, L, q), loglik (m, b)[, prior, aux_loss])."""
         init, A, E = self._ingredients(inputs, end_hints, training)
-        return recursion.backward(init, A, E, self._pf(E))
+        la, ll = recursion.forward(init, A, E, self._pf(E))
+        return (la, ll, *self._prior_and_aux()) if return_prior else (la, ll)
+
+    def backward_recursion(self, inputs, end_hints=None, return_prior=False, training=False):
+        """log_backward (m, b, L, q)[, prior, aux_loss]."""
+        init, A, E = self._ingredients(inputs, end_hints, training)
+        lb = recursion.backward(init, A, E, self._pf(E))
+        return (lb, *self._prior_and_aux()) if return_prior else lb
 
     def state_posterior_log_probs(
-        self, inputs, end_hints=None, training=False, no_loglik=False
+        self, inputs, end_hints=None, return_prior=False, training=False, no_loglik=False
     ):
-        """log P(s_t = q | x); (m, b, L, q). ``no_loglik`` skips the loglik
-        normalisation."""
+        """log P(s_t = q | x); (m, b, L, q)[, prior, aux_loss]. ``no_loglik``
+        skips the loglik normalisation. With ``return_prior`` the unscaled
+        prior (m,) and the auxiliary loss follow, as in the JAX layer."""
         init, A, E = self._ingredients(inputs, end_hints, training)
         lg, _ = recursion.posterior(init, A, E, self._pf(E), no_loglik=no_loglik)
-        return lg
+        return (lg, *self._prior_and_aux()) if return_prior else lg
 
     def log_likelihood(self, inputs, end_hints=None, training=False):
         """Per-model per-sequence loglik; (m, b)."""

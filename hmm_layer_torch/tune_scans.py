@@ -1,23 +1,26 @@
-"""Tile sizes of the output scans K2 and K5 on the card.
+"""Tilings of the chunk scans K1, K2, K3 and K5 on the card.
 
 Run from the root of the repository on a machine with a CUDA device:
-``python3 -m hmm_layer_torch.tune_scans [--compare DIR ...]
-[--compare-only] [--e2e] [--out DIR]``.
+``python3 -m hmm_layer_torch.tune_scans [--kernels K1,K3] [--compare DIR
+...] [--compare-only] [--e2e] [--out DIR]``.
 
-K2 (``csrc/sum_product.cu``) and K5 (``csrc/affine.cu``) are built once per
-tiling: G chunk elements a block, TS steps a staged tile, NB tiles in the
-ring and the step loop unrolled U times (``-DFWD_G``, ``-DFWD_TS``,
-``-DFWD_NB``, ``-DFWD_UNROLL`` and the ``OUT_`` names for K5; the package's
-own build uses the defaults in the sources). Tilings whose ring exceeds a
-block's 227 KB of shared memory are left out. All ``nvcc`` processes start
-together, with ``-Xptxas -v``. Each ``--compare DIR`` adds the two sources of
-another commit (``DIR/sum_product.cu``, ``DIR/affine.cu``) as variants, so
-that old and new kernels are timed in the same process on the same card;
-``--compare-only`` leaves the tilings out. Each variant runs at the
-flagship shapes on seeded random inputs (K2: m=1, c=303, q=15, R=1056; K5:
-2m=2, the posterior VJP's stacked models), is held against the plain
-version (K2 rtol 1e-5, atol 1e-2; K5 rtol 1e-5, atol 1e-6) and against the
-package's own build (bit-equal or not), and is timed:
+K1, K2, K3 (``csrc/sum_product.cu``) and K5 (``csrc/affine.cu``) are built
+once per tiling: G chunk elements a block, TS steps a staged tile, NB tiles
+in the ring and the step loop unrolled U times, under the prefixes ``SUM_``
+(K1), ``FWD_`` (K2), ``BWD_`` (K3) and ``OUT_`` (K5), e.g. ``-DBWD_TS=32``.
+The package's own build uses the defaults in the sources.
+Tilings whose ring exceeds a block's 227 KB of shared memory are left out.
+``--kernels`` limits the sweep to some of the kernels. The ``nvcc``
+processes run side by side, two for each CPU core, with ``-Xptxas -v``. Each ``--compare DIR`` adds
+the two sources of another commit (``DIR/sum_product.cu``, ``DIR/affine.cu``)
+as variants of all four kernels, so that old and new kernels are timed in
+the same process on the same card; ``--compare-only`` leaves the tilings
+out. Each variant runs at the flagship shapes on seeded random inputs (m=1,
+c=303, q=15, R=1056, P=33; K5: 2m=2, the posterior VJP's stacked models), is
+held against the plain version (K1 rtol 1e-5, atol 1e-3 where C lies within
+30 nats of its row's maximum; K2, K3 rtol 1e-5, atol 1e-2; K5 rtol 1e-5,
+atol 1e-6) and against the package's own build (bit-equal or not), and is
+timed:
 
 * warm: median of 20 samples of 10 back-to-back launches (CUDA events),
   the inputs then sit in the 50 MB L2;
@@ -26,30 +29,34 @@ package's own build (bit-equal or not), and is timed:
 
 With ``--e2e`` (and one ``--compare DIR``), the flagship gene-prediction
 layer (q=15, b=32, L=9999, parallel factor "auto" = 33, random weights from
-seed 0) then serves posterior requests and takes posterior cross-entropy
-steps (forward and backward, no optimizer) with this build's K2 and K5 and
-with DIR's in turns: 40 rounds, this build first and DIR first alternately
-(the two libraries are loaded side by side and swapped under the
-wrappers). Each call is timed with the host clock around a synchronised
-call; the medians and the median paired difference are printed.
+seed 0) then serves posterior and log-likelihood requests and takes
+posterior cross-entropy and MAP steps (forward and backward, no optimizer)
+with this build's kernels and with DIR's in turns: 40 rounds, this build
+first and DIR first alternately (the libraries are loaded side by side and
+swapped under the wrappers). Each call is timed with the host clock around
+a synchronised call; the medians and the median paired difference are
+printed.
 
 It prints ptxas's registers and spills of each kernel, the longest run of
 back-to-back ``SHFL`` instructions in each default kernel's SASS
-(``cuobjdump``; the SASS is written to ``--out``), one line per variant, the
-fastest tiling of each kernel by cold time, and the card's name and power
-limit. It exits non-zero without a card or on any mismatch.
+(``cuobjdump``; the SASS is written to ``--out``), one line per variant and
+kernel, the fastest variant of each kernel by cold time, and the card's
+name and power limit. It exits non-zero without a card, or after the last
+variant if any variant's launch failed or disagreed with the plain version.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -58,57 +65,94 @@ import torch
 from .ops import _cuda_build, cuda_adjoint, cuda_forward
 from .utils.cuda_timing import cold_median_ms, median_ms
 
-# (G, TS, NB, U) tried for each kernel; the words of a tile ring are
-# NB * TS * G * 16 for K2 and three times that for K5 (u, v and s).
 CODONS = dict(
     start_codons=[("ATG", 1.0)],
     stop_codons=[("TAG", 0.34), ("TAA", 0.33), ("TGA", 0.33)],
     intron_begin_pattern=[("NGT", 0.99), ("NGC", 0.005), ("NAT", 0.005)],
     intron_end_pattern=[("AGN", 0.99), ("ACN", 0.01)],
 )
-K2_TILINGS = [(4, 32, 2, 1)] + [(g, ts, nb, u) for g in (8, 16) for ts in (16, 32, 64)
+# Each kernel: its source, its -D prefix, its C entry point and the kernel
+# symbol ptxas and cuobjdump report.
+KERNELS = {
+    "K1": ("sum_product", "SUM", "hmm_sum_chunk_summaries", "chunk_summaries_rows_kernel"),
+    "K2": ("sum_product", "FWD", "hmm_sum_fwd_outputs", "fwd_outputs_kernel"),
+    "K3": ("sum_product", "BWD", "hmm_beta_bwd_outputs", "bwd_outputs_kernel"),
+    "K5": ("affine", "OUT", "hmm_affine_reverse_outputs", "affine_outputs_kernel"),
+}
+KNOBS = ("G", "TS", "NB", "UNROLL")
+_SCAN_GRID = [(4, 32, 2, 1)] + [(g, ts, nb, u) for g in (8, 16) for ts in (16, 32, 64)
                                 for nb in (2, 3) for u in (1, 2, 4)]
-K5_TILINGS = [(4, 32, 2, 1)] + [(g, ts, nb, u) for g in (8, 16) for ts in (8, 16, 32)
-                                for nb in (2, 3, 4) for u in (1, 2)]
+# The knob values tried for each kernel ({-D suffix: value}).
+TILINGS = {
+    "K1": [dict(G=g, TS=ts, NB=nb, UNROLL=u) for g in (4, 8, 16) for ts in (16, 32, 64)
+           for nb in (2, 3) for u in (1, 2)],
+    "K2": [dict(zip(KNOBS, t)) for t in _SCAN_GRID],
+    "K3": [dict(zip(KNOBS, t)) for t in _SCAN_GRID],
+    "K5": [dict(zip(KNOBS, t)) for t in [(4, 32, 2, 1)] + [
+        (g, ts, nb, u) for g in (8, 16) for ts in (8, 16, 32) for nb in (2, 3, 4) for u in (1, 2)]],
+}
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
-SHAPE = dict(c=303, q=15, R=1056)
-PEAK_BYTES = 3.35e12  # H100 SXM data sheet
+SHAPE = dict(c=303, q=15, R=1056, P=33)
+PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12  # H100 SXM data sheet (float32, no tensor cores)
 
 
-def _variants(compare, grid=True):
-    """(label, source name, source path, -D flags) of every build."""
+def block_shape(kernel, knobs):
+    """(threads, bytes of dynamic shared memory) of a block of ``kernel``
+    built with ``knobs``."""
+    g, ring = knobs["G"], knobs["NB"] * knobs["TS"] * knobs["G"] * 16
+    return 16 * g, 4 * ring * (3 if kernel == "K5" else 1)  # K5 stages u, v and s
+
+
+def label(kernel, knobs):
+    return " ".join([kernel] + [f"{'U' if k == 'UNROLL' else k}={v}" for k, v in knobs.items()])
+
+
+def build_defaults():
+    """{kernel: knobs} of the package's own build (the sources' #defines)."""
+    out = {}
+    for kernel, (name, prefix, _, _) in KERNELS.items():
+        src = _cuda_build.SOURCES[name].read_text()
+        out[kernel] = {k: int(re.search(rf"#define {prefix}_{k} (\d+)", src).group(1)) for k in KNOBS}
+    return out
+
+
+def _variants(compare, grid=True, kernels=tuple(KERNELS)):
+    """(label, source name, source path, -D flags, kernels it is run as) of
+    every build."""
     out = []
-    for kernel, name, prefix, arrays, tilings in (("K2", "sum_product", "FWD", 1, K2_TILINGS),
-                                                  ("K5", "affine", "OUT", 3, K5_TILINGS)):
-        for g, ts, nb, u in tilings if grid else []:
-            if arrays * nb * ts * g * 16 * 4 > SMEM_LIMIT:
+    for kernel in kernels if grid else ():
+        name, prefix = KERNELS[kernel][:2]
+        for knobs in TILINGS[kernel]:
+            threads, smem = block_shape(kernel, knobs)
+            if smem > SMEM_LIMIT or threads > 1024:
                 continue
-            out.append((f"{kernel} G={g} TS={ts} NB={nb} U={u}", name, _cuda_build.SOURCES[name],
-                        [f"-D{prefix}_G={g}", f"-D{prefix}_TS={ts}", f"-D{prefix}_NB={nb}",
-                         f"-D{prefix}_UNROLL={u}"]))
+            out.append((label(kernel, knobs), name, _cuda_build.SOURCES[name],
+                        [f"-D{prefix}_{k}={v}" for k, v in knobs.items()], (kernel,)))
     for d in compare:
-        out.append((f"K2 {d}", "sum_product", Path(d) / "sum_product.cu", []))
-        out.append((f"K5 {d}", "affine", Path(d) / "affine.cu", []))
+        for name in ("sum_product", "affine"):
+            runs = tuple(k for k in kernels if KERNELS[k][0] == name)
+            if runs:
+                out.append((f"{name} {d}", name, Path(d) / f"{name}.cu", [], runs))
     return out
 
 
 def _build(variants, build_dir):
-    """Compile every variant in parallel; {label: (library, ptxas text)}."""
+    """Compile every variant, two ``nvcc`` processes for each CPU core at a
+    time; {label: (library, ptxas text)}."""
     build_dir.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for i, (label, _, src, defs) in enumerate(variants):
+
+    def compile_one(i):
+        lab, _, src, defs, _ = variants[i]
         so = build_dir / f"v{i}.so"
         cmd = [_cuda_build.nvcc_path(), *_cuda_build.NVCC_FLAGS, "-Xptxas", "-v", *defs,
                "-o", str(so), str(src)]
-        jobs.append((label, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                 stderr=subprocess.STDOUT, text=True)))
-    built = {}
-    for label, so, proc in jobs:
-        text, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {label}:\n{text}")
-        built[label] = (so, text)
-    return built
+        done = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if done.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {lab}:\n{done.stdout}")
+        return lab, (so, done.stdout)
+
+    with ThreadPoolExecutor(2 * (os.cpu_count() or 1)) as pool:
+        return dict(pool.map(compile_one, range(len(variants))))
 
 
 def _load(so, name):
@@ -156,23 +200,53 @@ def _sass_report(name, defs, kernel, out_dir):
     return f"{kernel}: {n_shfl} SHFL in {len(body)} instructions, longest back-to-back run {best}"
 
 
-def _inputs(device):
-    c, q, R = SHAPE["c"], SHAPE["q"], SHAPE["R"]
+def _cases(device):
+    """{kernel: (C arguments before the output, output shape, plain result,
+    the package build's result, rtol, atol, mask, bound ms, bound_by)} at
+    the flagship shapes, on seeded random inputs."""
+    c, q, R, P = SHAPE["c"], SHAPE["q"], SHAPE["R"], SHAPE["P"]
     rng = np.random.default_rng(0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)  # noqa: E731
-    k2 = [t(rng.dirichlet(np.ones(q), size=(1, q))), t(rng.uniform(0.05, 1.0, size=(1, c, q, R))),
-          t(rng.dirichlet(np.ones(q), size=(1, R)).transpose(0, 2, 1)),
-          t(rng.normal(-50.0, 10.0, size=(1, R)))]
-    B = rng.dirichlet(np.ones(q), size=(2, q))
+    A, E_T = t(rng.dirichlet(np.ones(q), size=(1, q))), t(rng.uniform(0.05, 1.0, size=(1, c, q, R)))
+    r0 = t(rng.dirichlet(np.ones(q), size=(1, R)).transpose(0, 2, 1))
+    ll0 = t(rng.normal(-50.0, 10.0, size=(1, R)))
+    beta0 = (r0 / r0.amax(1, keepdim=True)).contiguous()
+    B = t(rng.dirichlet(np.ones(q), size=(2, q)))
     S = rng.normal(size=(2, c, q, R))
-    k5 = [t(B), t(rng.uniform(size=(2, c, q, R))), t(rng.uniform(size=(2, c, q, R))),
-          t(S - S.mean(2, keepdims=True)), t(rng.normal(size=(2, q, R)))]
-    return k2, k5
+    U, V, S, xr = (t(rng.uniform(size=(2, c, q, R))), t(rng.uniform(size=(2, c, q, R))),
+                   t(S - S.mean(2, keepdims=True)), t(rng.normal(size=(2, q, R))))
+
+    def bound(nbytes, nops):
+        b, o = 1e3 * nbytes / PEAK_BYTES, 1e3 * nops / PEAK_FLOPS
+        return (b, "bytes") if b >= o else (o, "operations")
+
+    e_bytes, a_bytes = 4 * c * q * R, 4 * q * q
+    C_ref = cuda_forward.sum_chunk_summaries_plain(A, E_T, P)
+    return {
+        "K1": ((A, E_T), (1, R, q, q), C_ref, cuda_forward.sum_chunk_summaries(A, E_T, P),
+               1e-5, 1e-3, C_ref >= C_ref.amax(-1, keepdim=True) - 30.0,
+               # FMA = 2; clamp, product, sum and divide one each
+               *bound(a_bytes + e_bytes + 4 * R * q * q, R * q * (c - 1) * q * (2 * q + 4)),
+               (1, c, q, R, P)),
+        "K2": ((A, E_T, r0, ll0), (1, c, q, R), cuda_forward.sum_fwd_outputs_plain(A, E_T, r0, ll0),
+               cuda_forward.sum_fwd_outputs(A, E_T, r0, ll0), 1e-5, 1e-2, None,
+               *bound(a_bytes + 2 * e_bytes + 4 * (q + 1) * R, R * (c - 1) * q * (2 * q + 4)),
+               (1, c, q, R)),
+        "K3": ((A, E_T, beta0, ll0), (1, c, q, R), cuda_forward.beta_bwd_outputs_plain(A, E_T, beta0, ll0),
+               cuda_forward.beta_bwd_outputs(A, E_T, beta0, ll0), 1e-5, 1e-2, None,
+               *bound(a_bytes + 2 * e_bytes + 4 * (q + 1) * R, R * (c - 1) * q * (2 * q + 4)),
+               (1, c, q, R)),
+        "K5": ((B, U, V, S, xr), (2, c, q, R), cuda_adjoint.affine_reverse_outputs_plain(B, U, V, S, xr),
+               cuda_adjoint.affine_reverse_outputs(B, U, V, S, xr), 1e-5, 1e-6, None,
+               *bound(2 * a_bytes + 4 * 2 * e_bytes + 2 * 4 * q * R, 2 * R * c * (2 * q * q + 3 * q)),
+               (2, c, q, R)),
+    }
 
 
 def _e2e(other, rounds=40):
-    """Posterior ms/batch and CE ms/step with this build's K2/K5 libraries
-    and with ``other`` ({source name: library}), interleaved A, B, B, A."""
+    """Posterior and log-likelihood ms/batch, CE and MAP ms/step with this
+    build's kernel libraries and with ``other`` ({source name: library}),
+    interleaved A, B, B, A."""
     from . import HMMLayer, models
 
     layer = HMMLayer(models.GenePredTransitions(), models.GenePredEmissions(**CODONS),
@@ -198,15 +272,24 @@ def _e2e(other, rounds=40):
         with torch.inference_mode():
             layer.state_posterior_log_probs(X)
 
+    def loglik():
+        with torch.inference_mode():
+            layer.log_likelihood(X)
+
     def ce_step():
         torch.autograd.grad(layer.posterior_cross_entropy(X, labels, label_mask=mask), pars)
 
-    times = {v: {"posterior": [], "ce": []} for v in libs}
+    def map_step():
+        torch.autograd.grad(layer.loss(X), pars)
+
+    calls = {"posterior": (posterior, "ms/batch"), "ce": (ce_step, "ms/step"),
+             "map": (map_step, "ms/step"), "loglik": (loglik, "ms/batch")}
+    times = {v: {key: [] for key in calls} for v in libs}
     try:
         for i in range(rounds + 1):  # round 0 warms both up, untimed
             for v in (("this build", "compare") if i % 2 else ("compare", "this build")):
                 _cuda_build._libs.update(libs[v])
-                for key, fn in (("posterior", posterior), ("ce", ce_step)):
+                for key, (fn, _) in calls.items():
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     fn()
@@ -215,7 +298,7 @@ def _e2e(other, rounds=40):
                         times[v][key].append(1e3 * (time.perf_counter() - t0))
     finally:
         _cuda_build._libs.update(own)
-    for key, unit in (("posterior", "ms/batch"), ("ce", "ms/step")):
+    for key, (_, unit) in calls.items():
         a, b_ = times["this build"][key], times["compare"][key]
         diff = statistics.median(x - y for x, y in zip(a, b_))
         print(f"e2e {key}: this build {statistics.median(a):.3f} {unit} [{min(a):.3f}, {max(a):.3f}], "
@@ -225,13 +308,19 @@ def _e2e(other, rounds=40):
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernels", default=",".join(KERNELS),
+                        help="comma-separated kernels to sweep (default: all of K1,K2,K3,K5)")
     parser.add_argument("--compare", action="append", default=[],
                         help="directory with another commit's sum_product.cu and affine.cu")
     parser.add_argument("--compare-only", action="store_true", help="time the --compare sources only")
     parser.add_argument("--e2e", action="store_true",
-                        help="time the flagship posterior and CE step with this build and with --compare")
+                        help="time the flagship posterior, log-likelihood, CE and MAP step with this "
+                             "build and with --compare")
     parser.add_argument("--out", default=str(_cuda_build.BUILD_DIR / "tune"), help="directory for the SASS")
     args = parser.parse_args(argv)
+    kernels = tuple(args.kernels.split(","))
+    if not set(kernels) <= set(KERNELS):
+        parser.error(f"--kernels takes some of {','.join(KERNELS)}")
     if args.e2e and len(args.compare) != 1:
         parser.error("--e2e takes exactly one --compare directory")
     if not torch.cuda.is_available():
@@ -242,69 +331,62 @@ def main(argv=None) -> int:
     out_dir = Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     device = torch.device("cuda")
-    variants = _variants(args.compare, grid=not args.compare_only)
+    variants = _variants(args.compare, grid=not args.compare_only, kernels=kernels)
+    if args.e2e:  # the A/B run swaps whole libraries
+        variants += [v for v in _variants(args.compare, grid=False) if v[0] not in {w[0] for w in variants}]
     built = _build(variants, _cuda_build.BUILD_DIR / "tune")
-    for name, kernel, defs in (("sum_product", "fwd_outputs_kernel", []),
-                               ("affine", "affine_outputs_kernel", [])):
-        print(f"sass {_sass_report(name, defs, kernel, out_dir)}", flush=True)
+    for kernel in kernels:
+        name, _, _, symbol = KERNELS[kernel]
+        print(f"sass {_sass_report(name, [], symbol, out_dir)}", flush=True)
 
-    (A, E_T, r0, ll0), (B, U, V, S, xr) = _inputs(device)
-    m, c, q, R = E_T.shape
-    m2 = B.shape[0]
-    ref2 = cuda_forward.sum_fwd_outputs_plain(A, E_T, r0, ll0)
-    ref5 = cuda_adjoint.affine_reverse_outputs_plain(B, U, V, S, xr)
-    # The package's own build: a variant bit-equal to it rounds as it does.
-    own2 = cuda_forward.sum_fwd_outputs(A, E_T, r0, ll0)
-    own5 = cuda_adjoint.affine_reverse_outputs(B, U, V, S, xr)
-    bound2 = 1e3 * (4 * m * q * q + 2 * 4 * m * c * q * R + 4 * m * (q + 1) * R) / PEAK_BYTES
-    bound5 = 1e3 * (4 * m2 * q * q + 4 * 4 * m2 * c * q * R + 4 * m2 * q * R) / PEAK_BYTES
+    cases = _cases(device)
+    stream = torch.cuda.current_stream(device).cuda_stream
     failed, cold_of = [], {}
-    for label, name, _, _ in variants:
-        so, text = built[label]
+    for lab, name, _, defs, runs in variants:
+        so, text = built[lab]
         lib = _load(so, name)
-        out = torch.empty((m if name == "sum_product" else m2, c, q, R), device=device)
-        stream = torch.cuda.current_stream(device).cuda_stream
-        if name == "sum_product":
-            kernel, ref, own, rtol, atol, bound = "fwd_outputs_kernel", ref2, own2, 1e-5, 1e-2, bound2
+        for kernel in runs:
+            if kernel not in kernels:
+                continue
+            ins, shape, ref, own, rtol, atol, mask, bound, by, dims = cases[kernel]
+            entry, symbol = getattr(lib, KERNELS[kernel][2]), KERNELS[kernel][3]
+            out = torch.empty(shape, device=device)
 
-            def fn():
-                err = lib.hmm_sum_fwd_outputs(A.data_ptr(), E_T.data_ptr(), r0.data_ptr(),
-                                              ll0.data_ptr(), out.data_ptr(), m, c, q, R, 0, stream)
+            def fn(entry=entry, ins=ins, out=out, dims=dims):
+                err = entry(*(x.data_ptr() for x in ins), out.data_ptr(), *dims, 0, stream)
                 if err:
-                    raise RuntimeError(f"{label}: cudaError {err}")
-        else:
-            kernel, ref, own, rtol, atol, bound = "affine_outputs_kernel", ref5, own5, 1e-5, 1e-6, bound5
+                    raise RuntimeError(f"{lab}: cudaError {err}")
 
-            def fn():
-                err = lib.hmm_affine_reverse_outputs(B.data_ptr(), U.data_ptr(), V.data_ptr(),
-                                                     S.data_ptr(), xr.data_ptr(), out.data_ptr(),
-                                                     m2, c, q, R, 0, stream)
-                if err:
-                    raise RuntimeError(f"{label}: cudaError {err}")
-        fn()
-        torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        ok = bool(((out - ref).abs() <= atol + rtol * ref.abs()).all())
-        warm, cold = median_ms(fn, reps=10), cold_median_ms(fn)
-        cold_of[label] = cold
-        print(f"{label}: {'ok' if ok else 'MISMATCH'} max_abs_err={err:.3e} (rtol {rtol}, atol {atol}), "
-              f"{'bit-equal to' if torch.equal(out, own) else 'differs from'} the package build; "
-              f"warm {warm:.4f} ms, cold {cold:.4f} ms; bound {bound:.4f} ms (bytes), cold bound "
-              f"share {100 * bound / cold:.1f}%; ptxas {_ptxas_lines(text, kernel)}", flush=True)
-        if not ok:
-            failed.append(label)
-    defaults = {f"{p}_{k}": re.search(rf"#define {p}_{k} (\d+)", _cuda_build.SOURCES[n].read_text()).group(1)
-                for p, n in (("FWD", "sum_product"), ("OUT", "affine")) for k in ("G", "TS", "NB", "UNROLL")}
-    for kernel in ("K2", "K5"):
-        best = min((lab for lab in cold_of if lab.startswith(kernel)), key=cold_of.get)
-        print(f"fastest {best}: cold {cold_of[best]:.4f} ms")
-    print(f"build defaults {defaults}; on {smi}")
+            key = lab if len(runs) == 1 else f"{kernel} {lab}"
+            try:
+                fn()
+            except RuntimeError as exc:  # a refused launch: the next variant still runs
+                print(f"{key}: FAILED {exc}", flush=True)
+                failed.append(key)
+                continue
+            torch.cuda.synchronize()
+            got, exp = (out, ref) if mask is None else (out[mask], ref[mask])
+            err = float((got - exp).abs().max())
+            ok = bool(((got - exp).abs() <= atol + rtol * exp.abs()).all())
+            warm, cold = median_ms(fn, reps=10), cold_median_ms(fn)
+            cold_of[key] = cold
+            print(f"{key}: {'ok' if ok else 'MISMATCH'} max_abs_err={err:.3e} (rtol {rtol}, atol {atol}), "
+                  f"{'bit-equal to' if torch.equal(out, own) else 'differs from'} the package build; "
+                  f"warm {warm:.4f} ms, cold {cold:.4f} ms; bound {bound:.4f} ms ({by}), cold bound "
+                  f"share {100 * bound / cold:.1f}%; ptxas {_ptxas_lines(text, symbol)}", flush=True)
+            if not ok:
+                failed.append(key)
+    for kernel in kernels:
+        mine = [k for k in cold_of if k.startswith(f"{kernel} ")]
+        if mine:
+            best = min(mine, key=cold_of.get)
+            print(f"fastest {best}: cold {cold_of[best]:.4f} ms")
+    print(f"build defaults {build_defaults()}; on {smi}")
     if args.e2e:
         d = args.compare[0]
-        _e2e({"sum_product": _load(built[f"K2 {d}"][0], "sum_product"),
-              "affine": _load(built[f"K5 {d}"][0], "affine")})
+        _e2e({name: _load(built[f"{name} {d}"][0], name) for name in ("sum_product", "affine")})
     if failed:
-        print(f"tune_scans: variants disagree with the plain versions: {failed}", file=sys.stderr)
+        print(f"tune_scans: variants failed or disagree with the plain versions: {failed}", file=sys.stderr)
         return 1
     return 0
 

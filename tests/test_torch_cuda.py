@@ -40,10 +40,14 @@ CASES = [
     pytest.param(1, 303, 1056, 33, True, id="m1-genepred-flagship"),
     pytest.param(2, 17, 21, 7, True, id="m2-genepred-ragged"),
 ]
-# The edges of K2's lane groups (8 chunk elements a block, tiles of 16
-# staged steps in the build): c around the tile, R not a multiple of 8, q
-# from 1 to the 16 lanes, and a state whose emission is 0 everywhere (log
-# alpha at the TINY floor). Fields: m, c, R, P, gene_pred, q, dead state.
+# The edges of the blocks and tiles of K1–K3 (in the build: K1 4 elements of
+# 16 row threads a block, tiles of 32 steps; K2 8 elements of a 16-lane group
+# a block, tiles of 16 steps; K3 8 elements a block, tiles of 32 steps walked
+# from the end): c = 1 and c around the tiles, R not a multiple of 4 or 8,
+# P = 1 (every element a first chunk) and first chunks that straddle block
+# borders, q from 1 to the 16 lanes, m = 3, and a state whose emission is 0
+# everywhere (log alpha at the TINY floor). Fields: m, c, R, P, gene_pred,
+# q, dead state.
 SUM_CASES = [pytest.param(*p.values, Q, False, id=p.id) for p in CASES] + [
     pytest.param(1, 1, 7, 1, False, 15, False, id="c1-R7"),
     pytest.param(3, 2, 9, 3, False, 3, False, id="m3-c2-R9-q3"),
@@ -51,6 +55,12 @@ SUM_CASES = [pytest.param(*p.values, Q, False, id=p.id) for p in CASES] + [
     pytest.param(3, 17, 1057, 7, False, 1, False, id="m3-c17-R1057-q1"),
     pytest.param(1, 33, 9, 3, False, 16, True, id="c33-R9-q16-dead"),
     pytest.param(1, 15, 1057, 7, False, 15, True, id="c15-R1057-dead"),
+    pytest.param(1, 32, 13, 1, False, 15, False, id="c32-R13-P1"),
+    pytest.param(1, 16, 25, 5, False, 16, False, id="c16-R25-P5-q16"),
+    pytest.param(3, 31, 40, 8, False, 15, False, id="m3-c31-R40-P8"),
+    pytest.param(1, 65, 17, 17, False, 1, False, id="c65-R17-P17-q1"),
+    pytest.param(2, 64, 1057, 7, False, 15, True, id="m2-c64-R1057-dead"),
+    pytest.param(1, 97, 22, 11, True, 15, False, id="c97-R22-genepred"),
 ]
 
 

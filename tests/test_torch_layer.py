@@ -96,6 +96,32 @@ def test_recursions_no_loglik_and_end_hints_match_jax(pf):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize(
+    "method", ["forward_recursion", "backward_recursion", "state_posterior_log_probs"]
+)
+def test_return_prior_matches_jax(method):
+    """``return_prior=True`` appends the unscaled prior and the aux loss to
+    the recursion's outputs, in the JAX layer's tuple order."""
+    jl, params, tl = _layers(4)
+    X = _inputs(7)
+    ref = getattr(jl, method)(params, jnp.asarray(X), return_prior=True)
+    with torch.no_grad():
+        got = getattr(tl, method)(X, return_prior=True)
+    assert len(got) == len(ref)
+    *outs, prior, aux = got
+    *outs_j, prior_j, aux_j = ref
+    assert tuple(prior.shape) == np.shape(prior_j) and aux.dim() == np.ndim(aux_j) == 0
+    np.testing.assert_allclose(prior.numpy(), np.asarray(prior_j), rtol=1e-5, atol=0)
+    np.testing.assert_allclose(float(aux), float(aux_j), rtol=1e-5, atol=0)
+    for o, o_j in zip(outs, outs_j):
+        rtol, atol = (2e-4, 0) if o.dim() == 2 else (1e-3, 2e-3)  # loglik / log-space arrays
+        np.testing.assert_allclose(o.numpy(), np.asarray(o_j), rtol=rtol, atol=atol)
+    with torch.no_grad():
+        plain = getattr(tl, method)(X)
+    for o, p in zip(outs, plain if isinstance(plain, tuple) else (plain,)):
+        torch.testing.assert_close(o, p, rtol=0, atol=0)
+
+
 def test_default_init_equals_jax_init():
     jl = JaxHMMLayer(JaxTransitions(), JaxEmissions(**CODONS), use_prior=False)
     params = jax.device_get(jl.init_params(jax.random.PRNGKey(0), 15))

@@ -1,4 +1,4 @@
-"""The tiling sweep of the output scans K2 and K5
+"""The sweep of the chunk scans K1, K2, K3 and K5
 (``hmm_layer_torch/tune_scans.py``): what it would build, and that it needs
 a card. The sweep itself runs on the card only."""
 
@@ -10,27 +10,45 @@ import torch
 from hmm_layer_torch import tune_scans
 from hmm_layer_torch.ops import _cuda_build
 
+# kernel: (source, -D prefix, words a step of one element stages)
+KERNELS = {"K1": ("sum_product", "SUM", 16), "K2": ("sum_product", "FWD", 16),
+           "K3": ("sum_product", "BWD", 16), "K5": ("affine", "OUT", 48)}
+KEYS = ("G", "TS", "NB", "UNROLL")
+
 
 def _build_default(name, prefix):
     src = _cuda_build.SOURCES[name].read_text()
-    return tuple(int(re.search(rf"#define {prefix}_{k} (\d+)", src).group(1))
-                 for k in ("G", "TS", "NB", "UNROLL"))
+    return {k: int(re.search(rf"#define {prefix}_{k} (\d+)", src).group(1)) for k in KEYS}
 
 
-def test_sweep_covers_the_build_and_fits_shared_memory():
-    variants = tune_scans._variants(["parent"])
+@pytest.mark.parametrize("kernel", list(KERNELS))
+def test_sweep_covers_the_build_and_fits_shared_memory(kernel):
+    name, prefix, words = KERNELS[kernel]
+    variants = [v for v in tune_scans._variants(["parent"]) if v[4] == (kernel,) and v[3]]
     labels = [v[0] for v in variants]
-    assert len(labels) == len(set(labels))
-    assert labels[-2:] == ["K2 parent", "K5 parent"]
-    for label, name, _, defs in variants[:-2]:
-        g, ts, nb, _ = (int(d.split("=")[1]) for d in defs)
-        arrays = 1 if name == "sum_product" else 3  # K5 stages u, v and s
-        assert arrays * nb * ts * g * 16 * 4 <= tune_scans.SMEM_LIMIT, label
-        assert nb >= 2 and 16 * g <= 1024, label
-    for kernel, name, prefix in (("K2", "sum_product", "FWD"), ("K5", "affine", "OUT")):
-        g, ts, nb, u = _build_default(name, prefix)
-        assert f"{kernel} G={g} TS={ts} NB={nb} U={u}" in labels
-    assert not tune_scans._variants(["parent"], grid=False)[:-2]
+    assert labels and len(labels) == len(set(labels))
+    for lab, src_name, _, defs, _ in variants:
+        assert src_name == name and all(d.startswith(f"-D{prefix}_") for d in defs), lab
+        knobs = {d.split("=")[0][len(prefix) + 3:]: int(d.split("=")[1]) for d in defs}
+        assert tuple(knobs) == KEYS, lab
+        g, ts, nb = knobs["G"], knobs["TS"], knobs["NB"]
+        smem = 4 * nb * ts * g * words
+        threads = 16 * g
+        assert smem <= tune_scans.SMEM_LIMIT and threads <= 1024 and nb >= 2, lab
+        assert tune_scans.block_shape(kernel, knobs) == (threads, smem), lab
+    default = _build_default(name, prefix)
+    assert default == tune_scans.build_defaults()[kernel]
+    assert tune_scans.label(kernel, default) in labels
+
+
+@pytest.mark.parametrize("kernels", [("K1", "K3"), tuple(KERNELS)])
+def test_compare_builds_run_every_kernel_of_their_source(kernels):
+    variants = tune_scans._variants(["parent"], grid=False, kernels=kernels)
+    runs = {v[0]: v[4] for v in variants}
+    want = {f"{KERNELS[k][0]} parent" for k in kernels}
+    assert set(runs) == want
+    assert sorted(k for r in runs.values() for k in r) == sorted(kernels)
+    assert tune_scans._variants(["parent"], kernels=kernels)[-len(want):] == variants
 
 
 def test_sweep_needs_a_card(capsys):
@@ -40,3 +58,5 @@ def test_sweep_needs_a_card(capsys):
     assert "needs a CUDA device" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         tune_scans.main(["--e2e"])  # the A/B run needs one --compare directory
+    with pytest.raises(SystemExit):
+        tune_scans.main(["--kernels", "K4"])  # K4 has no sweep
