@@ -13,7 +13,7 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    card, at the shapes the flagship request gives them (gene-pred model,
    q=15, b=32, L=9999, parallel_factor "auto" = 33: c=303, R=1056); K6–K8
    must be bit-equal; median time over 20 samples (CUDA events), the plain
-   version's time and the bound. K1, K2, K3 and K5 are timed cold as well
+   version's time and the bound. K1–K5 and K7 are timed cold as well
    (each launch after 256 MB written to a scratch buffer, so that their
    inputs are not in the 50 MB L2; ``cold_ms`` in the kernels' record), and
    their bound shares are taken from that.
@@ -120,10 +120,12 @@ TRAIN_STEPS, MAP_STEPS, CLI_STEPS = 5, 2, 10
 # Kernel-only launches per request: the posterior runs K1, K2 and K3 once,
 # the log-likelihood K1 once more.
 PER_REQUEST = {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1}
-# Kernels timed cold as well as warm in phase 3: K1's 19 MB and K2's and
-# K3's 38 MB of inputs and outputs stay in the 50 MB L2 over back-to-back
-# launches (K5's 154 MB do not, and its cold time shows that).
-COLD = ("sum_chunk_summaries", "sum_fwd_outputs", "beta_bwd_outputs", "affine_reverse_outputs")
+# Kernels timed cold as well as warm in phase 3: K1's 19 MB and K2's, K3's
+# and K7's 38 MB of inputs and outputs stay in the 50 MB L2 over
+# back-to-back launches (K4's 117 MB and K5's 154 MB do not, and their cold
+# times show that).
+COLD = ("sum_chunk_summaries", "sum_fwd_outputs", "beta_bwd_outputs", "affine_chunk_composites",
+        "affine_reverse_outputs", "maxplus_deltas")
 
 # NVIDIA data-sheet peaks: (memory bytes/s, float32 non-tensor FLOP/s).
 PEAKS = {
@@ -347,7 +349,8 @@ def viterbi_kernel_phase(layer, X, recursion, cuda_viterbi, peak_bytes, peak_flo
             err = float((got.double() - ref.double()).abs().max())
             records[name] = measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops)
             log(f"phase 3 {name}: {'equal' if equal else 'MISMATCH'} max_abs_err={err:.3e} "
-                f"(bit-equality required) {timing_text(records[name], nbytes, nops)}")
+                f"(bit-equality required) {timing_text(records[name], nbytes, nops)}"
+                f"{cold_text(name, kern, records[name])}")
             if not equal:
                 failed.append(name)
     if failed:
@@ -997,9 +1000,10 @@ def backward_stage_split(layer, X, labels, mask, recursion):
     stage_of = {
         "_forward_adjoint_weights": "adjoint weights",
         "_backward_adjoint_weights": "adjoint weights",
-        "_affine_composites": "K4 affine_chunk_composites (with lane layout)",
+        "_affine_kernel_lanes": "lane layout of u, v and the source (once, for K4 and K5)",
+        "_affine_composites_kernels": "K4 affine_chunk_composites",
         "_affine_boundary_fold": "boundary fold (P affine steps)",
-        "_affine_outputs": "K5 affine_reverse_outputs (with lane layout)",
+        "_affine_outputs_kernels": "K5 affine_reverse_outputs (with the x_right and output layouts)",
         "_posterior_analytic_vjp": "analytic VJP",
     }
     stages = {}

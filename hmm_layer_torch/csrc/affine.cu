@@ -39,113 +39,25 @@
 namespace {
 
 constexpr int MAXQ = 16;
-constexpr int BLOCK = 128;
-
-// B of one model into shared memory, zero-padded to MAXQ x MAXQ. Every
-// thread of the block calls it (it ends in a barrier).
-__device__ __forceinline__ void load_B(float (&sB)[MAXQ][MAXQ],
-                                       const float* __restrict__ B, int q) {
-  for (int idx = threadIdx.x; idx < MAXQ * MAXQ; idx += blockDim.x) {
-    const int p = idx / MAXQ, k = idx % MAXQ;
-    sB[p][k] = (p < q && k < q) ? B[p * q + k] : 0.f;
-  }
-  __syncthreads();
-}
-
-// One step of the map on a carried q-vector: x <- u * (B (v * x)) [+ s].
-// The empty asm with a memory clobber makes the compiler read B from shared
-// memory again at every step instead of hoisting the q x q block into
-// registers for the whole time loop (register spills otherwise).
-__device__ __forceinline__ void affine_step(float (&x)[MAXQ],
-                                            const float (&sB)[MAXQ][MAXQ],
-                                            const float* __restrict__ ut,
-                                            const float* __restrict__ vt,
-                                            const float* __restrict__ st,
-                                            int q, int R) {
-  asm volatile("" ::: "memory");
-  float w[MAXQ];
-#pragma unroll
-  for (int k = 0; k < MAXQ; ++k) w[k] = k < q ? vt[(size_t)k * R] * x[k] : 0.f;
-#pragma unroll
-  for (int p = 0; p < MAXQ; ++p) {
-    float acc = 0.f;
-    if (p < q) {
-#pragma unroll
-      for (int k = 0; k < MAXQ; ++k) acc = fmaf(sB[p][k], w[k], acc);
-      acc = ut[(size_t)p * R] * acc;
-      if (st != nullptr) acc += st[(size_t)p * R];
-    }
-    x[p] = acc;
-  }
-}
-
-// K4 — replaces affine_chunk_composites
-// (hmm_layer_tpu/ops/pallas_adjoint.py:93, body _affine_summary_kernel
-// :44-89).
-//
-// One thread per (model, chunk element r, composite column col), col in
-// 0..q: each column of [K | o] evolves on its own,
-//   X[:, col] <- u * (B (v * X[:, col])) + [col == q] s,
-// from [I | 0] at the chunk's right edge, walking t = c-1 ... 0. Column q is
-// the offset o and is the only one that adds the source.
-//
-// Bound on an H100: operations. Each step does q*q FMAs per (r, col): at the
-// flagship posterior VJP (2m = 2, q = 15, c = 303, R = 1056) that is 2.3e9
-// FMAs against 116 MB of u, v and s read once. Design: B is read from shared
-// memory as a broadcast, the column never leaves registers, and the loads of
-// u, v and s coalesce along r. First version: the q+1 column blocks of one r
-// range each read u and v again (from L2), and 288 blocks of 128 threads
-// fill the 132 SMs only thinly.
-__global__ void __launch_bounds__(BLOCK)
-    affine_composites_kernel(const float* __restrict__ B,
-                             const float* __restrict__ U,
-                             const float* __restrict__ V,
-                             const float* __restrict__ S,
-                             float* __restrict__ comp, int c, int q, int R) {
-  __shared__ float sB[MAXQ][MAXQ];
-  const int mi = blockIdx.z;
-  const int col = blockIdx.y;  // 0..q; q is the offset column
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  load_B(sB, B + (size_t)mi * q * q, q);
-  if (r >= R) return;
-
-  const size_t base = (size_t)mi * c * q * R + r;
-  const bool offset = col == q;
-
-  // First step (t = c-1) applied to [I | 0]:
-  // X[p, col < q] = B[p, col] v_col u_p; X[p, q] = s_p.
-  const size_t last = base + (size_t)(c - 1) * q * R;
-  float X[MAXQ];
-#pragma unroll
-  for (int p = 0; p < MAXQ; ++p) {
-    float x = 0.f;
-    if (p < q) {
-      x = offset ? S[last + (size_t)p * R]
-                 : sB[p][col] * V[last + (size_t)col * R] * U[last + (size_t)p * R];
-    }
-    X[p] = x;
-  }
-
-  for (int t = c - 2; t >= 0; --t) {
-    const size_t at = base + (size_t)t * q * R;
-    affine_step(X, sB, U + at, V + at, offset ? S + at : nullptr, q, R);
-  }
-
-  float* out = comp + ((size_t)mi * R + r) * q * (q + 1) + col;
-#pragma unroll
-  for (int p = 0; p < MAXQ; ++p)
-    if (p < q) out[(size_t)p * (q + 1)] = X[p];
-}
-
-// Lane groups for the output scan K5: LANES lanes (a half-warp) own one
-// chunk element, lane j its state j, and a block holds OUT_G chunk elements.
-// The u, v and s of OUT_TS steps at a time are staged in shared memory with
-// cp.async, in a ring of OUT_NB tiles, and the outputs go back through the s
-// tile; the step loop is unrolled OUT_UNROLL times. These may be set with -D
-// to try other tilings (hmm_layer_torch/tune_scans.py); the build uses the
-// values below.
-constexpr int LANES = 16;
+constexpr int LANES = 16;  // a lane group: a half-warp
 constexpr unsigned FULL = 0xffffffffu;
+
+// Tilings of K4 (COMP_) and K5 (OUT_): G chunk elements a block, TS steps a
+// staged tile, NB tiles in the cp.async ring, the step loop unrolled UNROLL
+// times. These may be set with -D to try others
+// (hmm_layer_torch/tune_scans.py); the build uses the values below.
+#ifndef COMP_G
+#define COMP_G 8
+#endif
+#ifndef COMP_TS
+#define COMP_TS 8
+#endif
+#ifndef COMP_NB
+#define COMP_NB 2
+#endif
+#ifndef COMP_UNROLL
+#define COMP_UNROLL 2
+#endif
 #ifndef OUT_G
 #define OUT_G 16
 #endif
@@ -162,10 +74,171 @@ constexpr unsigned FULL = 0xffffffffu;
 // Word of state p of element g in a tile row of LANES words per element.
 // The xor spreads the staging copies and the flush (G elements by 32 / G
 // states a warp) over all 32 banks; a half-warp's own run of 16 words stays
-// its own.
+// its own. For G <= 8 the xor is a multiple of 4, so the four words of an
+// aligned float4 stay together and in order.
+template <int G>
+__device__ __forceinline__ int swz_xor(int g) {
+  return ((g >> 1) * (32 / G)) & (LANES - 1);
+}
 template <int G>
 __device__ __forceinline__ int swz(int g, int p) {
-  return g * LANES + (p ^ (((g >> 1) * (32 / G)) & (LANES - 1)));
+  return g * LANES + (p ^ swz_xor<G>(g));
+}
+
+// K4 — replaces affine_chunk_composites
+// (hmm_layer_tpu/ops/pallas_adjoint.py:93, body _affine_summary_kernel
+// :44-89).
+//
+// Each (model, chunk element r, composite column col), col in 0..q, carries
+// column col of [K | o] on its own,
+//   X[:, col] <- u * (B (v * X[:, col])) + [col == q] s,
+// from [I | 0] at the chunk's right edge, walking t = c-1 ... 0. Column q is
+// the offset o and is the only one that adds the source.
+//
+// Bound on an H100: operations. Each step does q*q FMAs per (r, col): at the
+// flagship posterior VJP (2m = 2, q = 15, c = 303, R = 1056) that is 2.3e9
+// FMAs against 116 MB of u, v and s read once.
+//
+// Design: one thread per (element, column), G elements a block of 16 G
+// threads (K1's body turned to columns; at q = 15 the 16 columns fill a
+// half-warp). The column stays in registers; B^T is in shared memory and a
+// step reads it as 64 broadcast 16-byte words, k outer and p inner, so each
+// acc[p] still sums its FMAs over k in ascending order, as the first
+// version's acc = fmaf(B[p][k], w[k], acc) did. The u, v and s of TS steps
+// at a time come from a ring of NB cp.async tiles, staged once per element
+// and read as broadcasts by its 16 columns (the first version read them
+// from global memory inside the chain, once per column). The tiles are
+// walked from the chunk's end, as K5's; slots of states >= q and of
+// elements past R stay zero, so padded states carry exact zeros.
+template <int G, int TS, int NB, int UNROLL>
+__global__ void __launch_bounds__(G * LANES)
+    affine_composites_kernel(const float* __restrict__ B,
+                             const float* __restrict__ U,
+                             const float* __restrict__ V,
+                             const float* __restrict__ S,
+                             float* __restrict__ comp, int c, int q, int R) {
+  static_assert(G == 1 || G == 2 || G == 4 || G == 8, "float4 reads need swz_xor % 4 == 0");
+  extern __shared__ __align__(16) float tiles_mem[];  // [NB][u, v, s][TS][G * LANES]
+  __shared__ __align__(16) float sBT[MAXQ][MAXQ];     // sBT[k][p] = B[p][k]
+  constexpr int ROW = G * LANES, PLANE = TS * ROW, TILE = 3 * PLANE;
+  const int col = threadIdx.x % LANES;  // this thread's column; q is the offset
+  const int g = threadIdx.x / LANES;    // its element in the block
+  const int mi = blockIdx.y;
+  const int rb = blockIdx.x * G;        // first element of the block
+  const int r = rb + g;
+  const int nr = min(G, R - rb);        // elements of the block below R
+  const bool offset = col == q;
+  const int xq = swz_xor<G>(g) / 4;     // float4 word w of the element's row is at w ^ xq
+  // Staging: thread (sg, sp) copies row sp of element sg.
+  const int sg = threadIdx.x % G, sp = threadIdx.x / G;
+  const bool mover = sg < nr && sp < q;
+
+  for (int idx = threadIdx.x; idx < NB * TILE; idx += blockDim.x) tiles_mem[idx] = 0.f;
+  const float* Bm = B + (size_t)mi * q * q;
+  for (int idx = threadIdx.x; idx < MAXQ * MAXQ; idx += blockDim.x) {
+    const int k = idx / MAXQ, p = idx % MAXQ;
+    sBT[k][p] = (p < q && k < q) ? Bm[p * q + k] : 0.f;
+  }
+  __syncthreads();  // also orders the zeros before the first copies
+
+  const size_t plane = (size_t)q * R;  // one step of U, V or S
+  const size_t at = (size_t)mi * c * plane + (size_t)sp * R + rb + sg;
+  const float *u = U + at, *v = V + at, *s = S + at;
+
+  // Tile i holds steps lo_of(i) ... c-1 - i*TS, walked downwards.
+  const int ntiles = (c + TS - 1) / TS;
+  auto lo_of = [&](int i) { return max(0, c - (i + 1) * TS); };
+  auto stage = [&](int i) {  // copy the steps of tile i, one commit group
+    if (mover && i < ntiles) {
+      float* dst = tiles_mem + (i % NB) * TILE + swz<G>(sg, sp);
+      const int lo = lo_of(i), n = c - i * TS - lo;
+      for (int tt = 0; tt < n; ++tt) {
+        const size_t off = (size_t)(lo + tt) * plane;
+        __pipeline_memcpy_async(dst + tt * ROW, u + off, 4);
+        __pipeline_memcpy_async(dst + PLANE + tt * ROW, v + off, 4);
+        __pipeline_memcpy_async(dst + 2 * PLANE + tt * ROW, s + off, 4);
+      }
+    }
+    __pipeline_commit();  // empty past the last tile: the count stays uniform
+  };
+
+  float X[LANES];
+  for (int i = 0; i < NB - 1; ++i) stage(i);
+  for (int i = 0; i < ntiles; ++i) {
+    const int lo = lo_of(i), n = c - i * TS - lo;
+    const float* tile = tiles_mem + (i % NB) * TILE + g * LANES;
+    __pipeline_wait_prior(NB - 2);  // this thread's copies of tile i are done
+    __syncthreads();  // ... and every thread's; tile i-1 is read
+    stage(i + NB - 1);  // into the buffer of tile i-1
+    int tt = n - 1;
+    if (i == 0) {  // step c-1 applied to [I | 0]: X[p] = B[p][col] v_col u_p, or s_p
+      const float* slot = tile + tt * ROW;
+      const float vc = slot[PLANE + (col ^ (4 * xq))];
+#pragma unroll
+      for (int w = 0; w < LANES / 4; ++w) {
+        const float4 u4 = reinterpret_cast<const float4*>(slot)[w ^ xq];
+        const float4 s4 = reinterpret_cast<const float4*>(slot + 2 * PLANE)[w ^ xq];
+        const float4 b4 = reinterpret_cast<const float4*>(sBT[col])[w];
+        X[4 * w] = offset ? s4.x : b4.x * vc * u4.x;
+        X[4 * w + 1] = offset ? s4.y : b4.y * vc * u4.y;
+        X[4 * w + 2] = offset ? s4.z : b4.z * vc * u4.z;
+        X[4 * w + 3] = offset ? s4.w : b4.w * vc * u4.w;
+      }
+      --tt;
+    }
+#pragma unroll UNROLL
+    for (; tt >= 0; --tt) {
+      // B^T is read anew each step (a compiler-only memory barrier): hoisted
+      // out of the loop, its 256 words would take the registers and spill,
+      // as they did in K1 (sum_product.cu).
+      asm volatile("" ::: "memory");
+      const float4* u4 = reinterpret_cast<const float4*>(tile + tt * ROW);
+      const float4* v4 = reinterpret_cast<const float4*>(tile + PLANE + tt * ROW);
+      const float4* s4 = reinterpret_cast<const float4*>(tile + 2 * PLANE + tt * ROW);
+      float w[LANES], acc[LANES];
+#pragma unroll
+      for (int j = 0; j < LANES / 4; ++j) {
+        const float4 vv = v4[j ^ xq];
+        w[4 * j] = vv.x * X[4 * j];
+        w[4 * j + 1] = vv.y * X[4 * j + 1];
+        w[4 * j + 2] = vv.z * X[4 * j + 2];
+        w[4 * j + 3] = vv.w * X[4 * j + 3];
+      }
+#pragma unroll
+      for (int p = 0; p < LANES; ++p) acc[p] = 0.f;
+#pragma unroll
+      for (int k = 0; k < LANES; ++k) {
+        const float4* b4 = reinterpret_cast<const float4*>(sBT[k]);
+#pragma unroll
+        for (int j = 0; j < LANES / 4; ++j) {
+          const float4 b = b4[j];
+          acc[4 * j] = fmaf(b.x, w[k], acc[4 * j]);
+          acc[4 * j + 1] = fmaf(b.y, w[k], acc[4 * j + 1]);
+          acc[4 * j + 2] = fmaf(b.z, w[k], acc[4 * j + 2]);
+          acc[4 * j + 3] = fmaf(b.w, w[k], acc[4 * j + 3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < LANES / 4; ++j) {
+        const float4 uu = u4[j ^ xq];
+        const float4 ss = s4[j ^ xq];
+        const float uj[4] = {uu.x, uu.y, uu.z, uu.w}, sj[4] = {ss.x, ss.y, ss.z, ss.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float a = acc[4 * j + e];
+          a = uj[e] * a;
+          if (offset) a += sj[e];
+          X[4 * j + e] = a;
+        }
+      }
+    }
+  }
+  if (r < R && col <= q) {
+    float* out = comp + ((size_t)mi * R + r) * q * (q + 1) + col;
+#pragma unroll
+    for (int p = 0; p < LANES; ++p)
+      if (p < q) out[(size_t)p * (q + 1)] = X[p];
+  }
 }
 
 // K5 — replaces affine_reverse_outputs
@@ -271,7 +344,13 @@ __global__ void __launch_bounds__(G * LANES)
   }
 }
 
-inline unsigned blocks_for(int R) { return (unsigned)((R + BLOCK - 1) / BLOCK); }
+// Raises the block's limit of dynamic shared memory to smem where smem and
+// the kernel's static shared memory together exceed the default 48 KB.
+template <class K>
+cudaError_t allow_smem(K kernel, int smem, int static_smem = 0) {
+  if (smem + static_smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
 
 }  // namespace
 
@@ -282,9 +361,13 @@ int hmm_affine_chunk_composites(const float* B, const float* U, const float* V,
                                 int q, int R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(blocks_for(R), (unsigned)(q + 1), (unsigned)m);
-  affine_composites_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      B, U, V, S, comp, c, q, R);
+  constexpr int G = COMP_G, TS = COMP_TS, NB = COMP_NB;
+  constexpr int smem = NB * 3 * TS * G * LANES * (int)sizeof(float);
+  constexpr int static_smem = MAXQ * MAXQ * (int)sizeof(float);  // its copy of B^T
+  auto kernel = affine_composites_kernel<G, TS, NB, COMP_UNROLL>;
+  if ((err = allow_smem(kernel, smem, static_smem)) != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)((R + G - 1) / G), (unsigned)m);
+  kernel<<<grid, G * LANES, smem, (cudaStream_t)stream>>>(B, U, V, S, comp, c, q, R);
   return (int)cudaGetLastError();
 }
 
@@ -297,10 +380,7 @@ int hmm_affine_reverse_outputs(const float* B, const float* U, const float* V,
   constexpr int G = OUT_G, TS = OUT_TS, NB = OUT_NB;
   constexpr int smem = NB * 3 * TS * G * LANES * (int)sizeof(float);
   auto kernel = affine_outputs_kernel<G, TS, NB, OUT_UNROLL>;
-  if (smem > 48 * 1024) {  // above the default limit of dynamic shared memory
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((R + G - 1) / G), (unsigned)m);
   kernel<<<grid, G * LANES, smem, (cudaStream_t)stream>>>(B, U, V, S, x_right, out, c, q, R);
   return (int)cudaGetLastError();

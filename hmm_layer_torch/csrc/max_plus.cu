@@ -46,6 +46,34 @@ namespace {
 constexpr int MAXQ = 16;
 constexpr int BLOCK = 128;
 constexpr float NEG = -1e30f;
+constexpr int LANES = 16;  // a lane group: a half-warp, lane j = state j
+constexpr unsigned FULL = 0xffffffffu;
+
+// Tiling of K7 (DELTA_): G chunk elements a block, TS steps a staged tile,
+// NB tiles in the cp.async ring, the step loop unrolled UNROLL times. These
+// may be set with -D to try others (hmm_layer_torch/tune_scans.py); the
+// build uses the values below.
+#ifndef DELTA_G
+#define DELTA_G 8
+#endif
+#ifndef DELTA_TS
+#define DELTA_TS 16
+#endif
+#ifndef DELTA_NB
+#define DELTA_NB 2
+#endif
+#ifndef DELTA_UNROLL
+#define DELTA_UNROLL 1
+#endif
+
+// Word of state p of element g in a tile row of LANES words per element.
+// The xor spreads the staging copies and the flush (G elements by 32 / G
+// states a warp) over all 32 banks; a half-warp's own run of 16 words stays
+// its own.
+template <int G>
+__device__ __forceinline__ int swz(int g, int p) {
+  return g * LANES + (p ^ (((g >> 1) * (32 / G)) & (LANES - 1)));
+}
 
 // log A of one model into shared memory, padded with NEG. Every thread of
 // the block calls it (it ends in a barrier).
@@ -132,40 +160,98 @@ __global__ void __launch_bounds__(BLOCK)
 // K7 — replaces maxplus_deltas (hmm_layer_tpu/ops/pallas_viterbi.py:353,
 // q <= 16 body _fwd_kernel :214-236).
 //
-// One thread per (model, chunk element r): delta_0 is the given start, every
-// later position is maxplus_step, and delta is stored at every position.
+// One lane group per (model, chunk element r): lane j keeps column j of
+// log A (log_A[k, j] over k) in registers and delta_j. delta_0 is the given
+// start; every later step broadcasts delta with LANES shuffles, takes the
+// exact max over k of ONE rounded add delta_k + log_A[k, j] (four running
+// maxima combined at the end: max is exact, so the grouping changes
+// nothing) and adds log e_t[j]: the plain version's rounded adds, bit-equal
+// to it. Lanes j >= q carry NEG and their log A column is NEG, so the terms
+// of k >= q are NEG + NEG and never win. No branch surrounds a shuffle, and
+// a group past R stays in the loop with its loads and stores masked (a
+// full-mask shuffle needs the whole warp).
 //
 // Bound on an H100: bytes — emissions in and deltas out, 38 MB at the
-// flagship shape, against 0.14 G operations. Design: reads and writes
-// coalesce along r. First version: only R threads (1056 at the flagship
-// shape) run a c-step dependent chain, far from that bound (as K2).
-__global__ void __launch_bounds__(BLOCK)
+// flagship shape (q=15, c=303, R=1056), against 0.14 G operations. What
+// holds it above the bound is the latency of each group's chain of c
+// dependent steps. Design, as the sum-product K2 (sum_product.cu): a step
+// is LANES lanes wide instead of one thread's q*q terms; the emissions of
+// DELTA_TS steps at a time come from a ring of DELTA_NB cp.async tiles, so
+// no global load sits in the chain; the deltas go back through the
+// emission tile and each row (t, p) of the block's DELTA_G elements is read
+// and written as whole sectors.
+template <int G, int TS, int NB, int UNROLL>
+__global__ void __launch_bounds__(G * LANES)
     deltas_kernel(const float* __restrict__ log_A,
                   const float* __restrict__ log_E_T,
                   const float* __restrict__ delta0,
                   float* __restrict__ deltas, int c, int q, int R) {
-  __shared__ __align__(16) float sA[MAXQ][MAXQ];
+  extern __shared__ __align__(16) float tiles_mem[];  // [NB][TS][G * LANES]
+  constexpr int ROW = G * LANES, TILE = TS * ROW;
+  const int j = threadIdx.x % LANES;  // this lane's state
+  const int g = threadIdx.x / LANES;  // this group's element in the block
   const int mi = blockIdx.y;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  load_log_A(sA, log_A + (size_t)mi * q * q, q);
-  if (r >= R) return;
+  const int rb = blockIdx.x * G;      // first element of the block
+  const int r = rb + g;
+  const bool real = r < R && j < q;   // other lanes carry NEG, never read the tile
+  const int nr = min(G, R - rb);      // elements of the block below R
+  // Staging and flush: thread (sg, sp) moves row sp of element sg.
+  const int sg = threadIdx.x % G, sp = threadIdx.x / G;
+  const bool mover = sg < nr && sp < q;
 
-  const size_t base = (size_t)mi * c * q * R + r;
-  const float* e = log_E_T + base;
-  float* out = deltas + base;
+  const float* Am = log_A + (size_t)mi * q * q;
+  float acol[LANES];
+#pragma unroll
+  for (int k = 0; k < LANES; ++k) acol[k] = (k < q && j < q) ? Am[k * q + j] : NEG;
 
-  float v[MAXQ];
+  const size_t plane = (size_t)q * R;  // one step of log_E_T or deltas
+  const size_t at = (size_t)mi * c * plane + (size_t)sp * R + rb + sg;
+  const float* e = log_E_T + at;
+  float* o = deltas + at;
+
+  const int ntiles = (c + TS - 1) / TS;
+  auto stage = [&](int i) {  // copy the steps of tile i, one commit group
+    if (mover && i < ntiles) {
+      float* dst = tiles_mem + (i % NB) * TILE + swz<G>(sg, sp);
+      const int t0 = i * TS, n = min(TS, c - t0);
+      for (int tt = 0; tt < n; ++tt)
+        __pipeline_memcpy_async(dst + tt * ROW, e + (size_t)(t0 + tt) * plane, 4);
+    }
+    __pipeline_commit();  // empty past the last tile: the count stays uniform
+  };
+
+  float d = real ? delta0[((size_t)mi * q + j) * R + r] : NEG;
+  for (int i = 0; i < NB - 1; ++i) stage(i);
+  for (int i = 0; i < ntiles; ++i) {
+    const int t0 = i * TS, n = min(TS, c - t0);
+    float* tile = tiles_mem + (i % NB) * TILE;
+    __pipeline_wait_prior(NB - 2);  // this thread's copies of tile i are done
+    __syncthreads();  // ... and every thread's; tile i-1 is flushed
+    stage(i + NB - 1);  // into the buffer of tile i-1
+    int tt = 0;
+    if (i == 0) {  // first position: delta0 itself
+      tile[swz<G>(g, j)] = d;
+      tt = 1;
+    }
+#pragma unroll UNROLL
+    for (; tt < n; ++tt) {
+      float* slot = tile + tt * ROW + swz<G>(g, j);
+      const float ej = real ? *slot : 0.f;
+      float m4[4];
 #pragma unroll
-  for (int p = 0; p < MAXQ; ++p) {
-    v[p] = p < q ? delta0[((size_t)mi * q + p) * R + r] : NEG;
-    if (p < q) out[(size_t)p * R] = v[p];
-  }
-  for (int t = 1; t < c; ++t) {
-    maxplus_step(v, sA, e + (size_t)t * q * R, q, R);
-    float* ot = out + (size_t)t * q * R;
-#pragma unroll
-    for (int p = 0; p < MAXQ; ++p)
-      if (p < q) ot[(size_t)p * R] = v[p];
+      for (int k = 0; k < LANES; ++k) {
+        const float term = __shfl_sync(FULL, d, k, LANES) + acol[k];
+        m4[k % 4] = k < 4 ? term : fmaxf(m4[k % 4], term);
+      }
+      const float best = fmaxf(fmaxf(m4[0], m4[1]), fmaxf(m4[2], m4[3]));
+      d = real ? best + ej : NEG;
+      *slot = d;
+    }
+    __syncthreads();  // the deltas of tile i are in place
+    if (mover) {
+      const float* src = tile + swz<G>(sg, sp);
+      for (int k = 0; k < n; ++k) o[(size_t)(t0 + k) * plane] = src[k * ROW];
+    }
   }
 }
 
@@ -179,7 +265,9 @@ __global__ void __launch_bounds__(BLOCK)
 // outside [0, q) selects an all-NEG column, as the Pallas select tree does.
 //
 // Bound on an H100: bytes — deltas in and int32 states out, 21 MB at the
-// flagship shape. Design and first-version limit as K7.
+// flagship shape. Design: reads and writes coalesce along r. First version:
+// only R threads (1056 at the flagship shape) run a c-step dependent chain
+// with a global load in every step, far from that bound.
 __global__ void __launch_bounds__(BLOCK)
     backtrace_kernel(const float* __restrict__ log_A,
                      const float* __restrict__ deltas,
@@ -246,7 +334,6 @@ __global__ void __launch_bounds__(BLOCK)
 
 constexpr int MAX_BLOCKED_Q = 64;
 constexpr int TILE = 32;  // steps staged in shared memory per copy
-constexpr unsigned FULL = 0xffffffffu;
 
 // Copies n floats from global src to shared dst with cp.async (one lane
 // per 4 bytes), as one commit group.
@@ -455,9 +542,15 @@ int hmm_maxplus_deltas(const float* log_A, const float* log_E_T,
                        int R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(blocks_for(R), (unsigned)m);
-  deltas_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      log_A, log_E_T, delta0, deltas, c, q, R);
+  constexpr int G = DELTA_G, TS = DELTA_TS, NB = DELTA_NB;
+  constexpr int smem = NB * TS * G * LANES * (int)sizeof(float);
+  auto kernel = deltas_kernel<G, TS, NB, DELTA_UNROLL>;
+  if (smem > 48 * 1024) {  // above the default limit of dynamic shared memory
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  dim3 grid((unsigned)((R + G - 1) / G), (unsigned)m);
+  kernel<<<grid, G * LANES, smem, (cudaStream_t)stream>>>(log_A, log_E_T, delta0, deltas, c, q, R);
   return (int)cudaGetLastError();
 }
 

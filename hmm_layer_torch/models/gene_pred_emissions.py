@@ -254,7 +254,7 @@ class GenePredEmissions(SimpleGenePredEmissions):
     def emissions(self, inputs, end_hints=None, training: bool = False):
         """Inputs: (m, b, L, s + 5); the trailing 5 channels are one-hot ACGTN."""
         nucleotides = inputs[..., -5:]
-        emit = super().emissions(inputs[..., :-5], end_hints=end_hints)
+        emit = super().emissions(inputs[..., :-5], end_hints=end_hints, training=training)
 
         m, b, L = nucleotides.shape[:3]
         nuc_flat = nucleotides.reshape(m * b, L, 5)

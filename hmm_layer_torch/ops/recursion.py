@@ -494,20 +494,25 @@ def _affine_lanes(x, P):
     return x.reshape(m, b * P, L // P, q).permute(0, 2, 3, 1).contiguous()
 
 
-def _affine_composites_kernels(B, u, v, cvec, P):
-    """K4 over all models, as (P, m, b, q, q+1)."""
-    m, b, L, q = cvec.shape
-    U, V, S = (_affine_lanes(x, P) for x in (u, v, cvec))
-    comp = cuda_adjoint.affine_chunk_composites(B.contiguous(), U, V, S)  # (m, R, q, q+1)
-    return comp.reshape(m, b, P, q, q + 1).movedim(2, 0)
+def _affine_kernel_lanes(u, v, cvec, P):
+    """(U, V, S): u, v and cvec in the kernels' lane layout, built once for
+    K4 and K5."""
+    return tuple(_affine_lanes(x, P) for x in (u, v, cvec))
+
+
+def _affine_composites_kernels(B, lanes, b):
+    """K4 over all models on the lanes (U, V, S), as (P, m, b, q, q+1)."""
+    U, V, S = lanes
+    m, _, q, R = U.shape
+    comp = cuda_adjoint.affine_chunk_composites(B, U, V, S)  # (m, R, q, q+1)
+    return comp.reshape(m, b, R // b, q, q + 1).movedim(2, 0)
 
 
 def _affine_composites(B, u, v, cvec, P):
     """Per-chunk composite affine maps ``[K | o]`` of the reverse adjoint
-    recursion; (P, m, b, q, q+1). K4 on CUDA at q <= 15."""
+    recursion; (P, m, b, q, q+1). The plain route (K4 is
+    :func:`_affine_composites_kernels`)."""
     m, b, L, q = cvec.shape
-    if _use_affine_kernels(cvec):
-        return _affine_composites_kernels(B, u, v, cvec, P)
     c = L // P
 
     def to_chunks(x):
@@ -538,21 +543,19 @@ def _affine_boundary_fold(comp, x_term):
     return torch.stack(rights)
 
 
-def _affine_outputs_kernels(B, u, v, cvec, P, rights):
-    """K5 over all models, as (m, b, L, q)."""
-    m, b, L, q = cvec.shape
-    U, V, S = (_affine_lanes(x, P) for x in (u, v, cvec))
-    x_right = rights.movedim(0, 2).reshape(m, b * P, q).transpose(-1, -2).contiguous()
-    out = cuda_adjoint.affine_reverse_outputs(B.contiguous(), U, V, S, x_right)
+def _affine_outputs_kernels(B, lanes, b, rights):
+    """K5 over all models on the lanes (U, V, S), as (m, b, L, q)."""
+    U, V, S = lanes
+    m, _, q, R = U.shape
+    x_right = rights.movedim(0, 2).reshape(m, R, q).transpose(-1, -2).contiguous()
+    out = cuda_adjoint.affine_reverse_outputs(B, U, V, S, x_right)
     return _lanes_to_mblq(out, b)
 
 
 def _affine_outputs(B, u, v, cvec, P, rights):
     """Per-position adjoints from per-chunk right-edge values ``rights``
-    (P, m, b, q). K5 on CUDA at q <= 15."""
+    (P, m, b, q). The plain route (K5 is :func:`_affine_outputs_kernels`)."""
     m, b, L, q = cvec.shape
-    if _use_affine_kernels(cvec):
-        return _affine_outputs_kernels(B, u, v, cvec, P, rights)
     c = L // P
 
     def to_chunks(x):
@@ -570,12 +573,16 @@ def _affine_outputs(B, u, v, cvec, P, rights):
 def _chunked_affine_reverse(B, u, v, cvec, P, x_term=None):
     """Chunked solve of ``x_t = cvec_t + u_t * (B @ (v_t * x_{t+1}))``
     (terminal ``x_L = x_term``, default 0) — composites, boundary fold,
-    output passes; K4–K5 on CUDA."""
+    output passes; K4–K5 on CUDA at q <= 15, on one lane layout of u, v and
+    cvec."""
     m, b, _, q = cvec.shape
-    comp = _affine_composites(B, u, v, cvec, P)
     if x_term is None:
         x_term = torch.zeros((m, b, q), dtype=cvec.dtype, device=cvec.device)
-    rights = _affine_boundary_fold(comp, x_term)
+    if _use_affine_kernels(cvec):
+        B, lanes = B.contiguous(), _affine_kernel_lanes(u, v, cvec, P)
+        rights = _affine_boundary_fold(_affine_composites_kernels(B, lanes, b), x_term)
+        return _affine_outputs_kernels(B, lanes, b, rights)
+    rights = _affine_boundary_fold(_affine_composites(B, u, v, cvec, P), x_term)
     return _affine_outputs(B, u, v, cvec, P, rights)
 
 

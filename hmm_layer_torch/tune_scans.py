@@ -1,26 +1,28 @@
-"""Tilings of the chunk scans K1, K2, K3 and K5 on the card.
+"""Tilings of the chunk scans K1, K2, K3, K4, K5 and K7 on the card.
 
 Run from the root of the repository on a machine with a CUDA device:
-``python3 -m hmm_layer_torch.tune_scans [--kernels K1,K3] [--compare DIR
+``python3 -m hmm_layer_torch.tune_scans [--kernels K4,K7] [--compare DIR
 ...] [--compare-only] [--e2e] [--out DIR]``.
 
-K1, K2, K3 (``csrc/sum_product.cu``) and K5 (``csrc/affine.cu``) are built
-once per tiling: G chunk elements a block, TS steps a staged tile, NB tiles
-in the ring and the step loop unrolled U times, under the prefixes ``SUM_``
-(K1), ``FWD_`` (K2), ``BWD_`` (K3) and ``OUT_`` (K5), e.g. ``-DBWD_TS=32``.
+K1, K2, K3 (``csrc/sum_product.cu``), K4, K5 (``csrc/affine.cu``) and K7
+(``csrc/max_plus.cu``) are built once per tiling: G chunk elements a block,
+TS steps a staged tile, NB tiles in the ring and the step loop unrolled U
+times, under the prefixes ``SUM_`` (K1), ``FWD_`` (K2), ``BWD_`` (K3),
+``COMP_`` (K4), ``OUT_`` (K5) and ``DELTA_`` (K7), e.g. ``-DBWD_TS=32``.
 The package's own build uses the defaults in the sources.
 Tilings whose ring exceeds a block's 227 KB of shared memory are left out.
 ``--kernels`` limits the sweep to some of the kernels. The ``nvcc``
-processes run side by side, two for each CPU core, with ``-Xptxas -v``. Each ``--compare DIR`` adds
-the two sources of another commit (``DIR/sum_product.cu``, ``DIR/affine.cu``)
-as variants of all four kernels, so that old and new kernels are timed in
-the same process on the same card; ``--compare-only`` leaves the tilings
-out. Each variant runs at the flagship shapes on seeded random inputs (m=1,
-c=303, q=15, R=1056, P=33; K5: 2m=2, the posterior VJP's stacked models), is
-held against the plain version (K1 rtol 1e-5, atol 1e-3 where C lies within
-30 nats of its row's maximum; K2, K3 rtol 1e-5, atol 1e-2; K5 rtol 1e-5,
-atol 1e-6) and against the package's own build (bit-equal or not), and is
-timed:
+processes run side by side, two for each CPU core, with ``-Xptxas -v``.
+Each ``--compare DIR`` adds the three sources of another commit
+(``DIR/sum_product.cu``, ``DIR/affine.cu``, ``DIR/max_plus.cu``) as
+variants of all six kernels, so that old and new kernels are timed in the
+same process on the same card; ``--compare-only`` leaves the tilings out.
+Each variant runs at the flagship shapes on seeded random inputs (m=1,
+c=303, q=15, R=1056, P=33; K4, K5: 2m=2, the posterior VJP's stacked
+models), is held against the plain version (K1 rtol 1e-5, atol 1e-3 where
+C lies within 30 nats of its row's maximum; K2, K3 rtol 1e-5, atol 1e-2;
+K4, K5 rtol 1e-5, atol 1e-6; K7 bit-equal) and against the package's own
+build (bit-equal or not), and is timed:
 
 * warm: median of 20 samples of 10 back-to-back launches (CUDA events),
   the inputs then sit in the 50 MB L2;
@@ -29,10 +31,10 @@ timed:
 
 With ``--e2e`` (and one ``--compare DIR``), the flagship gene-prediction
 layer (q=15, b=32, L=9999, parallel factor "auto" = 33, random weights from
-seed 0) then serves posterior and log-likelihood requests and takes
-posterior cross-entropy and MAP steps (forward and backward, no optimizer)
-with this build's kernels and with DIR's in turns: 40 rounds, this build
-first and DIR first alternately (the libraries are loaded side by side and
+seed 0) then serves posterior, log-likelihood and Viterbi decode requests
+and takes posterior cross-entropy and MAP steps (forward and backward, no
+optimizer) with this build's kernels and with DIR's in turns: 40 rounds,
+this build first and DIR first alternately (the libraries are loaded side by side and
 swapped under the wrappers). Each call is timed with the host clock around
 a synchronised call; the medians and the median paired difference are
 printed.
@@ -62,7 +64,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ops import _cuda_build, cuda_adjoint, cuda_forward
+from .ops import _cuda_build, cuda_adjoint, cuda_forward, cuda_viterbi
 from .utils.cuda_timing import cold_median_ms, median_ms
 
 CODONS = dict(
@@ -77,8 +79,12 @@ KERNELS = {
     "K1": ("sum_product", "SUM", "hmm_sum_chunk_summaries", "chunk_summaries_rows_kernel"),
     "K2": ("sum_product", "FWD", "hmm_sum_fwd_outputs", "fwd_outputs_kernel"),
     "K3": ("sum_product", "BWD", "hmm_beta_bwd_outputs", "bwd_outputs_kernel"),
+    "K4": ("affine", "COMP", "hmm_affine_chunk_composites", "affine_composites_kernel"),
     "K5": ("affine", "OUT", "hmm_affine_reverse_outputs", "affine_outputs_kernel"),
+    "K7": ("max_plus", "DELTA", "hmm_maxplus_deltas", "deltas_kernel"),
 }
+SOURCE_NAMES = tuple(dict.fromkeys(source for source, *_ in KERNELS.values()))
+STAGED_PLANES = {"K4": 3, "K5": 3}  # u, v and s; the others stage one plane
 KNOBS = ("G", "TS", "NB", "UNROLL")
 _SCAN_GRID = [(4, 32, 2, 1)] + [(g, ts, nb, u) for g in (8, 16) for ts in (16, 32, 64)
                                 for nb in (2, 3) for u in (1, 2, 4)]
@@ -88,8 +94,12 @@ TILINGS = {
            for nb in (2, 3) for u in (1, 2)],
     "K2": [dict(zip(KNOBS, t)) for t in _SCAN_GRID],
     "K3": [dict(zip(KNOBS, t)) for t in _SCAN_GRID],
+    # K4 reads its tiles as float4 words: G <= 8 (the swizzle keeps them whole).
+    "K4": [dict(G=g, TS=ts, NB=nb, UNROLL=u) for g in (2, 4, 8) for ts in (8, 16, 32)
+           for nb in (2, 3) for u in (1, 2, 4)],
     "K5": [dict(zip(KNOBS, t)) for t in [(4, 32, 2, 1)] + [
         (g, ts, nb, u) for g in (8, 16) for ts in (8, 16, 32) for nb in (2, 3, 4) for u in (1, 2)]],
+    "K7": [dict(zip(KNOBS, t)) for t in _SCAN_GRID],
 }
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 SHAPE = dict(c=303, q=15, R=1056, P=33)
@@ -100,7 +110,7 @@ def block_shape(kernel, knobs):
     """(threads, bytes of dynamic shared memory) of a block of ``kernel``
     built with ``knobs``."""
     g, ring = knobs["G"], knobs["NB"] * knobs["TS"] * knobs["G"] * 16
-    return 16 * g, 4 * ring * (3 if kernel == "K5" else 1)  # K5 stages u, v and s
+    return 16 * g, 4 * ring * STAGED_PLANES.get(kernel, 1)
 
 
 def label(kernel, knobs):
@@ -129,7 +139,7 @@ def _variants(compare, grid=True, kernels=tuple(KERNELS)):
             out.append((label(kernel, knobs), name, _cuda_build.SOURCES[name],
                         [f"-D{prefix}_{k}={v}" for k, v in knobs.items()], (kernel,)))
     for d in compare:
-        for name in ("sum_product", "affine"):
+        for name in SOURCE_NAMES:
             runs = tuple(k for k in kernels if KERNELS[k][0] == name)
             if runs:
                 out.append((f"{name} {d}", name, Path(d) / f"{name}.cu", [], runs))
@@ -220,6 +230,8 @@ def _cases(device):
         b, o = 1e3 * nbytes / PEAK_BYTES, 1e3 * nops / PEAK_FLOPS
         return (b, "bytes") if b >= o else (o, "operations")
 
+    log_A, log_E_T = torch.log(A.clamp_min(1e-16)).contiguous(), torch.log(E_T)
+    delta0 = (t(rng.normal(-20.0, 5.0, size=(1, q, R))) + log_E_T[:, 0]).contiguous()
     e_bytes, a_bytes = 4 * c * q * R, 4 * q * q
     C_ref = cuda_forward.sum_chunk_summaries_plain(A, E_T, P)
     return {
@@ -236,16 +248,28 @@ def _cases(device):
                cuda_forward.beta_bwd_outputs(A, E_T, beta0, ll0), 1e-5, 1e-2, None,
                *bound(a_bytes + 2 * e_bytes + 4 * (q + 1) * R, R * (c - 1) * q * (2 * q + 4)),
                (1, c, q, R)),
+        "K4": ((B, U, V, S), (2, R, q, q + 1), cuda_adjoint.affine_chunk_composites_plain(B, U, V, S),
+               cuda_adjoint.affine_chunk_composites(B, U, V, S), 1e-5, 1e-6, None,
+               # per step and column: q products v * x, q * q FMAs, q products u *
+               *bound(2 * a_bytes + 3 * 2 * e_bytes + 2 * 4 * R * q * (q + 1),
+                      2 * R * (q + 1) * c * (2 * q * q + 2 * q)),
+               (2, c, q, R)),
         "K5": ((B, U, V, S, xr), (2, c, q, R), cuda_adjoint.affine_reverse_outputs_plain(B, U, V, S, xr),
                cuda_adjoint.affine_reverse_outputs(B, U, V, S, xr), 1e-5, 1e-6, None,
                *bound(2 * a_bytes + 4 * 2 * e_bytes + 2 * 4 * q * R, 2 * R * c * (2 * q * q + 3 * q)),
                (2, c, q, R)),
+        # bit-equal: the plain version's rounded adds and exact maxes
+        "K7": ((log_A, log_E_T, delta0), (1, c, q, R), cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0),
+               cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0), 0.0, 0.0, None,
+               # one add and one max per (k, p) term of a step
+               *bound(a_bytes + 2 * e_bytes + 4 * q * R, R * (c - 1) * 2 * q * q),
+               (1, c, q, R)),
     }
 
 
 def _e2e(other, rounds=40):
-    """Posterior and log-likelihood ms/batch, CE and MAP ms/step with this
-    build's kernel libraries and with ``other`` ({source name: library}),
+    """Posterior, log-likelihood and decode ms/batch, CE and MAP ms/step with
+    this build's kernel libraries and with ``other`` ({source name: library}),
     interleaved A, B, B, A."""
     from . import HMMLayer, models
 
@@ -276,6 +300,10 @@ def _e2e(other, rounds=40):
         with torch.inference_mode():
             layer.log_likelihood(X)
 
+    def decode():
+        with torch.inference_mode():
+            layer.viterbi(X)
+
     def ce_step():
         torch.autograd.grad(layer.posterior_cross_entropy(X, labels, label_mask=mask), pars)
 
@@ -283,7 +311,8 @@ def _e2e(other, rounds=40):
         torch.autograd.grad(layer.loss(X), pars)
 
     calls = {"posterior": (posterior, "ms/batch"), "ce": (ce_step, "ms/step"),
-             "map": (map_step, "ms/step"), "loglik": (loglik, "ms/batch")}
+             "map": (map_step, "ms/step"), "loglik": (loglik, "ms/batch"),
+             "decode": (decode, "ms/batch")}
     times = {v: {key: [] for key in calls} for v in libs}
     try:
         for i in range(rounds + 1):  # round 0 warms both up, untimed
@@ -309,13 +338,13 @@ def _e2e(other, rounds=40):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--kernels", default=",".join(KERNELS),
-                        help="comma-separated kernels to sweep (default: all of K1,K2,K3,K5)")
+                        help=f"comma-separated kernels to sweep (default: all of {','.join(KERNELS)})")
     parser.add_argument("--compare", action="append", default=[],
-                        help="directory with another commit's sum_product.cu and affine.cu")
+                        help="directory with another commit's sum_product.cu, affine.cu and max_plus.cu")
     parser.add_argument("--compare-only", action="store_true", help="time the --compare sources only")
     parser.add_argument("--e2e", action="store_true",
-                        help="time the flagship posterior, log-likelihood, CE and MAP step with this "
-                             "build and with --compare")
+                        help="time the flagship posterior, log-likelihood and decode requests and the CE "
+                             "and MAP steps with this build and with --compare")
     parser.add_argument("--out", default=str(_cuda_build.BUILD_DIR / "tune"), help="directory for the SASS")
     args = parser.parse_args(argv)
     kernels = tuple(args.kernels.split(","))
@@ -384,7 +413,7 @@ def main(argv=None) -> int:
     print(f"build defaults {build_defaults()}; on {smi}")
     if args.e2e:
         d = args.compare[0]
-        _e2e({name: _load(built[f"{name} {d}"][0], name) for name in ("sum_product", "affine")})
+        _e2e({name: _load(built[f"{name} {d}"][0], name) for name in SOURCE_NAMES})
     if failed:
         print(f"tune_scans: variants failed or disagree with the plain versions: {failed}", file=sys.stderr)
         return 1

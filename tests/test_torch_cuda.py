@@ -178,6 +178,15 @@ AFFINE_CASES = [
     pytest.param(3, 9, 1057, 1, id="m3-c9-R1057-q1"),
     pytest.param(1, 17, 9, 15, id="c17-R9"),
     pytest.param(1, 33, 1057, 15, id="c33-R1057"),
+    # The edges of K4's blocks (8 chunk elements of 16 column threads a
+    # block, tiles of 8 staged steps walked from the chunk's end): c around
+    # and below the tile, R = 1 and not a multiple of 8, q = 1 and 3
+    # (padding columns past the offset column), q = 14.
+    pytest.param(1, 15, 5, 15, id="c15-R5"),
+    pytest.param(2, 8, 6, 14, id="m2-c8-R6-q14"),
+    pytest.param(1, 32, 3, 15, id="c32-R3"),
+    pytest.param(3, 31, 1, 3, id="m3-c31-R1-q3"),
+    pytest.param(2, 48, 1031, 1, id="m2-c48-R1031-q1"),
 ]
 
 
@@ -285,19 +294,33 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
 # ---------------------------------------------------------------------------
 
 
-def _log_inputs(seed, m, c, R, gene_pred, device):
-    A, E_T, _, _ = _inputs(seed, m, c, R, gene_pred, device)
+def _log_inputs(seed, m, c, R, gene_pred, device, q=Q):
+    A, E_T, _, _ = _inputs(seed, m, c, R, gene_pred, device, q)
     return torch.log(A.clamp_min(1e-16)).contiguous(), torch.log(E_T).contiguous()
 
 
-@pytest.mark.parametrize("m,c,R,P,gene_pred", CASES)
-def test_maxplus_kernels_equal_plain(cuda, m, c, R, P, gene_pred):
+# The edges of K7's lane groups (8 chunk elements a block, tiles of 16
+# staged steps in the build): c = 1 and around the tile, R = 1 and not a
+# multiple of 8, q = 1, 3 and 16. Fields: m, c, R, P, gene_pred, q.
+MAXPLUS_CASES = [pytest.param(*p.values, Q, id=p.id) for p in CASES] + [
+    pytest.param(1, 1, 7, 1, False, 15, id="c1-R7"),
+    pytest.param(3, 2, 9, 3, False, 3, id="m3-c2-R9-q3"),
+    pytest.param(1, 15, 1, 1, False, 16, id="c15-R1-q16"),
+    pytest.param(2, 16, 13, 13, False, 15, id="m2-c16-R13"),
+    pytest.param(1, 17, 1057, 7, False, 1, id="c17-R1057-q1"),
+    pytest.param(1, 33, 9, 3, False, 16, id="c33-R9-q16"),
+    pytest.param(1, 97, 22, 11, True, 15, id="c97-R22-genepred"),
+]
+
+
+@pytest.mark.parametrize("m,c,R,P,gene_pred,q", MAXPLUS_CASES)
+def test_maxplus_kernels_equal_plain(cuda, m, c, R, P, gene_pred, q):
     """Bit-equal: the kernels and the plain versions do the same rounded
     adds in the same order and exact maxes."""
-    log_A, log_E_T = _log_inputs(3, m, c, R, gene_pred, cuda)
+    log_A, log_E_T = _log_inputs(3, m, c, R, gene_pred, cuda, q)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    delta0 = (torch.randn((m, Q, R), generator=gen, device=cuda) * 5 - 20 + log_E_T[:, 0]).contiguous()
-    last = torch.randint(0, Q, (m, R), generator=gen, device=cuda, dtype=torch.int32)
+    delta0 = (torch.randn((m, q, R), generator=gen, device=cuda) * 5 - 20 + log_E_T[:, 0]).contiguous()
+    last = torch.randint(0, q, (m, R), generator=gen, device=cuda, dtype=torch.int32)
     cuda_viterbi.reset_launches()
     C_T = cuda_viterbi.maxplus_chunk_summaries(log_A, log_E_T, P)
     deltas = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)

@@ -45,9 +45,10 @@ def _affine_inputs(seed, m, b, L, q):
 def _port_affine_kernel_layout(B, u, v, s, P):
     """The solver through the kernel route's layout helpers (the K4/K5
     wrappers run their plain versions on the CPU)."""
-    comp = recursion._affine_composites_kernels(B, u, v, s, P)
+    lanes, b = recursion._affine_kernel_lanes(u, v, s, P), s.shape[1]
+    comp = recursion._affine_composites_kernels(B, lanes, b)
     rights = recursion._affine_boundary_fold(comp, torch.zeros_like(s[:, :, 0]))
-    return recursion._affine_outputs_kernels(B, u, v, s, P, rights)
+    return recursion._affine_outputs_kernels(B, lanes, b, rights)
 
 
 AFFINE_CASES = [

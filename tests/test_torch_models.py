@@ -156,6 +156,25 @@ def test_gene_pred_emissions_match_jax(soft, bf16, kwargs):
     np.testing.assert_array_equal(te.codon_probs.numpy(), je.codon_probs)
 
 
+@pytest.mark.parametrize("training", [True, False])
+def test_gene_pred_emissions_pass_training_to_the_base_class(monkeypatch, training):
+    """As the JAX model does (``hmm_layer_tpu/models/gene_pred_emissions.py``,
+    ``GenePredEmissions.emissions``), the port hands ``training`` on to the
+    base class's emissions."""
+    seen = []
+    base = tm.SimpleGenePredEmissions.emissions
+
+    def spy(self, inputs, end_hints=None, training=False):
+        seen.append(training)
+        return base(self, inputs, end_hints=end_hints, training=training)
+
+    monkeypatch.setattr(tm.SimpleGenePredEmissions, "emissions", spy)
+    em = tm.GenePredEmissions(**CODONS, input_dim=15)
+    X = _inputs(np.random.default_rng(4), 1, 2, 9, 15, False)
+    em.emissions(torch.from_numpy(X), training=training)
+    assert seen == [training]
+
+
 def test_simple_emissions_with_end_hints_match_jax():
     rng = np.random.default_rng(3)
     je, te = jm.SimpleGenePredEmissions(), tm.SimpleGenePredEmissions()
