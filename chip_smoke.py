@@ -13,7 +13,7 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    card, at the shapes the flagship request gives them (gene-pred model,
    q=15, b=32, L=9999, parallel_factor "auto" = 33: c=303, R=1056); K6–K8
    must be bit-equal; median time over 20 samples (CUDA events), the plain
-   version's time and the bound. K1–K5 and K7 are timed cold as well
+   version's time and the bound. K1–K8 are timed cold as well
    (each launch after 256 MB written to a scratch buffer, so that their
    inputs are not in the 50 MB L2; ``cold_ms`` in the kernels' record), and
    their bound shares are taken from that.
@@ -120,12 +120,12 @@ TRAIN_STEPS, MAP_STEPS, CLI_STEPS = 5, 2, 10
 # Kernel-only launches per request: the posterior runs K1, K2 and K3 once,
 # the log-likelihood K1 once more.
 PER_REQUEST = {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1}
-# Kernels timed cold as well as warm in phase 3: K1's 19 MB and K2's, K3's
-# and K7's 38 MB of inputs and outputs stay in the 50 MB L2 over
-# back-to-back launches (K4's 117 MB and K5's 154 MB do not, and their cold
-# times show that).
+# Kernels timed cold as well as warm in phase 3: K1's and K6's 19–20 MB,
+# K8's 21 MB and K2's, K3's and K7's 38 MB of inputs and outputs stay in the
+# 50 MB L2 over back-to-back launches (K4's 117 MB and K5's 154 MB do not,
+# and their cold times show that).
 COLD = ("sum_chunk_summaries", "sum_fwd_outputs", "beta_bwd_outputs", "affine_chunk_composites",
-        "affine_reverse_outputs", "maxplus_deltas")
+        "affine_reverse_outputs", "maxplus_chunk_summaries", "maxplus_deltas", "maxplus_backtrace")
 
 # NVIDIA data-sheet peaks: (memory bytes/s, float32 non-tensor FLOP/s).
 PEAKS = {
@@ -716,8 +716,8 @@ def decode_stage_phase(layer, X, recursion, cuda_viterbi):
     for name, ms in stages.items():
         log(f"phase 6 stage {name}: {ms:.3f} ms ({100 * ms / total:.1f}%)")
     log(f"phase 6 stages total: {total:.3f} ms (synchronised after each stage)")
-    profile_request("phase 6", lambda: layer.viterbi(X), "K6-K8", ("maxplus", "deltas_kernel",
-                                                                   "backtrace_kernel"))
+    profile_request("phase 6", lambda: layer.viterbi(X), "K6-K8",
+                    ("chunk_summaries_kernel", "deltas_kernel", "backtrace_kernel"))
 
 
 def predict_phase(layer, recursion, cuda_viterbi, tmp):

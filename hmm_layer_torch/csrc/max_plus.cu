@@ -44,15 +44,26 @@
 namespace {
 
 constexpr int MAXQ = 16;
-constexpr int BLOCK = 128;
 constexpr float NEG = -1e30f;
 constexpr int LANES = 16;  // a lane group: a half-warp, lane j = state j
 constexpr unsigned FULL = 0xffffffffu;
 
-// Tiling of K7 (DELTA_): G chunk elements a block, TS steps a staged tile,
-// NB tiles in the cp.async ring, the step loop unrolled UNROLL times. These
-// may be set with -D to try others (hmm_layer_torch/tune_scans.py); the
-// build uses the values below.
+// Tilings of K6 (MPS_), K7 (DELTA_) and K8 (TRACE_): G chunk elements a
+// block, TS steps a staged tile, NB tiles in the cp.async ring, the step
+// loop unrolled UNROLL times. These may be set with -D to try others
+// (hmm_layer_torch/tune_scans.py); the build uses the values below.
+#ifndef MPS_G
+#define MPS_G 8
+#endif
+#ifndef MPS_TS
+#define MPS_TS 32
+#endif
+#ifndef MPS_NB
+#define MPS_NB 2
+#endif
+#ifndef MPS_UNROLL
+#define MPS_UNROLL 2
+#endif
 #ifndef DELTA_G
 #define DELTA_G 8
 #endif
@@ -65,14 +76,39 @@ constexpr unsigned FULL = 0xffffffffu;
 #ifndef DELTA_UNROLL
 #define DELTA_UNROLL 1
 #endif
+#ifndef TRACE_G
+#define TRACE_G 8
+#endif
+#ifndef TRACE_TS
+#define TRACE_TS 16
+#endif
+#ifndef TRACE_NB
+#define TRACE_NB 2
+#endif
+#ifndef TRACE_UNROLL
+#define TRACE_UNROLL 2
+#endif
 
 // Word of state p of element g in a tile row of LANES words per element.
 // The xor spreads the staging copies and the flush (G elements by 32 / G
 // states a warp) over all 32 banks; a half-warp's own run of 16 words stays
-// its own.
+// its own. For G <= 8 the xor is a multiple of 4, so the four words of an
+// aligned float4 stay together and in order.
+template <int G>
+__device__ __forceinline__ int swz_xor(int g) {
+  return ((g >> 1) * (32 / G)) & (LANES - 1);
+}
 template <int G>
 __device__ __forceinline__ int swz(int g, int p) {
-  return g * LANES + (p ^ (((g >> 1) * (32 / G)) & (LANES - 1)));
+  return g * LANES + (p ^ swz_xor<G>(g));
+}
+
+// Raises the block's limit of dynamic shared memory to smem where smem and
+// the kernel's static shared memory together exceed the default 48 KB.
+template <class K>
+cudaError_t allow_smem(K kernel, int smem, int static_smem = 0) {
+  if (smem + static_smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 // log A of one model into shared memory, padded with NEG. Every thread of
@@ -87,74 +123,130 @@ __device__ __forceinline__ void load_log_A(float (&sA)[MAXQ][MAXQ],
   __syncthreads();
 }
 
-// One max-plus step of a q-vector carry:
-//   v[p] <- max_k (v[k] + log_A[k, p]) + e_t[p].
-// The empty asm with a memory clobber makes the compiler read log A from
-// shared memory again on every step instead of hoisting its 256 entries into
-// registers for the whole time loop (the sum-product K1 of sum_product.cu
-// does that: 255 registers and spills). Rows of log A are read as broadcasts: every thread of a warp reads
-// the same address.
-__device__ __forceinline__ void maxplus_step(float (&v)[MAXQ],
-                                             const float (&sA)[MAXQ][MAXQ],
-                                             const float* __restrict__ et,
-                                             int q, int R) {
-  asm volatile("" ::: "memory");
-  float acc[MAXQ];
-#pragma unroll
-  for (int p = 0; p < MAXQ; ++p) acc[p] = v[0] + sA[0][p];
-#pragma unroll
-  for (int k = 1; k < MAXQ; ++k) {
-    const float vk = v[k];
-#pragma unroll
-    for (int p = 0; p < MAXQ; ++p) acc[p] = fmaxf(acc[p], vk + sA[k][p]);
-  }
-#pragma unroll
-  for (int p = 0; p < MAXQ; ++p)
-    v[p] = p < q ? acc[p] + et[(size_t)p * R] : acc[p];
-}
-
 // K6 — replaces maxplus_chunk_summaries
 // (hmm_layer_tpu/ops/pallas_viterbi.py:151, body _kernel :103-147).
 //
-// One thread per (model, chunk element r, left-border state i). It carries
-// column i of the transposed operator, v[j] = C_T[r, j, i], in registers:
-// step 0 is the identity (0 / NEG) for chunk 0 of a sequence and row i of
-// log A otherwise, plus the first emission; every later step is
-// maxplus_step. No thread waits for another.
+// Each (model, chunk element r, left-border state i) carries column i of the
+// transposed operator, v[j] = C_T[r, j, i], in registers: step 0 is the
+// identity (0 / NEG) for chunk 0 of a sequence and row i of log A otherwise,
+// plus the first emission; every later step is
+//   v[p] <- max_k (v[k] + log_A[k, p]) + e_t[p],
+// one rounded add per term, an exact max over k in ascending order and one
+// rounded add of the emission, as the plain version does (bit-equal).
 //
 // Bound on an H100: operations. Each step does q*q adds and as many maxes
 // per (r, i): 2.15e9 at the flagship shape (q=15, c=303, R=1056) against
-// 20 MB of emissions in and operators out. Design: log A in shared memory,
-// read as broadcasts; the carry never leaves registers; each emission load
-// is one coalesced 128-byte line per warp. The transposed output is written
-// once, strided.
-__global__ void __launch_bounds__(BLOCK)
+// 20 MB of emissions in and operators out.
+//
+// Design: one thread per (element, border state), G elements a block of 16 G
+// threads (K1's body in max-plus, sum_product.cu), so the q border threads
+// of an element share a block. log A is in shared memory, padded with NEG,
+// and a step reads it as 64 broadcast 16-byte words, k outer and p inner.
+// The emissions of TS steps at a time come from a ring of NB cp.async
+// tiles, staged once per element and read as broadcast float4 words by its
+// 16 threads; no global load sits in the chain. The tiles start zeroed, so
+// states p >= q (never staged) add 0 to a padding entry near NEG, which
+// never wins a max. For each j the element's q threads write C_T[r, j, 0..q)
+// as consecutive words.
+template <int G, int TS, int NB, int UNROLL>
+__global__ void __launch_bounds__(G * LANES)
     chunk_summaries_kernel(const float* __restrict__ log_A,
                            const float* __restrict__ log_E_T,
-                           float* __restrict__ C_T, int c, int q, int R,
-                           int P) {
+                           float* __restrict__ C_T, int c, int q, int R, int P) {
+  static_assert(G == 1 || G == 2 || G == 4 || G == 8, "float4 reads need swz_xor % 4 == 0");
+  extern __shared__ __align__(16) float tiles_mem[];  // [NB][TS][G * LANES]
   __shared__ __align__(16) float sA[MAXQ][MAXQ];
-  const int mi = blockIdx.z;
-  const int i = blockIdx.y;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  load_log_A(sA, log_A + (size_t)mi * q * q, q);
-  if (r >= R) return;
+  constexpr int ROW = G * LANES, TILE = TS * ROW;
+  const int i = threadIdx.x % LANES;  // this thread's left-border state
+  const int g = threadIdx.x / LANES;  // its element in the block
+  const int mi = blockIdx.y;
+  const int rb = blockIdx.x * G;      // first element of the block
+  const int r = rb + g;
+  const int nr = min(G, R - rb);      // elements of the block below R
+  const int xq = swz_xor<G>(g) / 4;   // float4 word w of the element's row is at w ^ xq
+  // Staging: thread (sg, sp) copies row sp of element sg.
+  const int sg = threadIdx.x % G, sp = threadIdx.x / G;
+  const bool mover = sg < nr && sp < q;
 
-  const float* e = log_E_T + (size_t)mi * c * q * R + r;
-  const bool first = (r % P) == 0;  // chunk 0 of its sequence
+  for (int idx = threadIdx.x; idx < NB * TILE; idx += blockDim.x) tiles_mem[idx] = 0.f;
+  load_log_A(sA, log_A + (size_t)mi * q * q, q);  // its barrier also orders the zeros
 
+  const size_t plane = (size_t)q * R;  // one step of log_E_T
+  const float* e = log_E_T + (size_t)mi * c * plane + (size_t)sp * R + rb + sg;
+  const int ntiles = (c + TS - 1) / TS;
+  auto stage = [&](int it) {  // copy the steps of tile it, one commit group
+    if (mover && it < ntiles) {
+      float* dst = tiles_mem + (it % NB) * TILE + swz<G>(sg, sp);
+      const int t0 = it * TS, n = min(TS, c - t0);
+      for (int tt = 0; tt < n; ++tt)
+        __pipeline_memcpy_async(dst + tt * ROW, e + (size_t)(t0 + tt) * plane, 4);
+    }
+    __pipeline_commit();  // empty past the last tile: the count stays uniform
+  };
+
+  const bool first = r % P == 0;  // chunk 0 of its sequence
   float v[MAXQ];
+  for (int it = 0; it < NB - 1; ++it) stage(it);
+  for (int it = 0; it < ntiles; ++it) {
+    const int t0 = it * TS, n = min(TS, c - t0);
+    const float* tile = tiles_mem + (it % NB) * TILE + g * LANES;
+    __pipeline_wait_prior(NB - 2);  // this thread's copies of tile it are done
+    __syncthreads();  // ... and every thread's; tile it-1 is read
+    stage(it + NB - 1);  // into the buffer of tile it-1
+    int tt = 0;
+    if (it == 0) {
+      const float4* e4 = reinterpret_cast<const float4*>(tile);
 #pragma unroll
-  for (int j = 0; j < MAXQ; ++j) {
-    const float start = first ? (i == j ? 0.f : NEG) : sA[i][j];
-    v[j] = j < q ? start + e[(size_t)j * R] : NEG;
+      for (int w = 0; w < LANES / 4; ++w) {
+        const float4 ev = e4[w ^ xq];
+        const float ej[4] = {ev.x, ev.y, ev.z, ev.w};
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int j = 4 * w + x;
+          const float start = first ? (i == j ? 0.f : NEG) : sA[i][j];
+          v[j] = j < q ? start + ej[x] : NEG;
+        }
+      }
+      tt = 1;
+    }
+#pragma unroll UNROLL
+    for (; tt < n; ++tt) {
+      // log A is read anew each step (a compiler-only memory barrier):
+      // hoisted out of the loop, its 256 words would take the registers and
+      // spill, as they did in K1 (sum_product.cu).
+      asm volatile("" ::: "memory");
+      float acc[MAXQ];
+#pragma unroll
+      for (int k = 0; k < MAXQ; ++k) {
+        const float4* a4 = reinterpret_cast<const float4*>(sA[k]);
+#pragma unroll
+        for (int w = 0; w < LANES / 4; ++w) {
+          const float4 a = a4[w];
+          const float aw[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int p = 4 * w + x;
+            acc[p] = k == 0 ? v[0] + aw[x] : fmaxf(acc[p], v[k] + aw[x]);
+          }
+        }
+      }
+      const float4* e4 = reinterpret_cast<const float4*>(tile + tt * ROW);
+#pragma unroll
+      for (int w = 0; w < LANES / 4; ++w) {
+        const float4 ev = e4[w ^ xq];
+        v[4 * w] = acc[4 * w] + ev.x;
+        v[4 * w + 1] = acc[4 * w + 1] + ev.y;
+        v[4 * w + 2] = acc[4 * w + 2] + ev.z;
+        v[4 * w + 3] = acc[4 * w + 3] + ev.w;
+      }
+    }
   }
-  for (int t = 1; t < c; ++t) maxplus_step(v, sA, e + (size_t)t * q * R, q, R);
-
-  float* out = C_T + ((size_t)mi * R + r) * q * q + i;
+  if (r < R && i < q) {
+    float* out = C_T + ((size_t)mi * R + r) * q * q + i;
 #pragma unroll
-  for (int j = 0; j < MAXQ; ++j)
-    if (j < q) out[(size_t)j * q] = v[j];
+    for (int j = 0; j < MAXQ; ++j)
+      if (j < q) out[(size_t)j * q] = v[j];
+  }
 }
 
 // K7 — replaces maxplus_deltas (hmm_layer_tpu/ops/pallas_viterbi.py:353,
@@ -258,48 +350,110 @@ __global__ void __launch_bounds__(G * LANES)
 // K8 — replaces maxplus_backtrace (hmm_layer_tpu/ops/pallas_viterbi.py:433,
 // q <= 16 body _backtrace_kernel :239-266).
 //
-// One thread per (model, chunk element r) walks t = c-1 ... 0 from the given
-// last state: s_t = the LOWEST k maximising deltas[t, k] + log_A[k, s_{t+1}]
-// (k ascending, strict >, as jnp.argmax and torch.argmax break ties). No
-// backpointers: each decision is re-derived from the stored deltas. A state
-// outside [0, q) selects an all-NEG column, as the Pallas select tree does.
+// Walks t = c-1 ... 0 from the given last state: s_t = the LOWEST k
+// maximising deltas[t, k] + log_A[k, s_{t+1}] (as jnp.argmax and
+// torch.argmax break ties). No backpointers: each decision is re-derived
+// from the stored deltas. A state outside [0, q) selects an all-NEG column,
+// as the Pallas select tree does.
 //
 // Bound on an H100: bytes — deltas in and int32 states out, 21 MB at the
-// flagship shape. Design: reads and writes coalesce along r. First version:
-// only R threads (1056 at the flagship shape) run a c-step dependent chain
-// with a global load in every step, far from that bound.
-__global__ void __launch_bounds__(BLOCK)
+// flagship shape (q=15, c=303, R=1056). What holds it above the bound is
+// the chain of c dependent decisions per element.
+//
+// Design: K7's lane group walked backwards, as K3 walks K2's (one 16-lane
+// group per element, lane k = state k, G elements a block). A step forms
+// w = delta_t[k] + log_A[k, s] in every lane (the plain version's rounded
+// add), maps w + 0 (so that -0 and +0 tie, as they compare) to an integer
+// key that orders as the floats do, takes the group maximum and then the
+// lowest lane holding it with a ballot: s is uniform in the group. Lanes
+// k >= q and groups past R carry the key INT_MIN and stay in every shuffle
+// and ballot, their stores masked. The deltas of TS steps at a time come
+// from a ring of NB cp.async tiles walked from the chunk's end (step c-1 is
+// never read, so never staged); the states go back through the tiles (lane
+// 0's slot of each step) and each row (t, G elements) is flushed as
+// consecutive words. log_A[k, s] is read from log A transposed in shared
+// memory (row s is 16 consecutive words). On an H100 a copy of row k in
+// registers, read through a select tree on the bits of s, was as fast (it
+// needs 64 registers against 48), and one __reduce_max_sync over the
+// half-warp for the four shuffle rounds was 1.3x slower
+// (hmm_layer_torch/tune_scans.py); neither was kept.
+template <int G, int TS, int NB, int UNROLL>
+__global__ void __launch_bounds__(G * LANES)
     backtrace_kernel(const float* __restrict__ log_A,
                      const float* __restrict__ deltas,
                      const int* __restrict__ last_state,
                      int* __restrict__ states, int c, int q, int R) {
-  __shared__ float sA[MAXQ][MAXQ];
+  extern __shared__ __align__(16) float tiles_mem[];  // [NB][TS][G * LANES]
+  __shared__ float sAT[MAXQ + 1][MAXQ];  // sAT[s][k] = log_A[k, s]; rows s >= q all NEG
+  constexpr int ROW = G * LANES, TILE = TS * ROW;
+  const int k = threadIdx.x % LANES;  // this lane's state
+  const int g = threadIdx.x / LANES;  // this group's element in the block
   const int mi = blockIdx.y;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  load_log_A(sA, log_A + (size_t)mi * q * q, q);
-  if (r >= R) return;
+  const int rb = blockIdx.x * G;      // first element of the block
+  const int r = rb + g;
+  const bool real = r < R && k < q;   // other lanes carry the key INT_MIN
+  const int nr = min(G, R - rb);      // elements of the block below R
+  const int base = threadIdx.x & LANES;  // the group's first lane in its warp: 0 or 16
+  const unsigned own = 0xffffu << base;  // the group's lanes in a ballot
+  // Staging and flush: thread (sg, sp) moves row sp of element sg.
+  const int sg = threadIdx.x % G, sp = threadIdx.x / G;
+  const bool mover = sg < nr && sp < q;
 
-  const float* d = deltas + (size_t)mi * c * q * R + r;
-  int* out = states + (size_t)mi * c * R + r;
-  int s = last_state[(size_t)mi * R + r];
-  out[(size_t)(c - 1) * R] = s;
-  for (int t = c - 2; t >= 0; --t) {
-    const float* dt = d + (size_t)t * q * R;
-    const bool valid = (unsigned)s < (unsigned)q;
-    float best = dt[0] + (valid ? sA[0][s] : NEG);
-    int arg = 0;
-#pragma unroll
-    for (int k = 1; k < MAXQ; ++k) {
-      if (k < q) {
-        const float w = dt[(size_t)k * R] + (valid ? sA[k][s] : NEG);
-        if (w > best) {
-          best = w;
-          arg = k;
-        }
-      }
+  const float* Am = log_A + (size_t)mi * q * q;
+  for (int idx = threadIdx.x; idx < (MAXQ + 1) * MAXQ; idx += blockDim.x) {
+    const int s = idx / MAXQ, kk = idx % MAXQ;
+    sAT[s][kk] = (s < q && kk < q) ? Am[kk * q + s] : NEG;
+  }
+
+  const size_t plane = (size_t)q * R;  // one step of deltas
+  const float* d = deltas + (size_t)mi * c * plane + (size_t)sp * R + rb + sg;
+  int* out = states + (size_t)mi * c * R + rb + sg;
+
+  // Tile i holds steps lo_of(i) ... c-1 - i*TS, walked downwards.
+  const int ntiles = (c + TS - 1) / TS;
+  auto lo_of = [&](int i) { return max(0, c - (i + 1) * TS); };
+  auto stage = [&](int i) {  // copy the steps of tile i below c-1, one commit group
+    if (mover && i < ntiles) {
+      float* dst = tiles_mem + (i % NB) * TILE + swz<G>(sg, sp);
+      const int lo = lo_of(i), hi = min(c - 1, c - i * TS);
+      for (int t = lo; t < hi; ++t)
+        __pipeline_memcpy_async(dst + (t - lo) * ROW, d + (size_t)t * plane, 4);
     }
-    s = arg;
-    out[(size_t)t * R] = s;
+    __pipeline_commit();  // one group per tile, empty or not: the count stays uniform
+  };
+
+  int s = r < R ? last_state[(size_t)mi * R + r] : 0;
+  int row = (unsigned)s < (unsigned)q ? s : MAXQ;  // log A column of s; MAXQ: all NEG
+  for (int i = 0; i < NB - 1; ++i) stage(i);
+  for (int i = 0; i < ntiles; ++i) {
+    const int lo = lo_of(i), n = c - i * TS - lo;
+    float* tile = tiles_mem + (i % NB) * TILE;
+    __pipeline_wait_prior(NB - 2);  // this thread's copies of tile i are done
+    __syncthreads();  // ... and every thread's; tile i-1 is flushed (and sAT is in place)
+    stage(i + NB - 1);  // into the buffer of tile i-1
+    int tt = n - 1;
+    if (i == 0) {  // last position: the given last state itself
+      if (k == 0) tile[tt * ROW + swz<G>(g, 0)] = __int_as_float(s);
+      --tt;
+    }
+#pragma unroll UNROLL
+    for (; tt >= 0; --tt) {
+      float* slot = tile + tt * ROW + swz<G>(g, k);
+      const float w = *slot + sAT[row][k];
+      const int bits = __float_as_int(w + 0.f);
+      const int key = real ? bits ^ ((bits >> 31) & 0x7fffffff) : INT_MIN;  // float order as int order
+      int best = key;
+#pragma unroll
+      for (int sh = LANES / 2; sh > 0; sh /= 2) best = max(best, __shfl_xor_sync(FULL, best, sh, LANES));
+      s = __ffs(__ballot_sync(FULL, key == best) & own) - 1 - base;
+      row = s;
+      if (k == 0) *slot = __int_as_float(s);
+    }
+    __syncthreads();  // the states of tile i are in place
+    if (sg < nr) {
+      const float* src = tile + swz<G>(sg, 0);
+      for (int t = sp; t < n; t += LANES) out[(size_t)(lo + t) * R] = __float_as_int(src[t * ROW]);
+    }
   }
 }
 
@@ -520,8 +674,6 @@ __global__ void __launch_bounds__(32)
   }
 }
 
-inline unsigned blocks_for(int R) { return (unsigned)((R + BLOCK - 1) / BLOCK); }
-
 }  // namespace
 
 extern "C" {
@@ -531,9 +683,13 @@ int hmm_maxplus_chunk_summaries(const float* log_A, const float* log_E_T,
                                 int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(blocks_for(R), (unsigned)q, (unsigned)m);
-  chunk_summaries_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      log_A, log_E_T, C_T, c, q, R, P);
+  constexpr int G = MPS_G, TS = MPS_TS, NB = MPS_NB;
+  constexpr int smem = NB * TS * G * LANES * (int)sizeof(float);
+  constexpr int static_smem = MAXQ * MAXQ * (int)sizeof(float);  // its copy of log A
+  auto kernel = chunk_summaries_kernel<G, TS, NB, MPS_UNROLL>;
+  if ((err = allow_smem(kernel, smem, static_smem)) != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)((R + G - 1) / G), (unsigned)m);
+  kernel<<<grid, G * LANES, smem, (cudaStream_t)stream>>>(log_A, log_E_T, C_T, c, q, R, P);
   return (int)cudaGetLastError();
 }
 
@@ -545,10 +701,7 @@ int hmm_maxplus_deltas(const float* log_A, const float* log_E_T,
   constexpr int G = DELTA_G, TS = DELTA_TS, NB = DELTA_NB;
   constexpr int smem = NB * TS * G * LANES * (int)sizeof(float);
   auto kernel = deltas_kernel<G, TS, NB, DELTA_UNROLL>;
-  if (smem > 48 * 1024) {  // above the default limit of dynamic shared memory
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  if ((err = allow_smem(kernel, smem)) != cudaSuccess) return (int)err;
   dim3 grid((unsigned)((R + G - 1) / G), (unsigned)m);
   kernel<<<grid, G * LANES, smem, (cudaStream_t)stream>>>(log_A, log_E_T, delta0, deltas, c, q, R);
   return (int)cudaGetLastError();
@@ -559,9 +712,13 @@ int hmm_maxplus_backtrace(const float* log_A, const float* deltas,
                           int q, int R, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(blocks_for(R), (unsigned)m);
-  backtrace_kernel<<<grid, BLOCK, 0, (cudaStream_t)stream>>>(
-      log_A, deltas, last_state, states, c, q, R);
+  constexpr int G = TRACE_G, TS = TRACE_TS, NB = TRACE_NB;
+  constexpr int smem = NB * TS * G * LANES * (int)sizeof(float);
+  constexpr int static_smem = (MAXQ + 1) * MAXQ * (int)sizeof(float);  // log A transposed
+  auto kernel = backtrace_kernel<G, TS, NB, TRACE_UNROLL>;
+  if ((err = allow_smem(kernel, smem, static_smem)) != cudaSuccess) return (int)err;
+  dim3 grid((unsigned)((R + G - 1) / G), (unsigned)m);
+  kernel<<<grid, G * LANES, smem, (cudaStream_t)stream>>>(log_A, deltas, last_state, states, c, q, R);
   return (int)cudaGetLastError();
 }
 

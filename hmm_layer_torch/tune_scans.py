@@ -1,28 +1,29 @@
-"""Tilings of the chunk scans K1, K2, K3, K4, K5 and K7 on the card.
+"""Tilings of the chunk scans K1–K8 on the card.
 
 Run from the root of the repository on a machine with a CUDA device:
-``python3 -m hmm_layer_torch.tune_scans [--kernels K4,K7] [--compare DIR
+``python3 -m hmm_layer_torch.tune_scans [--kernels K6,K8] [--compare DIR
 ...] [--compare-only] [--e2e] [--out DIR]``.
 
-K1, K2, K3 (``csrc/sum_product.cu``), K4, K5 (``csrc/affine.cu``) and K7
-(``csrc/max_plus.cu``) are built once per tiling: G chunk elements a block,
-TS steps a staged tile, NB tiles in the ring and the step loop unrolled U
-times, under the prefixes ``SUM_`` (K1), ``FWD_`` (K2), ``BWD_`` (K3),
-``COMP_`` (K4), ``OUT_`` (K5) and ``DELTA_`` (K7), e.g. ``-DBWD_TS=32``.
-The package's own build uses the defaults in the sources.
+K1, K2, K3 (``csrc/sum_product.cu``), K4, K5 (``csrc/affine.cu``), K6, K7
+and K8 (``csrc/max_plus.cu``) are built once per tiling: G chunk elements a
+block, TS steps a staged tile, NB tiles in the ring and the step loop
+unrolled U times, under the prefixes ``SUM_`` (K1), ``FWD_`` (K2), ``BWD_``
+(K3), ``COMP_`` (K4), ``OUT_`` (K5), ``MPS_`` (K6), ``DELTA_`` (K7) and
+``TRACE_`` (K8), e.g. ``-DBWD_TS=32``. The package's own build uses the
+defaults in the sources.
 Tilings whose ring exceeds a block's 227 KB of shared memory are left out.
 ``--kernels`` limits the sweep to some of the kernels. The ``nvcc``
 processes run side by side, two for each CPU core, with ``-Xptxas -v``.
 Each ``--compare DIR`` adds the three sources of another commit
 (``DIR/sum_product.cu``, ``DIR/affine.cu``, ``DIR/max_plus.cu``) as
-variants of all six kernels, so that old and new kernels are timed in the
+variants of all eight kernels, so that old and new kernels are timed in the
 same process on the same card; ``--compare-only`` leaves the tilings out.
 Each variant runs at the flagship shapes on seeded random inputs (m=1,
 c=303, q=15, R=1056, P=33; K4, K5: 2m=2, the posterior VJP's stacked
 models), is held against the plain version (K1 rtol 1e-5, atol 1e-3 where
 C lies within 30 nats of its row's maximum; K2, K3 rtol 1e-5, atol 1e-2;
-K4, K5 rtol 1e-5, atol 1e-6; K7 bit-equal) and against the package's own
-build (bit-equal or not), and is timed:
+K4, K5 rtol 1e-5, atol 1e-6; K6, K7, K8 bit-equal) and against the
+package's own build (bit-equal or not), and is timed:
 
 * warm: median of 20 samples of 10 back-to-back launches (CUDA events),
   the inputs then sit in the 50 MB L2;
@@ -81,7 +82,9 @@ KERNELS = {
     "K3": ("sum_product", "BWD", "hmm_beta_bwd_outputs", "bwd_outputs_kernel"),
     "K4": ("affine", "COMP", "hmm_affine_chunk_composites", "affine_composites_kernel"),
     "K5": ("affine", "OUT", "hmm_affine_reverse_outputs", "affine_outputs_kernel"),
+    "K6": ("max_plus", "MPS", "hmm_maxplus_chunk_summaries", "chunk_summaries_kernel"),
     "K7": ("max_plus", "DELTA", "hmm_maxplus_deltas", "deltas_kernel"),
+    "K8": ("max_plus", "TRACE", "hmm_maxplus_backtrace", "backtrace_kernel"),
 }
 SOURCE_NAMES = tuple(dict.fromkeys(source for source, *_ in KERNELS.values()))
 STAGED_PLANES = {"K4": 3, "K5": 3}  # u, v and s; the others stage one plane
@@ -99,7 +102,12 @@ TILINGS = {
            for nb in (2, 3) for u in (1, 2, 4)],
     "K5": [dict(zip(KNOBS, t)) for t in [(4, 32, 2, 1)] + [
         (g, ts, nb, u) for g in (8, 16) for ts in (8, 16, 32) for nb in (2, 3, 4) for u in (1, 2)]],
+    # K6 reads its tiles as float4 words, as K4 does: G <= 8.
+    "K6": [dict(G=g, TS=ts, NB=nb, UNROLL=u) for g in (2, 4, 8) for ts in (8, 16, 32)
+           for nb in (2, 3) for u in (1, 2)],
     "K7": [dict(zip(KNOBS, t)) for t in _SCAN_GRID],
+    "K8": [dict(G=g, TS=ts, NB=nb, UNROLL=u) for g in (4, 8, 16) for ts in (16, 32, 64)
+           for nb in (2, 3) for u in (1, 2)],
 }
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 SHAPE = dict(c=303, q=15, R=1056, P=33)
@@ -211,9 +219,10 @@ def _sass_report(name, defs, kernel, out_dir):
 
 
 def _cases(device):
-    """{kernel: (C arguments before the output, output shape, plain result,
-    the package build's result, rtol, atol, mask, bound ms, bound_by)} at
-    the flagship shapes, on seeded random inputs."""
+    """{kernel: (C arguments before the output, plain result, the package
+    build's result, rtol, atol, mask, bound ms, bound_by, C shape
+    arguments)} at the flagship shapes, on seeded random inputs; the output
+    takes the plain result's shape and type."""
     c, q, R, P = SHAPE["c"], SHAPE["q"], SHAPE["R"], SHAPE["P"]
     rng = np.random.default_rng(0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)  # noqa: E731
@@ -232,37 +241,50 @@ def _cases(device):
 
     log_A, log_E_T = torch.log(A.clamp_min(1e-16)).contiguous(), torch.log(E_T)
     delta0 = (t(rng.normal(-20.0, 5.0, size=(1, q, R))) + log_E_T[:, 0]).contiguous()
+    last = torch.from_numpy(rng.integers(0, q, size=(1, R)).astype(np.int32)).to(device)
+    deltas = cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0)
     e_bytes, a_bytes = 4 * c * q * R, 4 * q * q
     C_ref = cuda_forward.sum_chunk_summaries_plain(A, E_T, P)
     return {
-        "K1": ((A, E_T), (1, R, q, q), C_ref, cuda_forward.sum_chunk_summaries(A, E_T, P),
+        "K1": ((A, E_T), C_ref, cuda_forward.sum_chunk_summaries(A, E_T, P),
                1e-5, 1e-3, C_ref >= C_ref.amax(-1, keepdim=True) - 30.0,
                # FMA = 2; clamp, product, sum and divide one each
                *bound(a_bytes + e_bytes + 4 * R * q * q, R * q * (c - 1) * q * (2 * q + 4)),
                (1, c, q, R, P)),
-        "K2": ((A, E_T, r0, ll0), (1, c, q, R), cuda_forward.sum_fwd_outputs_plain(A, E_T, r0, ll0),
+        "K2": ((A, E_T, r0, ll0), cuda_forward.sum_fwd_outputs_plain(A, E_T, r0, ll0),
                cuda_forward.sum_fwd_outputs(A, E_T, r0, ll0), 1e-5, 1e-2, None,
                *bound(a_bytes + 2 * e_bytes + 4 * (q + 1) * R, R * (c - 1) * q * (2 * q + 4)),
                (1, c, q, R)),
-        "K3": ((A, E_T, beta0, ll0), (1, c, q, R), cuda_forward.beta_bwd_outputs_plain(A, E_T, beta0, ll0),
+        "K3": ((A, E_T, beta0, ll0), cuda_forward.beta_bwd_outputs_plain(A, E_T, beta0, ll0),
                cuda_forward.beta_bwd_outputs(A, E_T, beta0, ll0), 1e-5, 1e-2, None,
                *bound(a_bytes + 2 * e_bytes + 4 * (q + 1) * R, R * (c - 1) * q * (2 * q + 4)),
                (1, c, q, R)),
-        "K4": ((B, U, V, S), (2, R, q, q + 1), cuda_adjoint.affine_chunk_composites_plain(B, U, V, S),
+        "K4": ((B, U, V, S), cuda_adjoint.affine_chunk_composites_plain(B, U, V, S),
                cuda_adjoint.affine_chunk_composites(B, U, V, S), 1e-5, 1e-6, None,
                # per step and column: q products v * x, q * q FMAs, q products u *
                *bound(2 * a_bytes + 3 * 2 * e_bytes + 2 * 4 * R * q * (q + 1),
                       2 * R * (q + 1) * c * (2 * q * q + 2 * q)),
                (2, c, q, R)),
-        "K5": ((B, U, V, S, xr), (2, c, q, R), cuda_adjoint.affine_reverse_outputs_plain(B, U, V, S, xr),
+        "K5": ((B, U, V, S, xr), cuda_adjoint.affine_reverse_outputs_plain(B, U, V, S, xr),
                cuda_adjoint.affine_reverse_outputs(B, U, V, S, xr), 1e-5, 1e-6, None,
                *bound(2 * a_bytes + 4 * 2 * e_bytes + 2 * 4 * q * R, 2 * R * c * (2 * q * q + 3 * q)),
                (2, c, q, R)),
-        # bit-equal: the plain version's rounded adds and exact maxes
-        "K7": ((log_A, log_E_T, delta0), (1, c, q, R), cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0),
+        # K6–K8 bit-equal: the plain versions' rounded adds, exact maxes and
+        # lowest-index argmax
+        "K6": ((log_A, log_E_T), cuda_viterbi.maxplus_chunk_summaries_plain(log_A, log_E_T, P),
+               cuda_viterbi.maxplus_chunk_summaries(log_A, log_E_T, P), 0.0, 0.0, None,
+               # one add and one max per (k, p) term of a step, for each border state
+               *bound(a_bytes + e_bytes + 4 * R * q * q, 2 * R * q * (c - 1) * q * q),
+               (1, c, q, R, P)),
+        "K7": ((log_A, log_E_T, delta0), cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0),
                cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0), 0.0, 0.0, None,
                # one add and one max per (k, p) term of a step
                *bound(a_bytes + 2 * e_bytes + 4 * q * R, R * (c - 1) * 2 * q * q),
+               (1, c, q, R)),
+        "K8": ((log_A, deltas, last), cuda_viterbi.maxplus_backtrace_plain(log_A, deltas, last),
+               cuda_viterbi.maxplus_backtrace(log_A, deltas, last), 0.0, 0.0, None,
+               # deltas and last states in, int32 states out; an add and a compare per term
+               *bound(a_bytes + e_bytes + 4 * R + 4 * c * R, R * (c - 1) * 2 * q),
                (1, c, q, R)),
     }
 
@@ -377,9 +399,9 @@ def main(argv=None) -> int:
         for kernel in runs:
             if kernel not in kernels:
                 continue
-            ins, shape, ref, own, rtol, atol, mask, bound, by, dims = cases[kernel]
+            ins, ref, own, rtol, atol, mask, bound, by, dims = cases[kernel]
             entry, symbol = getattr(lib, KERNELS[kernel][2]), KERNELS[kernel][3]
-            out = torch.empty(shape, device=device)
+            out = torch.empty_like(ref)
 
             def fn(entry=entry, ins=ins, out=out, dims=dims):
                 err = entry(*(x.data_ptr() for x in ins), out.data_ptr(), *dims, 0, stream)

@@ -299,9 +299,12 @@ def _log_inputs(seed, m, c, R, gene_pred, device, q=Q):
     return torch.log(A.clamp_min(1e-16)).contiguous(), torch.log(E_T).contiguous()
 
 
-# The edges of K7's lane groups (8 chunk elements a block, tiles of 16
-# staged steps in the build): c = 1 and around the tile, R = 1 and not a
-# multiple of 8, q = 1, 3 and 16. Fields: m, c, R, P, gene_pred, q.
+# The edges of the blocks and tiles of K6–K8 (in the build: K6 8 elements
+# of 16 border threads a block, tiles of 32 steps; K7 and K8 8 elements of a
+# 16-lane group a block, tiles of 16 steps, K8's walked from the end):
+# c = 1 and c around the tiles, R = 1 and not a multiple of 8, first chunks
+# that straddle block borders, q = 1, 3, 15 and 16, m = 3. Fields: m, c, R,
+# P, gene_pred, q.
 MAXPLUS_CASES = [pytest.param(*p.values, Q, id=p.id) for p in CASES] + [
     pytest.param(1, 1, 7, 1, False, 15, id="c1-R7"),
     pytest.param(3, 2, 9, 3, False, 3, id="m3-c2-R9-q3"),
@@ -310,6 +313,15 @@ MAXPLUS_CASES = [pytest.param(*p.values, Q, id=p.id) for p in CASES] + [
     pytest.param(1, 17, 1057, 7, False, 1, id="c17-R1057-q1"),
     pytest.param(1, 33, 9, 3, False, 16, id="c33-R9-q16"),
     pytest.param(1, 97, 22, 11, True, 15, id="c97-R22-genepred"),
+    pytest.param(1, 7, 3, 3, False, 15, id="c7-R3"),
+    pytest.param(1, 8, 12, 4, False, 16, id="c8-R12-q16"),
+    pytest.param(1, 9, 1, 1, False, 3, id="c9-R1-q3"),
+    pytest.param(1, 31, 25, 5, False, 15, id="c31-R25-P5"),
+    pytest.param(3, 32, 17, 17, False, 15, id="m3-c32-R17"),
+    pytest.param(1, 63, 11, 11, True, 15, id="c63-R11-genepred"),
+    pytest.param(2, 64, 9, 3, False, 16, id="m2-c64-R9-q16"),
+    pytest.param(1, 65, 1, 1, False, 1, id="c65-R1-q1"),
+    pytest.param(3, 129, 1057, 33, True, 15, id="m3-c129-R1057-genepred"),
 ]
 
 
@@ -333,6 +345,26 @@ def test_maxplus_kernels_equal_plain(cuda, m, c, R, P, gene_pred, q):
     assert torch.equal(deltas, cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0))
     assert torch.equal(states, cuda_viterbi.maxplus_backtrace_plain(log_A, deltas, last))
     assert torch.equal(cuda_viterbi.maxplus_decode(log_A, log_E_T, delta0, last), states)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("q", [1, 3, 15, 16])
+def test_maxplus_backtrace_ties_take_the_lowest_state(cuda, q):
+    """K8 breaks ties as torch.argmax does, at the lowest state, and -0 ties
+    with +0 as they compare (-0 + -0 stays -0, so log A of -0 checks it)."""
+    m, c, R = 2, 77, 37
+    gen = torch.Generator(device=cuda).manual_seed(q)
+    last = torch.randint(0, q, (m, R), generator=gen, device=cuda, dtype=torch.int32)
+    flat = torch.zeros((m, c, q, R), device=cuda)
+    signed = flat.clone()
+    signed[:, :, 0::2] = -0.0  # -0 in the even states, +0 in the odd ones
+    for log_A in (torch.zeros((m, q, q), device=cuda), torch.full((m, q, q), -0.0, device=cuda)):
+        for deltas in (flat, signed):
+            cuda_viterbi.reset_launches()
+            states = cuda_viterbi.maxplus_backtrace(log_A, deltas, last)
+            assert cuda_viterbi.LAUNCHES["maxplus_backtrace"] == 1
+            assert (states[:, :-1] == 0).all() and torch.equal(states[:, -1], last)
+            assert torch.equal(states, cuda_viterbi.maxplus_backtrace_plain(log_A, deltas, last))
     torch.cuda.synchronize()
 
 

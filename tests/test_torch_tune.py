@@ -1,6 +1,6 @@
-"""The sweep of the chunk scans K1, K2, K3, K4, K5 and K7
-(``hmm_layer_torch/tune_scans.py``): what it would build, and that it needs
-a card. The sweep itself runs on the card only."""
+"""The sweep of the chunk scans K1–K8 (``hmm_layer_torch/tune_scans.py``):
+what it would build, and that it needs a card. The sweep itself runs on the
+card only."""
 
 import re
 
@@ -13,7 +13,8 @@ from hmm_layer_torch.ops import _cuda_build
 # kernel: (source, -D prefix, words a step of one element stages)
 KERNELS = {"K1": ("sum_product", "SUM", 16), "K2": ("sum_product", "FWD", 16),
            "K3": ("sum_product", "BWD", 16), "K4": ("affine", "COMP", 48),
-           "K5": ("affine", "OUT", 48), "K7": ("max_plus", "DELTA", 16)}
+           "K5": ("affine", "OUT", 48), "K6": ("max_plus", "MPS", 16),
+           "K7": ("max_plus", "DELTA", 16), "K8": ("max_plus", "TRACE", 16)}
 KEYS = ("G", "TS", "NB", "UNROLL")
 
 
@@ -36,7 +37,7 @@ def test_sweep_covers_the_build_and_fits_shared_memory(kernel):
         smem = 4 * nb * ts * g * words
         threads = 16 * g
         assert smem <= tune_scans.SMEM_LIMIT and threads <= 1024 and nb >= 2, lab
-        if kernel == "K4":  # float4 tile reads: the swizzle keeps words whole only for G <= 8
+        if kernel in ("K4", "K6"):  # float4 tile reads: the swizzle keeps words whole only for G <= 8
             assert g in (1, 2, 4, 8), lab
         assert tune_scans.block_shape(kernel, knobs) == (threads, smem), lab
     default = _build_default(name, prefix)
@@ -44,7 +45,7 @@ def test_sweep_covers_the_build_and_fits_shared_memory(kernel):
     assert tune_scans.label(kernel, default) in labels
 
 
-@pytest.mark.parametrize("kernels", [("K1", "K3"), ("K4", "K7"), tuple(KERNELS)])
+@pytest.mark.parametrize("kernels", [("K1", "K3"), ("K4", "K7"), ("K6", "K8"), tuple(KERNELS)])
 def test_compare_builds_run_every_kernel_of_their_source(kernels):
     variants = tune_scans._variants(["parent"], grid=False, kernels=kernels)
     runs = {v[0]: v[4] for v in variants}
@@ -62,4 +63,4 @@ def test_sweep_needs_a_card(capsys):
     with pytest.raises(SystemExit):
         tune_scans.main(["--e2e"])  # the A/B run needs one --compare directory
     with pytest.raises(SystemExit):
-        tune_scans.main(["--kernels", "K6"])  # K6 has no sweep
+        tune_scans.main(["--kernels", "K9"])  # K9 has no sweep
