@@ -48,7 +48,9 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
 9. Multi-copy gene prediction: ``GenePredMultiTransitions(k=2)`` +
    ``GenePredEmissions(num_copies=2)`` (q=29) from the 15-class kernel,
    seeded random weights. K7b and K8b against their plain versions
-   (bit-equal) at q=29 and q=57 (b=32, L=9999); K9 against its plain
+   (bit-equal) at q=29 and q=57 (b=32, L=9999) on the decode's
+   sequence-major layout, warm and cold, K7b beside its chain floor (a
+   cycle model at the card's maximum SM clock); K9 against its plain
    version within a float32 accumulation bound at q=29 (b=32, P=33) and
    q=127 (b=4, P=33). ``HMMLayer.viterbi`` serves 3 requests (K7b, K8b once
    each per request; paths identical to the glue on the plain versions,
@@ -120,12 +122,18 @@ TRAIN_STEPS, MAP_STEPS, CLI_STEPS = 5, 2, 10
 # Kernel-only launches per request: the posterior runs K1, K2 and K3 once,
 # the log-likelihood K1 once more.
 PER_REQUEST = {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1}
-# Kernels timed cold as well as warm in phase 3: K1's and K6's 19–20 MB,
-# K8's 21 MB and K2's, K3's and K7's 38 MB of inputs and outputs stay in the
-# 50 MB L2 over back-to-back launches (K4's 117 MB and K5's 154 MB do not,
-# and their cold times show that).
+# Kernels timed cold as well as warm in phases 3 and 9: K1's and K6's 19–20
+# MB, K8's 21 MB, K2's, K3's and K7's 38 MB and K8b's 38 MB of inputs and
+# outputs stay in the 50 MB L2 over back-to-back launches (K4's 117 MB, K5's
+# 154 MB and K7b's 74 MB do not, and their cold times show that).
 COLD = ("sum_chunk_summaries", "sum_fwd_outputs", "beta_bwd_outputs", "affine_chunk_composites",
-        "affine_reverse_outputs", "maxplus_chunk_summaries", "maxplus_deltas", "maxplus_backtrace")
+        "affine_reverse_outputs", "maxplus_chunk_summaries", "maxplus_deltas", "maxplus_backtrace",
+        "maxplus_deltas_blocked", "maxplus_backtrace_blocked")
+# K7b's chain floor, a model in SM cycles a step (not a measurement): the
+# term's add, a ceil(log2 q)-deep max tree and the emission's add at 4
+# cycles each, a shared-memory store and load of delta (30) and a barrier
+# (20); at the card's maximum SM clock.
+FLOAT_OP_CYCLES, SMEM_ROUND_TRIP_CYCLES, BARRIER_CYCLES = 4, 30, 20
 
 # NVIDIA data-sheet peaks: (memory bytes/s, float32 non-tensor FLOP/s).
 PEAKS = {
@@ -1128,40 +1136,48 @@ def build_multicopy_layer(HMMLayer, models, k):
 
 
 def seq_decode_inputs(layer, X):
-    """log A, log E_T (m, L, q, b), delta0 (m, q, b) of the sequential
+    """log A, log E (m, b, L, q), delta0 (m, b, q) of the sequential
     decode, as ``recursion._viterbi_seq_kernels`` builds them."""
     init, A = layer.transitions.matrices()
     E = layer.emission_probs(X)
     log_A = torch.log(A.clamp_min(EPS)).contiguous()
-    log_E_T = torch.log(E.clamp_min(EPS)).permute(0, 2, 3, 1).contiguous()
-    delta0 = (torch.log(init.clamp_min(EPS))[:, :, None] + log_E_T[:, 0]).contiguous()
-    return log_A, log_E_T, delta0
+    log_E = torch.log(E.clamp_min(EPS)).contiguous()
+    delta0 = (torch.log(init.clamp_min(EPS))[:, None, :] + log_E[:, :, 0]).contiguous()
+    return log_A, log_E, delta0
 
 
-def blocked_kernel_phase(layers, make, cuda_viterbi, peak_bytes, peak_flops):
+def chain_floor_ms(steps, q, sm_mhz):
+    """K7b's chain floor in ms: ``steps`` dependent steps of the cycle
+    model above at ``sm_mhz``."""
+    cycles = (FLOAT_OP_CYCLES * (2 + math.ceil(math.log2(q))) + SMEM_ROUND_TRIP_CYCLES
+              + BARRIER_CYCLES)
+    return steps * cycles / (sm_mhz * 1e3), cycles
+
+
+def blocked_kernel_phase(layers, make, cuda_viterbi, peak_bytes, peak_flops, sm_mhz):
     """K7b and K8b against their plain versions (bit-equal) at b=32,
-    L=9999, q=29 (recorded) and q=57. The plain versions loop 9,999 eager
-    steps: 3 samples each."""
+    L=9999, q=29 (recorded) and q=57, on the sequence-major layout of the
+    decode. The plain versions loop 9,999 eager steps: 3 samples each."""
     records = {}
     for k, layer in layers.items():
         with torch.inference_mode():
-            log_A, log_E_T, delta0 = seq_decode_inputs(layer, make(SEED + 40 + k, B, L))
-            m, c, q, R = log_E_T.shape
-            d_plain = cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0)
-            d_kern = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)
-            last = d_plain[:, -1].argmax(dim=1).to(torch.int32).contiguous()
-            s_plain = cuda_viterbi.maxplus_backtrace_plain(log_A, d_plain, last)
-            s_kern = cuda_viterbi.maxplus_backtrace(log_A, d_plain, last)
+            log_A, log_E, delta0 = seq_decode_inputs(layer, make(SEED + 40 + k, B, L))
+            m, R, c, q = log_E.shape
+            d_plain = cuda_viterbi.maxplus_deltas_seq_plain(log_A, log_E, delta0)
+            d_kern = cuda_viterbi.maxplus_deltas_seq(log_A, log_E, delta0)
+            last = d_plain[:, :, -1].argmax(dim=-1).to(torch.int32)
+            s_plain = cuda_viterbi.maxplus_backtrace_seq_plain(log_A, d_plain, last)
+            s_kern = cuda_viterbi.maxplus_backtrace_seq(log_A, d_plain, last)
             e_bytes, a_bytes = 4 * m * c * q * R, 4 * m * q * q
             cases = {
                 "maxplus_deltas_blocked": (
-                    lambda: cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0),
-                    lambda: cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0),
+                    lambda: cuda_viterbi.maxplus_deltas_seq(log_A, log_E, delta0),
+                    lambda: cuda_viterbi.maxplus_deltas_seq_plain(log_A, log_E, delta0),
                     d_kern, d_plain, a_bytes + 2 * e_bytes + 4 * m * q * R, m * R * (c - 1) * 2 * q * q,
                 ),
                 "maxplus_backtrace_blocked": (
-                    lambda: cuda_viterbi.maxplus_backtrace(log_A, d_plain, last),
-                    lambda: cuda_viterbi.maxplus_backtrace_plain(log_A, d_plain, last),
+                    lambda: cuda_viterbi.maxplus_backtrace_seq(log_A, d_plain, last),
+                    lambda: cuda_viterbi.maxplus_backtrace_seq_plain(log_A, d_plain, last),
                     s_kern, s_plain, a_bytes + e_bytes + 4 * m * R + 4 * m * c * R,
                     m * R * (c - 1) * 2 * q,
                 ),
@@ -1175,8 +1191,14 @@ def blocked_kernel_phase(layers, make, cuda_viterbi, peak_bytes, peak_flops):
                               reps=5, plain_samples=3)
                 if q == 1 + 14 * MC_K:
                     records[name] = rec
+                floor = ""
+                if name == "maxplus_deltas_blocked":
+                    floor_ms, cycles = chain_floor_ms(c - 1, q, sm_mhz)
+                    floor = (f"; chain floor {floor_ms:.4f} ms ({c - 1} steps of {cycles} cycles at "
+                             f"{sm_mhz} MHz, a model)")
                 log(f"phase 9 {name} q={q} (b={R}, L={c}): {'equal' if equal else 'MISMATCH'} "
-                    f"max_abs_err={err:.3e} (bit-equality required) {timing_text(rec, nbytes, nops)}")
+                    f"max_abs_err={err:.3e} (bit-equality required) {timing_text(rec, nbytes, nops)}"
+                    f"{floor}{cold_text(name, kern, rec)}")
                 if not equal:
                     failed.append(f"{name} q={q}")
         if failed:
@@ -1233,13 +1255,13 @@ def plain_decode_wrappers(cuda_viterbi):
 
     @contextlib.contextmanager
     def ctx():
-        saved = cuda_viterbi.maxplus_deltas, cuda_viterbi.maxplus_backtrace
-        cuda_viterbi.maxplus_deltas = cuda_viterbi.maxplus_deltas_plain
-        cuda_viterbi.maxplus_backtrace = cuda_viterbi.maxplus_backtrace_plain
+        saved = cuda_viterbi.maxplus_deltas_seq, cuda_viterbi.maxplus_backtrace_seq
+        cuda_viterbi.maxplus_deltas_seq = cuda_viterbi.maxplus_deltas_seq_plain
+        cuda_viterbi.maxplus_backtrace_seq = cuda_viterbi.maxplus_backtrace_seq_plain
         try:
             yield
         finally:
-            cuda_viterbi.maxplus_deltas, cuda_viterbi.maxplus_backtrace = saved
+            cuda_viterbi.maxplus_deltas_seq, cuda_viterbi.maxplus_backtrace_seq = saved
 
     return ctx()
 
@@ -1464,8 +1486,12 @@ def main() -> int:
     # for the kernels' other shapes
     t0 = time.perf_counter()
     mc = {k: build_multicopy_layer(HMMLayer, models, k) for k in (MC_K, 4, 9)}
+    sm_mhz = int(float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]))
     records.update(blocked_kernel_phase({MC_K: mc[MC_K], 4: mc[4]}, make, cuda_viterbi,
-                                        peak_bytes, peak_flops))
+                                        peak_bytes, peak_flops, sm_mhz))
     records.update(mxu_kernel_phase(mc, make, recursion, cuda_mxu, peak_bytes, peak_flops))
     mc_decode_launches, mc_decode_ms = multicopy_decode_phase(mc[MC_K], make, recursion, cuda_viterbi)
     med = statistics.median(mc_decode_ms)
@@ -1473,7 +1499,9 @@ def main() -> int:
         f"[{min(mc_decode_ms):.3f}, {max(mc_decode_ms):.3f}], {B / (med / 1e3):.1f} seqs/sec "
         f"(b={B}, L={L}, sequential decode through K7b + K8b) on {smi}")
     X_mc = make(SEED + 59, B, L)
-    profile_request("phase 9", lambda: mc[MC_K].viterbi(X_mc), "K7b-K8b", ("blocked_kernel",))
+    # K7b's kernel and K8b's three (tiles, borders, fill)
+    profile_request("phase 9", lambda: mc[MC_K].viterbi(X_mc), "K7b-K8b",
+                    ("deltas_blocked_kernel", "backtrace_blocked_"))
     mc_ll_launches, off_ms, on_ms = multicopy_loglik_phase(mc[MC_K], make, recursion, cuda_mxu, cuda_forward)
     P_mc = recursion.recommended_parallel_factor(L, 1 + 14 * MC_K, 1)
     log(f"phase 9 loglik (q={1 + 14 * MC_K}, b={B}, L={L}, P={P_mc}): gate off (plain summaries) "

@@ -40,6 +40,7 @@
 
 #include <climits>
 #include <cmath>
+#include <mutex>
 
 namespace {
 
@@ -464,125 +465,161 @@ __global__ void __launch_bounds__(G * LANES)
 // The sequential decode of 16 < q <= 64 states runs the delta pass and the
 // backtrace over whole sequences with the batch on the lanes: R = b (32 at
 // the multi-copy flagship), c = L (9,999). One thread per lane (K7, K8)
-// would leave 32 threads for 9,999 dependent steps of q * q work each, so
-// these bodies take their parallelism from the states instead: ONE WARP PER
-// SEQUENCE, lane l owning output states l and l + 32 (NPER = 1 for q <= 32,
-// 2 for q <= 64), one warp per block so that the b warps land on b SMs. No
+// would leave 32 threads for 9,999 dependent steps of q * q work each. No
 // TPU blocking is carried over (no time blocks of the grid, no 8-sublane
 // groups, no lane padding in memory).
 //
 // Layouts are SEQUENCE-MAJOR, unlike the rest of this file: log E and
-// deltas (m, R, c, q), delta0 (m, R, q), states (m, R, c); the wrappers
-// transpose from and to their (m, c, q, R) contract around the launch. A
-// warp's inputs for TILE steps are then one contiguous run, which it copies
-// into shared memory with cp.async while it works through the previous
-// tile (double buffering), so the step loop reads only registers and shared
-// memory. A global load in every step, even issued several steps ahead of
-// its use, kept the chain waiting on memory.
+// deltas (m, R, c, q), delta0 (m, R, q), states (m, R, c), the layout of
+// the emissions (m, b, L, q) themselves. A sequence's inputs for TS steps
+// are then one contiguous run.
 //
-// No branch depends on q inside a step: a branch per k keeps the compiler
-// from overlapping the shuffles, and each k then costs a shuffle's full
-// latency. States past q are padded with NEG instead, as in K6-K8. (Both
-// together took K7b from 9.6 ms to 1.9 ms at q = 29, b = 32, L = 9,999 on
-// an H100.)
+// Both bodies are templated on QP, q rounded up to a multiple of 8 (24 ...
+// 64), and sum only those terms: the terms of k in [q, QP) are NEG + NEG
+// (delta and log A padded) and never win against a real term, which is at
+// least -37 per step (log EPS).
 
 constexpr int MAX_BLOCKED_Q = 64;
-constexpr int TILE = 32;  // steps staged in shared memory per copy
 
-// Copies n floats from global src to shared dst with cp.async (one lane
-// per 4 bytes), as one commit group.
+// Tilings of K7b (DBLK_) and K8b (TBLK_); tune_scans.py sweeps them with -D.
+// K7b: S adjacent lanes share a state's terms (a block of QP * S threads,
+// rounded up to whole warps), TS steps of emissions a staged tile. S = 2
+// was the fastest of 1, 2 and 4 on an H100 at q = 29 and q = 57.
+// K8b: T steps a backpointer tile, G groups of q + 1 threads a tiles block.
+#ifndef DBLK_S
+#define DBLK_S 2
+#endif
+#ifndef DBLK_TS
+#define DBLK_TS 64
+#endif
+#ifndef TBLK_T
+#define TBLK_T 128
+#endif
+#ifndef TBLK_G
+#define TBLK_G 4
+#endif
+
+// Copies n floats from global src to shared dst with cp.async (one thread
+// per 4 bytes; the runs are not 16-byte aligned), as one commit group.
 __device__ __forceinline__ void stage(float* dst, const float* src, int n,
-                                      int lane) {
-  for (int i = lane; i < n; i += 32) __pipeline_memcpy_async(dst + i, src + i, 4);
+                                      int tid, int threads) {
+  for (int i = tid; i < n; i += threads) __pipeline_memcpy_async(dst + i, src + i, 4);
   __pipeline_commit();
+}
+
+// A barrier over the block: the warp's own where the block is one warp.
+template <int THREADS>
+__device__ __forceinline__ void block_sync() {
+  if constexpr (THREADS == 32) __syncwarp(); else __syncthreads();
+}
+
+template <int QP, int S>
+__host__ __device__ constexpr int delta_threads() {
+  return (QP * S + 31) / 32 * 32;
 }
 
 // K7b — replaces the 16 < q <= 64 body of maxplus_deltas
 // (hmm_layer_tpu/ops/pallas_viterbi.py:353, branch :408-429, body
 // _fwd_kernel_blocked :279-314).
 //
-// Lane l holds column l (and l + 32) of log A in registers and delta_{t-1}
-// of its states. Each step broadcasts delta_{t-1}[k] with __shfl_sync and
-// takes, per owned state p, the exact max over k of ONE rounded add
-// delta[k] + log_A[k, p] (four independent running maxima, combined at the
-// end: max is exact, so the grouping changes nothing), then one rounded add
-// of log e_t[p]: bit-equal to maxplus_deltas_plain. The terms of k >= q
-// are NEG + NEG (delta and log A padded) and never win against a real
-// term.
+// One block per sequence walks its c - 1 dependent steps. delta_{t-1} lives
+// in shared memory, padded to QP with NEG and double-buffered: one lane of
+// each state writes its new value, ONE barrier follows, and every thread
+// reads delta_{t-1} back as float4 broadcasts (the same address in every
+// lane), so a step has no shuffle broadcast. A thread holds its state's
+// column of log A (its slice of k) in registers and takes the exact max
+// over its k of ONE rounded add delta[k] + log_A[k, p] (four running
+// maxima, then xor shuffles across the S lanes of a state: max is exact, so
+// the grouping changes nothing), then one rounded add of log e_t[p]:
+// bit-equal to maxplus_deltas_plain. The emissions come through a
+// double-buffered ring of cp.async tiles of TS steps.
 //
 // Bound on an H100: bytes (log E in, deltas out: 74 MB at q = 29, b = 32,
-// L = 9,999) against 0.5 G operations. What holds it far above that bound
-// is the chain of c dependent steps per warp (32 * NPER shuffles and twice
-// as many adds and maxes each) on only b warps.
-template <int NPER>
-__global__ void __launch_bounds__(32)
+// L = 9,999) against 0.6 G operations. What holds it above that bound is
+// the chain of c dependent steps on b blocks: a step's floor is the
+// shared-memory round trip and the barrier, QP / S adds and maxes, log2 S
+// shuffles and the emission's add. A step took about 200-250 cycles at
+// q = 29 (clock64 on an H100), most of it dispatching those adds and maxes
+// on one scheduler and the latency of the loads, shuffle and barrier. A
+// step loads its emission and all of delta_{t-1} before the first add.
+template <int QP, int S, int TS>
+__global__ void __launch_bounds__(delta_threads<QP, S>())
     deltas_blocked_kernel(const float* __restrict__ log_A,
                           const float* __restrict__ log_E,
                           const float* __restrict__ delta0,
                           float* __restrict__ deltas, int c, int q, int R) {
-  constexpr int K = 32 * NPER;
-  __shared__ __align__(16) float sE[2][TILE * MAX_BLOCKED_Q];
-  const int lane = threadIdx.x;
+  constexpr int THREADS = delta_threads<QP, S>();
+  constexpr int KS = QP / S;  // terms of a state in one thread
+  static_assert(KS % 4 == 0, "a thread's terms are read as float4 words");
+  static_assert(TS % 2 == 0, "a tile starts on buffer 0");
+  __shared__ __align__(16) float sE[2][TS * QP];
+  __shared__ __align__(16) float sd[2][QP];
+  const int tid = threadIdx.x;
+  const int p = tid / S, k0 = (tid % S) * KS;  // state p (>= QP: padding), terms k0 ...
+  const bool writer = tid % S == 0 && p < q;
   const int mi = blockIdx.y;
-  const int r = blockIdx.x;
+  const size_t seq = (size_t)mi * R + blockIdx.x;
 
   const float* A = log_A + (size_t)mi * q * q;
-  float acol[NPER][K];
+  float acol[KS];
 #pragma unroll
-  for (int u = 0; u < NPER; ++u) {
-    const int p = lane + 32 * u;
-#pragma unroll
-    for (int k = 0; k < K; ++k)
-      acol[u][k] = (k < q && p < q) ? A[k * q + p] : NEG;
-  }
+  for (int kk = 0; kk < KS; ++kk) acol[kk] = (k0 + kk < q && p < q) ? A[(k0 + kk) * q + p] : NEG;
 
-  const size_t seq = (size_t)mi * R + r;
   const float* e = log_E + seq * c * q;  // e[t * q + p]
   float* out = deltas + seq * c * q;
-
-  float v[NPER];
-#pragma unroll
-  for (int u = 0; u < NPER; ++u) {
-    const int p = lane + 32 * u;
-    v[u] = p < q ? delta0[seq * q + p] : NEG;
-    if (p < q) out[p] = v[u];
+  for (int i = tid; i < 2 * QP; i += THREADS) {
+    const int k = i % QP;
+    const float v = (i < QP && k < q) ? delta0[seq * q + k] : NEG;
+    sd[i / QP][k] = v;
+    if (i < q) out[k] = v;
   }
+  const int pe = min(p, q - 1);  // an emission inside the tile for every thread
 
-  // Tile i holds steps 1 + i * TILE ... (fewer in the last tile).
-  const int tiles = (c - 1 + TILE - 1) / TILE;
-  auto steps_of = [&](int i) { return min(TILE, c - 1 - i * TILE); };
-  if (tiles > 0) stage(sE[0], e + (size_t)q, steps_of(0) * q, lane);
+  // Tile i holds steps 1 + i * TS ... (fewer in the last tile).
+  const int tiles = (c - 1 + TS - 1) / TS;
+  auto steps_of = [&](int i) { return min(TS, c - 1 - i * TS); };
+  if (tiles > 0) stage(sE[0], e + (size_t)q, steps_of(0) * q, tid, THREADS);
   for (int i = 0; i < tiles; ++i) {
     if (i + 1 < tiles)
-      stage(sE[(i + 1) % 2], e + (size_t)(1 + (i + 1) * TILE) * q, steps_of(i + 1) * q, lane);
+      stage(sE[(i + 1) % 2], e + (size_t)(1 + (i + 1) * TS) * q, steps_of(i + 1) * q, tid, THREADS);
     else
       __pipeline_commit();  // an empty group keeps the count below uniform
-    __pipeline_wait_prior(1);  // tile i has landed (this lane's copies)
-    __syncwarp();              // ... and every other lane's
+    __pipeline_wait_prior(1);  // tile i has landed (this thread's copies)
+    block_sync<THREADS>();     // ... and everyone's
     const float* et = sE[i % 2];
     const int n = steps_of(i);
+    // TS is even, so step tt of every tile reads buffer tt & 1: unrolled by
+    // two, both buffers' addresses are constants.
+#pragma unroll 2
     for (int tt = 0; tt < n; ++tt, et += q) {
-      float acc[NPER][4];
+      const int cur = tt & 1;
+      // The step's emission first (staged since the tile began), then all
+      // of delta_{t-1}: every load is in flight before the first add.
+      const float ev = et[pe];
+      float4 dk[KS / 4];
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float dk = __shfl_sync(FULL, v[k / 32], k % 32);
+      for (int kq = 0; kq < KS / 4; ++kq) dk[kq] = reinterpret_cast<const float4*>(sd[cur] + k0)[kq];
+      float acc[4];
 #pragma unroll
-        for (int u = 0; u < NPER; ++u) {
-          const float term = dk + acol[u][k];
-          acc[u][k % 4] = k < 4 ? term : fmaxf(acc[u][k % 4], term);
-        }
+      for (int kq = 0; kq < KS / 4; ++kq) {
+        const float t0 = dk[kq].x + acol[4 * kq], t1 = dk[kq].y + acol[4 * kq + 1];
+        const float t2 = dk[kq].z + acol[4 * kq + 2], t3 = dk[kq].w + acol[4 * kq + 3];
+        acc[0] = kq == 0 ? t0 : fmaxf(acc[0], t0);
+        acc[1] = kq == 0 ? t1 : fmaxf(acc[1], t1);
+        acc[2] = kq == 0 ? t2 : fmaxf(acc[2], t2);
+        acc[3] = kq == 0 ? t3 : fmaxf(acc[3], t3);
       }
-      const size_t t = 1 + (size_t)i * TILE + tt;
+      float best = fmaxf(fmaxf(acc[0], acc[1]), fmaxf(acc[2], acc[3]));
 #pragma unroll
-      for (int u = 0; u < NPER; ++u) {
-        const int p = lane + 32 * u;
-        if (p < q) {
-          v[u] = fmaxf(fmaxf(acc[u][0], acc[u][1]), fmaxf(acc[u][2], acc[u][3])) + et[p];
-          out[t * q + p] = v[u];
-        }
+      for (int o = 1; o < S; o <<= 1) best = fmaxf(best, __shfl_xor_sync(FULL, best, o));
+      if (writer) {  // states past q keep NEG
+        const float v = best + ev;
+        sd[cur ^ 1][p] = v;
+        out[(1 + (size_t)i * TS + tt) * q + p] = v;
       }
+      // delta_t is written; delta_{t-1}'s buffer and the tile's slot are read
+      block_sync<THREADS>();
     }
-    __syncwarp();  // tile i's buffer is read before it is staged again
   }
 }
 
@@ -590,88 +627,198 @@ __global__ void __launch_bounds__(32)
 // (hmm_layer_tpu/ops/pallas_viterbi.py:433, branch :475-500, body
 // _backtrace_kernel_blocked :317-349).
 //
-// One warp per sequence walks t = c-2 ... 0 from the given last state.
-// Lane l scores its states k = l, l + 32 as w = deltas[t, k] +
-// log_A[k, s_{t+1}] (log A TRANSPOSED in shared memory, so a warp reads one
-// row of consecutive words). The argmax is taken on integer keys that
-// order as the floats do (w + 0 first, so -0 and +0 tie as they compare):
-// one __reduce_max_sync gives the best key, and a ballot per owned-state
-// slot (states 0-31 first, then 32-63) the LOWEST state holding it, as
-// jnp.argmax, torch.argmax and the Pallas kernel's
-// min(where(w >= vmax, idx, qp)) take it. Lanes past q take no part in the
-// ballots. A state outside [0, q) selects an all-NEG column, as K8 does.
-// The deltas are staged in shared memory TILE steps at a time, walking
-// back.
+// The path is fixed by the backpointers bp[t][j] = lowest argmax_k
+// (delta_t[k] + log_A[k, j]), which do not depend on the path: only the
+// lookup s_t = bp[t][s_{t+1}] is sequential, and lookups compose. So the
+// backtrace runs in three kernels from one entry point, none of which walks
+// more than max(T, c / T) dependent steps (T = 128 at c = 9,999, against
+// 9,998 for one warp walking the whole sequence):
+//   1. tiles: a block per (sequence, tile of T steps) stages its deltas in
+//      shared memory, computes bp for every column j <= q as uint8 (column
+//      q stands for a last state outside [0, q) and is scored against an
+//      all-NEG column of log A), then walks each column through the tile:
+//      F_i[j], the state at the tile's first position reached from j after
+//      it;
+//   2. borders: a block per sequence walks the c / T tile maps from the
+//      last state: the state after every tile;
+//   3. fill: a warp per tile walks its bp tile from its border state and
+//      writes its T states.
+// A thread of pass 1 holds column j of log A in registers and scans k
+// upwards with a strict >: the lowest k wins a tie, and -0 ties with +0,
+// as torch.argmax takes it; one rounded add per term, as
+// maxplus_backtrace_plain. bp and the maps (m * R * (c - 1) * BS and
+// m * R * ceil((c - 1) / T) * BS bytes, BS = q + 1 rounded up to 16: 10 MB
+// at q = 29, b = 32, L = 9,999) are scratch taken stream-ordered from a
+// pool of the entry point's own.
 //
 // Bound on an H100: bytes (deltas in, states out: 38 MB at q = 29, b = 32,
-// L = 9,999). The walk is a chain of c dependent steps (a shared-memory
-// read, an add, the reduction and a ballot each) on b warps.
-template <int NPER>
-__global__ void __launch_bounds__(32)
-    backtrace_blocked_kernel(const float* __restrict__ log_A,
-                             const float* __restrict__ deltas,
-                             const int* __restrict__ last_state,
-                             int* __restrict__ states, int c, int q, int R) {
-  __shared__ float sAT[MAX_BLOCKED_Q * MAX_BLOCKED_Q];  // sAT[s * q + k] = log_A[k, s]
-  __shared__ __align__(16) float sD[2][TILE * MAX_BLOCKED_Q];
-  const int lane = threadIdx.x;
-  const int mi = blockIdx.y;
-  const int r = blockIdx.x;
+// L = 9,999); pass 1's 3e8 terms take about 0.04 ms at the instruction rate.
+template <int QP, int T>
+__global__ void __launch_bounds__(TBLK_G * (MAX_BLOCKED_Q + 1))
+    backtrace_blocked_tiles_kernel(const float* __restrict__ log_A,
+                                   const float* __restrict__ deltas,
+                                   unsigned char* __restrict__ bp,
+                                   unsigned char* __restrict__ maps, int c,
+                                   int q, int R, int tiles, int bs) {
+  __shared__ __align__(16) float sD[T][QP];
+  __shared__ __align__(16) unsigned char sB[T * 80];  // bs <= 80
+  const int qb = q + 1;
+  const int tid = threadIdx.x, threads = blockDim.x;
+  const int j = tid % qb, g = tid / qb, groups = threads / qb;  // groups = TBLK_G
+  const size_t blk = blockIdx.x;  // seq * tiles + i
+  const size_t seq = blk / tiles;
+  const int i = (int)(blk % tiles);
+  const int mi = (int)(seq / R);
+  const int lo = i * T, rows = min(T, c - 1 - lo);
+
+  const float* d = deltas + (seq * c + lo) * q;
+  for (int idx = tid; idx < rows * QP; idx += threads) {
+    const int t = idx / QP, k = idx % QP;
+    sD[t][k] = k < q ? d[t * q + k] : NEG;
+  }
   const float* A = log_A + (size_t)mi * q * q;
-  for (int idx = lane; idx < q * q; idx += 32) {
-    const int k = idx / q, s = idx % q;
-    sAT[s * q + k] = A[idx];
+  float acol[QP];
+#pragma unroll
+  for (int k = 0; k < QP; ++k) acol[k] = (k < q && j < q) ? A[k * q + j] : NEG;
+  __syncthreads();
+
+  for (int t = g; t < rows; t += groups) {
+    const float4* d4 = reinterpret_cast<const float4*>(sD[t]);
+    float best = 0.f;
+    int arg = 0;
+#pragma unroll
+    for (int kq = 0; kq < QP / 4; ++kq) {
+      const float4 dv = d4[kq];
+      const float w[4] = {dv.x + acol[4 * kq], dv.y + acol[4 * kq + 1],
+                          dv.z + acol[4 * kq + 2], dv.w + acol[4 * kq + 3]};
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (kq == 0 && u == 0) {
+          best = w[0];
+        } else if (w[u] > best) {
+          best = w[u];
+          arg = 4 * kq + u;
+        }
+      }
+    }
+    sB[t * bs + j] = (unsigned char)arg;
+  }
+  __syncthreads();
+
+  // The tile's map (threads j <= q) and its backpointers out to bp.
+  if (tid < qb) {
+    int s = tid;
+    for (int t = rows - 1; t >= 0; --t) s = sB[t * bs + s];
+    maps[blk * bs + tid] = (unsigned char)s;
+  }
+  uint4* dst = reinterpret_cast<uint4*>(bp + (seq * (c - 1) + lo) * bs);
+  const uint4* src = reinterpret_cast<const uint4*>(sB);
+  for (int w = tid; w < rows * bs / 16; w += threads) dst[w] = src[w];
+}
+
+// K8b pass 2: a block per sequence writes the last state (as given) and
+// walks the tile maps from it, staged CHUNK maps at a time: border[i] is
+// the column at the position after tile i (q for a last state outside
+// [0, q)).
+constexpr int CHUNK = 128;
+__global__ void __launch_bounds__(128)
+    backtrace_blocked_borders_kernel(const int* __restrict__ last_state,
+                                     const unsigned char* __restrict__ maps,
+                                     unsigned char* __restrict__ border,
+                                     int* __restrict__ states, int c, int q,
+                                     int tiles, int bs) {
+  __shared__ __align__(16) unsigned char sF[CHUNK * 80];
+  const size_t seq = blockIdx.x;
+  const int s = last_state[seq];
+  if (threadIdx.x == 0) states[seq * c + c - 1] = s;
+  int col = (unsigned)s < (unsigned)q ? s : q;
+  for (int hi = tiles; hi > 0; hi -= CHUNK) {
+    const int i0 = max(0, hi - CHUNK);
+    const uint4* src = reinterpret_cast<const uint4*>(maps + (seq * tiles + i0) * bs);
+    for (int w = threadIdx.x; w < (hi - i0) * bs / 16; w += blockDim.x)
+      reinterpret_cast<uint4*>(sF)[w] = src[w];
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int i = hi - 1; i >= i0; --i) {
+        border[seq * tiles + i] = (unsigned char)col;
+        col = sF[(i - i0) * bs + col];
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// K8b pass 3: a warp per tile stages the tile's backpointers, lane 0 walks
+// them from the tile's border state, and the warp writes the T states.
+template <int T>
+__global__ void __launch_bounds__(32)
+    backtrace_blocked_fill_kernel(const unsigned char* __restrict__ bp,
+                                  const unsigned char* __restrict__ border,
+                                  int* __restrict__ states, int c, int tiles,
+                                  int bs) {
+  __shared__ __align__(16) unsigned char sB[T * 80];
+  __shared__ int sS[T];
+  const int lane = threadIdx.x;
+  const size_t blk = blockIdx.x;
+  const size_t seq = blk / tiles;
+  const int lo = (int)(blk % tiles) * T, rows = min(T, c - 1 - lo);
+  const uint4* src = reinterpret_cast<const uint4*>(bp + (seq * (c - 1) + lo) * bs);
+  for (int w = lane; w < rows * bs / 16; w += 32) reinterpret_cast<uint4*>(sB)[w] = src[w];
+  __syncwarp();
+  if (lane == 0) {
+    int s = border[blk];
+    for (int t = rows - 1; t >= 0; --t) sS[t] = s = sB[t * bs + s];
   }
   __syncwarp();
+  int* out = states + seq * c + lo;
+  for (int t = lane; t < rows; t += 32) out[t] = sS[t];
+}
 
-  const size_t seq = (size_t)mi * R + r;
-  const float* d = deltas + seq * c * q;  // d[t * q + p]
-  int* out = states + seq * c;
-  int s = last_state[seq];
-  if (lane == 0) out[c - 1] = s;
-
-  // Tile i holds steps lo(i) ... c - 2 - i * TILE, walked downwards.
-  const int tiles = (c - 1 + TILE - 1) / TILE;
-  auto lo_of = [&](int i) { return max(0, c - 1 - (i + 1) * TILE); };
-  auto steps_of = [&](int i) { return c - 1 - i * TILE - lo_of(i); };
-  if (tiles > 0) stage(sD[0], d + (size_t)lo_of(0) * q, steps_of(0) * q, lane);
-  for (int i = 0; i < tiles; ++i) {
-    if (i + 1 < tiles)
-      stage(sD[(i + 1) % 2], d + (size_t)lo_of(i + 1) * q, steps_of(i + 1) * q, lane);
-    else
-      __pipeline_commit();
-    __pipeline_wait_prior(1);
-    __syncwarp();
-    const int lo = lo_of(i);
-    for (int t = lo + steps_of(i) - 1; t >= lo; --t) {
-      const float* dt = sD[i % 2] + (t - lo) * q;
-      const bool valid = (unsigned)s < (unsigned)q;
-      int key[NPER];
-      int best = INT_MIN;
-#pragma unroll
-      for (int u = 0; u < NPER; ++u) {
-        const int p = lane + 32 * u;
-        key[u] = INT_MIN;
-        if (p < q) {
-          const float w = dt[p] + (valid ? sAT[s * q + p] : NEG) + 0.f;
-          const int bits = __float_as_int(w);
-          key[u] = bits ^ ((bits >> 31) & 0x7fffffff);  // float order as int order
-          best = max(best, key[u]);
-        }
-      }
-      best = __reduce_max_sync(FULL, best);
-#pragma unroll
-      for (int u = 0; u < NPER; ++u) {
-        const unsigned hit = __ballot_sync(FULL, lane + 32 * u < q && key[u] == best);
-        if (hit) {  // the same in every lane
-          s = 32 * u + __ffs(hit) - 1;
-          break;
-        }
-      }
-      if (lane == 0) out[t] = s;
-    }
-    __syncwarp();
+// Scratch of K8b: a memory pool per device that keeps what it is given back
+// (release threshold at the maximum), so that the stream-ordered allocation
+// of every later call is served from it.
+cudaError_t scratch_pool(int device, cudaMemPool_t* pool) {
+  static std::mutex mu;
+  static cudaMemPool_t pools[64] = {};
+  if (device < 0 || device >= 64) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(mu);
+  if (!pools[device]) {
+    cudaMemPoolProps props = {};
+    props.allocType = cudaMemAllocationTypePinned;
+    props.location.type = cudaMemLocationTypeDevice;
+    props.location.id = device;
+    cudaError_t err = cudaMemPoolCreate(&pools[device], &props);
+    if (err != cudaSuccess) return err;
+    unsigned long long keep = ~0ull;
+    err = cudaMemPoolSetAttribute(pools[device], cudaMemPoolAttrReleaseThreshold, &keep);
+    if (err != cudaSuccess) return err;
   }
+  *pool = pools[device];
+  return cudaSuccess;
+}
+
+template <int QP>
+cudaError_t launch_deltas_blocked(const float* log_A, const float* log_E,
+                                  const float* delta0, float* deltas, int m,
+                                  int c, int q, int R, cudaStream_t stream) {
+  if constexpr (QP % (4 * DBLK_S) != 0) {
+    return cudaErrorInvalidValue;
+  } else {
+    dim3 grid((unsigned)R, (unsigned)m);
+    deltas_blocked_kernel<QP, DBLK_S, DBLK_TS><<<grid, delta_threads<QP, DBLK_S>(), 0, stream>>>(
+        log_A, log_E, delta0, deltas, c, q, R);
+    return cudaGetLastError();
+  }
+}
+
+template <int QP>
+cudaError_t launch_backtrace_tiles(const float* log_A, const float* deltas,
+                                   unsigned char* bp, unsigned char* maps,
+                                   int blocks, int c, int q, int R, int tiles,
+                                   int bs, cudaStream_t stream) {
+  backtrace_blocked_tiles_kernel<QP, TBLK_T><<<blocks, TBLK_G * (q + 1), 0, stream>>>(
+      log_A, deltas, bp, maps, c, q, R, tiles, bs);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -730,14 +877,17 @@ int hmm_maxplus_deltas_blocked(const float* log_A, const float* log_E,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (q <= MAXQ || q > MAX_BLOCKED_Q) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)R, (unsigned)m);
-  if (q <= 32)
-    deltas_blocked_kernel<1><<<grid, 32, 0, (cudaStream_t)stream>>>(
-        log_A, log_E, delta0, deltas, c, q, R);
-  else
-    deltas_blocked_kernel<2><<<grid, 32, 0, (cudaStream_t)stream>>>(
-        log_A, log_E, delta0, deltas, c, q, R);
-  return (int)cudaGetLastError();
+  constexpr int step = 4 * DBLK_S > 8 ? 4 * DBLK_S : 8;  // QP: whole float4 words per thread
+  cudaStream_t s = (cudaStream_t)stream;
+  switch ((q + step - 1) / step * step) {
+    case 24: return (int)launch_deltas_blocked<24>(log_A, log_E, delta0, deltas, m, c, q, R, s);
+    case 32: return (int)launch_deltas_blocked<32>(log_A, log_E, delta0, deltas, m, c, q, R, s);
+    case 40: return (int)launch_deltas_blocked<40>(log_A, log_E, delta0, deltas, m, c, q, R, s);
+    case 48: return (int)launch_deltas_blocked<48>(log_A, log_E, delta0, deltas, m, c, q, R, s);
+    case 56: return (int)launch_deltas_blocked<56>(log_A, log_E, delta0, deltas, m, c, q, R, s);
+    case 64: return (int)launch_deltas_blocked<64>(log_A, log_E, delta0, deltas, m, c, q, R, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 int hmm_maxplus_backtrace_blocked(const float* log_A, const float* deltas,
@@ -747,14 +897,46 @@ int hmm_maxplus_backtrace_blocked(const float* log_A, const float* deltas,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (q <= MAXQ || q > MAX_BLOCKED_Q) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)R, (unsigned)m);
-  if (q <= 32)
-    backtrace_blocked_kernel<1><<<grid, 32, 0, (cudaStream_t)stream>>>(
-        log_A, deltas, last_state, states, c, q, R);
-  else
-    backtrace_blocked_kernel<2><<<grid, 32, 0, (cudaStream_t)stream>>>(
-        log_A, deltas, last_state, states, c, q, R);
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int tiles = (c - 1 + TBLK_T - 1) / TBLK_T;
+  const int bs = (q + 1 + 15) / 16 * 16;  // bytes a row of backpointers or a map
+  const size_t seqs = (size_t)m * R;
+  const size_t bp_bytes = seqs * (c - 1) * bs, map_bytes = seqs * tiles * bs;
+  unsigned char* scratch = nullptr;
+  if (tiles > 0) {
+    cudaMemPool_t pool;
+    if ((err = scratch_pool(device, &pool)) != cudaSuccess) return (int)err;
+    err = cudaMallocFromPoolAsync(reinterpret_cast<void**>(&scratch),
+                                  bp_bytes + map_bytes + seqs * tiles, pool, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  unsigned char *bp = scratch, *maps = scratch + bp_bytes, *border = maps + map_bytes;
+  if (tiles > 0) {
+    const int blocks = (int)(seqs * tiles);
+    switch ((q + 7) / 8 * 8) {
+      case 24: err = launch_backtrace_tiles<24>(log_A, deltas, bp, maps, blocks, c, q, R, tiles, bs, s); break;
+      case 32: err = launch_backtrace_tiles<32>(log_A, deltas, bp, maps, blocks, c, q, R, tiles, bs, s); break;
+      case 40: err = launch_backtrace_tiles<40>(log_A, deltas, bp, maps, blocks, c, q, R, tiles, bs, s); break;
+      case 48: err = launch_backtrace_tiles<48>(log_A, deltas, bp, maps, blocks, c, q, R, tiles, bs, s); break;
+      case 56: err = launch_backtrace_tiles<56>(log_A, deltas, bp, maps, blocks, c, q, R, tiles, bs, s); break;
+      default: err = launch_backtrace_tiles<64>(log_A, deltas, bp, maps, blocks, c, q, R, tiles, bs, s); break;
+    }
+  }
+  if (err == cudaSuccess) {
+    backtrace_blocked_borders_kernel<<<(unsigned)seqs, 128, 0, s>>>(last_state, maps, border, states, c,
+                                                                    q, tiles, bs);
+    err = cudaGetLastError();
+  }
+  if (err == cudaSuccess && tiles > 0) {
+    backtrace_blocked_fill_kernel<TBLK_T><<<(unsigned)(seqs * tiles), 32, 0, s>>>(bp, border, states, c,
+                                                                                  tiles, bs);
+    err = cudaGetLastError();
+  }
+  if (scratch) {
+    const cudaError_t freed = cudaFreeAsync(scratch, s);
+    if (err == cudaSuccess) err = freed;
+  }
+  return (int)err;
 }
 
 }  // extern "C"

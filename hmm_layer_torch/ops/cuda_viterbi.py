@@ -15,14 +15,16 @@ Port of ``hmm_layer_tpu/ops/pallas_viterbi.py``. Each kernel of
 
 As in the JAX package, :func:`maxplus_deltas` and :func:`maxplus_backtrace`
 pick their body by q: the q <= 16 kernels K7 and K8, or for
-16 < q <= :data:`MAX_BLOCKED_Q` the blocked bodies K7b and K8b (one warp
-per lane, counted under ``maxplus_deltas_blocked`` and
-``maxplus_backtrace_blocked``). The blocked bodies work sequence-major,
-(m, R, c, q), where a warp's q states of a step are one line; their
-wrappers transpose from and to the layouts below around the launch. The
-plain versions are generic in q and are the plain versions of both
-bodies. :func:`maxplus_decode` is the delta pass then the backtrace, as
-``pallas_viterbi.maxplus_decode``.
+16 < q <= :data:`MAX_BLOCKED_Q` the blocked bodies K7b and K8b (counted
+under ``maxplus_deltas_blocked`` and ``maxplus_backtrace_blocked``). The
+blocked bodies work sequence-major, (m, b, L, q): their own wrappers
+:func:`maxplus_deltas_seq` and :func:`maxplus_backtrace_seq` take that
+layout, and :func:`maxplus_deltas` and :func:`maxplus_backtrace` transpose
+from and to the layouts below around them. The plain versions are generic
+in q and are the plain versions of both bodies (``*_seq_plain`` only
+change the layout). :func:`maxplus_decode` is the delta pass then the
+backtrace, as ``pallas_viterbi.maxplus_decode``; :func:`maxplus_decode_seq`
+is the sequential decode of 16 < q <= 64 on the emissions' own layout.
 
 Layouts (R = b·P chunk elements, lane ``r`` = sequence ``r // P``, chunk
 ``r % P``; the model axis ``m`` leads; everything log space):
@@ -34,7 +36,8 @@ Layouts (R = b·P chunk elements, lane ``r`` = sequence ``r // P``, chunk
 * ``deltas`` (m, c, q, R); ``states`` (m, c, R) int32.
 
 The sequential decode at 16 < q <= 64 (``recursion._viterbi_seq_kernels``)
-calls K7b and K8b with the batch on the lanes: c = L, R = b.
+calls :func:`maxplus_decode_seq` on log E (m, b, L, q): K7b and K8b with
+no layout change.
 
 Decoding has no gradient: on CUDA the float-valued launches are wrapped in
 an ``autograd.Function`` whose backward raises, so none is silently
@@ -64,9 +67,14 @@ __all__ = [
     "maxplus_deltas",
     "maxplus_backtrace",
     "maxplus_decode",
+    "maxplus_deltas_seq",
+    "maxplus_backtrace_seq",
+    "maxplus_decode_seq",
     "maxplus_chunk_summaries_plain",
     "maxplus_deltas_plain",
     "maxplus_backtrace_plain",
+    "maxplus_deltas_seq_plain",
+    "maxplus_backtrace_seq_plain",
 ]
 
 # Sentinel for impossible paths: finite, never -inf (the JAX ``_NEG``).
@@ -139,6 +147,20 @@ def maxplus_backtrace_plain(log_A, deltas, last_state):
     return torch.stack(out[::-1], dim=1).to(torch.int32)
 
 
+def maxplus_deltas_seq_plain(log_A, log_E, delta0):
+    """:func:`maxplus_deltas_plain` on the sequence-major layout: deltas
+    (m, b, L, q) from log E (m, b, L, q) and delta0 (m, b, q)."""
+    deltas = maxplus_deltas_plain(log_A, log_E.permute(0, 2, 3, 1), delta0.transpose(1, 2))
+    return deltas.permute(0, 3, 1, 2).contiguous()
+
+
+def maxplus_backtrace_seq_plain(log_A, deltas, last_state):
+    """:func:`maxplus_backtrace_plain` on the sequence-major layout: states
+    (m, b, L) int32 from deltas (m, b, L, q) and ``last_state`` (m, b)."""
+    states = maxplus_backtrace_plain(log_A, deltas.permute(0, 2, 3, 1), last_state)
+    return states.transpose(1, 2).contiguous()
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -192,6 +214,90 @@ def _seq_major(x):
     return x.movedim(-1, 1).contiguous()
 
 
+def _blocked_shapes(name, log_A, x):
+    """(m, R, c, q) of a blocked body's sequence-major input ``x``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {x.device} have no kernel")
+    m, R, c, q = x.shape
+    if not KERNEL_MAX_Q < q <= MAX_BLOCKED_Q:
+        raise ValueError(f"{name}: the kernel takes {KERNEL_MAX_Q} < q <= {MAX_BLOCKED_Q}, got q={q}")
+    if tuple(log_A.shape) != (m, q, q):
+        raise ValueError(f"{name}: log_A has shape {tuple(log_A.shape)}, expected {(m, q, q)}")
+    if min(m, c, R) < 1:
+        raise ValueError(f"{name}: empty input {tuple(x.shape)}")
+    return m, R, c, q
+
+
+def _check_last(name, last_state, shape, device):
+    if (tuple(last_state.shape) != shape or last_state.dtype != torch.int32
+            or last_state.device != device or not last_state.is_contiguous()):
+        raise ValueError(f"{name}: last_state must be a contiguous int32 {shape} "
+                         f"tensor on {device}, got {last_state.dtype} "
+                         f"{tuple(last_state.shape)} on {last_state.device}")
+
+
+def maxplus_deltas_seq(log_A, log_E, delta0):
+    """K7b: max-plus forward values (m, b, L, q) of whole sequences, for
+    16 < q <= 64.
+
+    Args:
+        log_A: (m, q, q) log transition matrices.
+        log_E: (m, b, L, q) log emissions, sequence-major.
+        delta0: (m, b, q) the value at each sequence's first position
+            (start plus first emission).
+    """
+    if log_E.device.type == "cpu":
+        return maxplus_deltas_seq_plain(log_A, log_E, delta0)
+    name = "maxplus_deltas_blocked"
+    m, R, c, q = _blocked_shapes(name, log_A, log_E)
+    _check(name, log_E.device, log_A=log_A, log_E=log_E, delta0=delta0)
+    if tuple(delta0.shape) != (m, R, q):
+        raise ValueError(f"{name}: delta0 {tuple(delta0.shape)} does not match "
+                         f"log_E {tuple(log_E.shape)}")
+    lib = _cuda_build.load("max_plus")
+
+    def launch(log_A, log_E, delta0):
+        out = torch.empty(log_E.shape, dtype=torch.float32, device=log_E.device)
+        device, stream = _launch_args(log_E.device)
+        _raise_on(name, lib.hmm_maxplus_deltas_blocked(
+            log_A.data_ptr(), log_E.data_ptr(), delta0.data_ptr(), out.data_ptr(),
+            m, c, q, R, device, stream,
+        ))
+        return out
+
+    out = _NoGradient.apply(launch, log_A, log_E, delta0)
+    LAUNCHES[name] += 1
+    return out
+
+
+def maxplus_backtrace_seq(log_A, deltas, last_state):
+    """K8b: decoded states (m, b, L) int32 of whole sequences from their
+    deltas (m, b, L, q), for 16 < q <= 64; ``last_state`` (m, b) int32 is
+    the state at each sequence's last position."""
+    if deltas.device.type == "cpu":
+        return maxplus_backtrace_seq_plain(log_A, deltas, last_state)
+    name = "maxplus_backtrace_blocked"
+    m, R, c, q = _blocked_shapes(name, log_A, deltas)
+    _check(name, deltas.device, log_A=log_A, deltas=deltas)
+    _check_last(name, last_state, (m, R), deltas.device)
+    states = torch.empty((m, R, c), dtype=torch.int32, device=deltas.device)
+    device, stream = _launch_args(deltas.device)
+    _raise_on(name, _cuda_build.load("max_plus").hmm_maxplus_backtrace_blocked(
+        log_A.data_ptr(), deltas.data_ptr(), last_state.data_ptr(), states.data_ptr(),
+        m, c, q, R, device, stream,
+    ))
+    LAUNCHES[name] += 1
+    return states
+
+
+def maxplus_decode_seq(log_A, log_E, delta0):
+    """Sequential decode of 16 < q <= 64 on the emissions' layout: K7b, the
+    lowest argmax of the last deltas, K8b. States (m, b, L) int32."""
+    deltas = maxplus_deltas_seq(log_A, log_E, delta0)
+    last = deltas[:, :, -1].argmax(dim=-1).to(torch.int32)
+    return maxplus_backtrace_seq(log_A, deltas, last)
+
+
 def maxplus_deltas(log_A, log_E_T, delta0):
     """K7 (q <= 16) or K7b (16 < q <= 64): max-plus forward values
     (m, c, q, R) at every position.
@@ -210,23 +316,22 @@ def maxplus_deltas(log_A, log_E_T, delta0):
     if tuple(delta0.shape) != (m, q, R):
         raise ValueError(f"{name}: delta0 {tuple(delta0.shape)} does not match "
                          f"log_E_T {tuple(log_E_T.shape)}")
-    blocked = q > KERNEL_MAX_Q
-    key = f"{name}_blocked" if blocked else name  # launch count and entry point
-    fn = getattr(_cuda_build.load("max_plus"), f"hmm_{key}")
+    if q > KERNEL_MAX_Q:
+        deltas = maxplus_deltas_seq(log_A, _seq_major(log_E_T), _seq_major(delta0))
+        return deltas.movedim(1, -1).contiguous()
+    lib = _cuda_build.load("max_plus")
 
     def launch(log_A, log_E_T, delta0):
-        if blocked:
-            log_E_T, delta0 = _seq_major(log_E_T), _seq_major(delta0)
         out = torch.empty(log_E_T.shape, dtype=torch.float32, device=log_E_T.device)
         device, stream = _launch_args(log_E_T.device)
-        _raise_on(name, fn(
+        _raise_on(name, lib.hmm_maxplus_deltas(
             log_A.data_ptr(), log_E_T.data_ptr(), delta0.data_ptr(), out.data_ptr(),
             m, c, q, R, device, stream,
         ))
-        return out.movedim(1, -1).contiguous() if blocked else out
+        return out
 
     out = _NoGradient.apply(launch, log_A, log_E_T, delta0)
-    LAUNCHES[key] += 1
+    LAUNCHES[name] += 1
     return out
 
 
@@ -244,24 +349,17 @@ def maxplus_backtrace(log_A, deltas, last_state):
     name = "maxplus_backtrace"
     m, c, q, R = _kernel_shapes(name, log_A, deltas, MAX_BLOCKED_Q)
     _check(name, deltas.device, log_A=log_A, deltas=deltas)
-    if (tuple(last_state.shape) != (m, R) or last_state.dtype != torch.int32
-            or last_state.device != deltas.device or not last_state.is_contiguous()):
-        raise ValueError(f"{name}: last_state must be a contiguous int32 {(m, R)} "
-                         f"tensor on {deltas.device}, got {last_state.dtype} "
-                         f"{tuple(last_state.shape)} on {last_state.device}")
-    blocked = q > KERNEL_MAX_Q
-    key = f"{name}_blocked" if blocked else name
-    fn = getattr(_cuda_build.load("max_plus"), f"hmm_{key}")
-    if blocked:
-        deltas = _seq_major(deltas)
-    states = torch.empty((m, R, c) if blocked else (m, c, R), dtype=torch.int32, device=deltas.device)
+    _check_last(name, last_state, (m, R), deltas.device)
+    if q > KERNEL_MAX_Q:
+        return maxplus_backtrace_seq(log_A, _seq_major(deltas), last_state).transpose(1, 2).contiguous()
+    states = torch.empty((m, c, R), dtype=torch.int32, device=deltas.device)
     device, stream = _launch_args(deltas.device)
-    _raise_on(name, fn(
+    _raise_on(name, _cuda_build.load("max_plus").hmm_maxplus_backtrace(
         log_A.data_ptr(), deltas.data_ptr(), last_state.data_ptr(), states.data_ptr(),
         m, c, q, R, device, stream,
     ))
-    LAUNCHES[key] += 1
-    return states.transpose(1, 2).contiguous() if blocked else states
+    LAUNCHES[name] += 1
+    return states
 
 
 def maxplus_decode(log_A, log_E_T, delta0, last_state):

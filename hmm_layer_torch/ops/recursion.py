@@ -1005,19 +1005,16 @@ def _use_seq_viterbi_kernels(E) -> bool:
 
 
 def _viterbi_seq_kernels(init, A, E):
-    """Sequential decode through the delta pass and the backtrace with the
-    batch on the lanes (K7b + K8b on CUDA), as ``_viterbi_seq_pallas``.
-    Returns paths (m, b, L) int32, the same as :func:`_viterbi_seq`'s: the
-    deltas are bit-equal and both take the lowest argmax."""
-    m, b, L, q = E.shape
+    """Sequential decode through the delta pass and the backtrace on the
+    emissions' own layout (m, b, L, q) (K7b + K8b on CUDA), as
+    ``_viterbi_seq_pallas``. Returns paths (m, b, L) int32, the same as
+    :func:`_viterbi_seq`'s: the deltas are bit-equal and both take the
+    lowest argmax."""
     log_A = torch.log(_clamped(A)).contiguous()
     log_init = torch.log(_clamped(init))
-    log_E_T = torch.log(_clamped(E)).permute(0, 2, 3, 1).contiguous()  # (m, L, q, b)
-    delta0 = (log_init[:, :, None] + log_E_T[:, 0]).contiguous()  # (m, q, b)
-    deltas = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)
-    last = deltas[:, -1].argmax(dim=1).to(torch.int32).contiguous()  # (m, b)
-    states = cuda_viterbi.maxplus_backtrace(log_A, deltas, last)  # (m, L, b)
-    return states.transpose(-1, -2).contiguous()
+    log_E = torch.log(_clamped(E)).contiguous()  # (m, b, L, q)
+    delta0 = (log_init[:, None, :] + log_E[:, :, 0]).contiguous()  # (m, b, q)
+    return cuda_viterbi.maxplus_decode_seq(log_A, log_E, delta0)
 
 
 def _viterbi_chunked_kernels(init, A, E, P):

@@ -1,7 +1,8 @@
-"""Tilings of the chunk scans K1–K8 on the card.
+"""Tilings of the chunk scans K1–K8 and the blocked decode K7b, K8b on the
+card.
 
 Run from the root of the repository on a machine with a CUDA device:
-``python3 -m hmm_layer_torch.tune_scans [--kernels K6,K8] [--compare DIR
+``python3 -m hmm_layer_torch.tune_scans [--kernels K7b,K8b] [--compare DIR
 ...] [--compare-only] [--e2e] [--out DIR]``.
 
 K1, K2, K3 (``csrc/sum_product.cu``), K4, K5 (``csrc/affine.cu``), K6, K7
@@ -9,20 +10,23 @@ and K8 (``csrc/max_plus.cu``) are built once per tiling: G chunk elements a
 block, TS steps a staged tile, NB tiles in the ring and the step loop
 unrolled U times, under the prefixes ``SUM_`` (K1), ``FWD_`` (K2), ``BWD_``
 (K3), ``COMP_`` (K4), ``OUT_`` (K5), ``MPS_`` (K6), ``DELTA_`` (K7) and
-``TRACE_`` (K8), e.g. ``-DBWD_TS=32``. The package's own build uses the
+``TRACE_`` (K8), e.g. ``-DBWD_TS=32``. K7b (``DBLK_``) has S threads per
+state and TS steps a staged tile, K8b (``TBLK_``) T steps a backpointer
+tile and G row groups a tiles block. The package's own build uses the
 defaults in the sources.
 Tilings whose ring exceeds a block's 227 KB of shared memory are left out.
 ``--kernels`` limits the sweep to some of the kernels. The ``nvcc``
 processes run side by side, two for each CPU core, with ``-Xptxas -v``.
 Each ``--compare DIR`` adds the three sources of another commit
 (``DIR/sum_product.cu``, ``DIR/affine.cu``, ``DIR/max_plus.cu``) as
-variants of all eight kernels, so that old and new kernels are timed in the
+variants of all ten kernels, so that old and new kernels are timed in the
 same process on the same card; ``--compare-only`` leaves the tilings out.
 Each variant runs at the flagship shapes on seeded random inputs (m=1,
 c=303, q=15, R=1056, P=33; K4, K5: 2m=2, the posterior VJP's stacked
-models), is held against the plain version (K1 rtol 1e-5, atol 1e-3 where
-C lies within 30 nats of its row's maximum; K2, K3 rtol 1e-5, atol 1e-2;
-K4, K5 rtol 1e-5, atol 1e-6; K6, K7, K8 bit-equal) and against the
+models; K7b, K8b: the sequential decode's b=32, L=9999 at q=29 and q=57),
+is held against the plain version (K1 rtol 1e-5, atol 1e-3 where C lies
+within 30 nats of its row's maximum; K2, K3 rtol 1e-5, atol 1e-2; K4, K5
+rtol 1e-5, atol 1e-6; K6, K7, K8, K7b, K8b bit-equal) and against the
 package's own build (bit-equal or not), and is timed:
 
 * warm: median of 20 samples of 10 back-to-back launches (CUDA events),
@@ -36,8 +40,10 @@ seed 0) then serves posterior, log-likelihood and Viterbi decode requests
 and takes posterior cross-entropy and MAP steps (forward and backward, no
 optimizer) with this build's kernels and with DIR's in turns: 40 rounds,
 this build first and DIR first alternately (the libraries are loaded side by side and
-swapped under the wrappers). Each call is timed with the host clock around
-a synchronised call; the medians and the median paired difference are
+swapped under the wrappers). The multi-copy layer of ``chip_smoke.py``
+phase 9 (k=2, q=29, the same seed) serves decode requests in the same
+rounds (K7b and K8b). Each call is timed with the host clock around a
+synchronised call; the medians and the median paired difference are
 printed.
 
 It prints ptxas's registers and spills of each kernel, the longest run of
@@ -85,10 +91,14 @@ KERNELS = {
     "K6": ("max_plus", "MPS", "hmm_maxplus_chunk_summaries", "chunk_summaries_kernel"),
     "K7": ("max_plus", "DELTA", "hmm_maxplus_deltas", "deltas_kernel"),
     "K8": ("max_plus", "TRACE", "hmm_maxplus_backtrace", "backtrace_kernel"),
+    "K7b": ("max_plus", "DBLK", "hmm_maxplus_deltas_blocked", "deltas_blocked_kernel"),
+    "K8b": ("max_plus", "TBLK", "hmm_maxplus_backtrace_blocked", "backtrace_blocked_tiles_kernel"),
 }
 SOURCE_NAMES = tuple(dict.fromkeys(source for source, *_ in KERNELS.values()))
 STAGED_PLANES = {"K4": 3, "K5": 3}  # u, v and s; the others stage one plane
 KNOBS = ("G", "TS", "NB", "UNROLL")
+# The blocked bodies' own knobs (the others take KNOBS).
+KNOBS_OF = {"K7b": ("S", "TS"), "K8b": ("T", "G")}
 _SCAN_GRID = [(4, 32, 2, 1)] + [(g, ts, nb, u) for g in (8, 16) for ts in (16, 32, 64)
                                 for nb in (2, 3) for u in (1, 2, 4)]
 # The knob values tried for each kernel ({-D suffix: value}).
@@ -108,15 +118,28 @@ TILINGS = {
     "K7": [dict(zip(KNOBS, t)) for t in _SCAN_GRID],
     "K8": [dict(G=g, TS=ts, NB=nb, UNROLL=u) for g in (4, 8, 16) for ts in (16, 32, 64)
            for nb in (2, 3) for u in (1, 2)],
+    # K7b: S lanes per state
+    "K7b": [dict(S=s, TS=ts) for s in (1, 2, 4) for ts in (16, 32, 64)],
+    "K8b": [dict(T=t, G=g) for t in (32, 64, 128) for g in (2, 4, 8)],
 }
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 SHAPE = dict(c=303, q=15, R=1056, P=33)
+BLOCKED_SHAPE = dict(b=32, L=9999, qs=(29, 57))
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12  # H100 SXM data sheet (float32, no tensor cores)
 
 
+def knobs_of(kernel):
+    return KNOBS_OF.get(kernel, KNOBS)
+
+
 def block_shape(kernel, knobs):
-    """(threads, bytes of dynamic shared memory) of a block of ``kernel``
-    built with ``knobs``."""
+    """(threads, bytes of shared memory) of a block of ``kernel`` built
+    with ``knobs``: dynamic shared memory, or for K7b and K8b their static
+    shared memory at q = 64 (K8b: its tiles block)."""
+    if kernel == "K7b":
+        return 64 * knobs["S"], 4 * (2 * knobs["TS"] * 64 + 2 * 64)
+    if kernel == "K8b":
+        return knobs["G"] * 65, knobs["T"] * (4 * 64 + 80)
     g, ring = knobs["G"], knobs["NB"] * knobs["TS"] * knobs["G"] * 16
     return 16 * g, 4 * ring * STAGED_PLANES.get(kernel, 1)
 
@@ -130,7 +153,8 @@ def build_defaults():
     out = {}
     for kernel, (name, prefix, _, _) in KERNELS.items():
         src = _cuda_build.SOURCES[name].read_text()
-        out[kernel] = {k: int(re.search(rf"#define {prefix}_{k} (\d+)", src).group(1)) for k in KNOBS}
+        out[kernel] = {k: int(re.search(rf"#define {prefix}_{k} (\d+)", src).group(1))
+                       for k in knobs_of(kernel)}
     return out
 
 
@@ -142,7 +166,8 @@ def _variants(compare, grid=True, kernels=tuple(KERNELS)):
         name, prefix = KERNELS[kernel][:2]
         for knobs in TILINGS[kernel]:
             threads, smem = block_shape(kernel, knobs)
-            if smem > SMEM_LIMIT or threads > 1024:
+            limit = SMEM_LIMIT if kernel not in KNOBS_OF else 48 * 1024  # static shared memory
+            if smem > limit or threads > 1024:
                 continue
             out.append((label(kernel, knobs), name, _cuda_build.SOURCES[name],
                         [f"-D{prefix}_{k}={v}" for k, v in knobs.items()], (kernel,)))
@@ -218,11 +243,39 @@ def _sass_report(name, defs, kernel, out_dir):
     return f"{kernel}: {n_shfl} SHFL in {len(body)} instructions, longest back-to-back run {best}"
 
 
-def _cases(device):
-    """{kernel: (C arguments before the output, plain result, the package
-    build's result, rtol, atol, mask, bound ms, bound_by, C shape
-    arguments)} at the flagship shapes, on seeded random inputs; the output
-    takes the plain result's shape and type."""
+def _bound(nbytes, nops):
+    b, o = 1e3 * nbytes / PEAK_BYTES, 1e3 * nops / PEAK_FLOPS
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def _blocked_cases(device, q):
+    """K7b's and K8b's cases at the sequential decode's b=32, L=9999 and
+    ``q``: seeded random log A (a structural zero column), emissions and
+    start, sequence-major."""
+    b, c = BLOCKED_SHAPE["b"], BLOCKED_SHAPE["L"]
+    rng = np.random.default_rng(q)
+    A = rng.dirichlet(np.ones(q), size=q)
+    A[:, q // 2] = 0.0
+    A /= A.sum(-1, keepdims=True)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)  # noqa: E731
+    log_A = torch.log(t(A).clamp_min(1e-16))[None].contiguous()
+    log_E = torch.log(t(rng.uniform(0.05, 1.0, size=(1, b, c, q))))
+    delta0 = (t(rng.normal(-20.0, 5.0, size=(1, b, q))) + log_E[:, :, 0]).contiguous()
+    deltas = cuda_viterbi.maxplus_deltas_seq_plain(log_A, log_E, delta0)
+    last = deltas[:, :, -1].argmax(dim=-1).to(torch.int32)
+    e_bytes, a_bytes = 4 * c * q * b, 4 * q * q
+    return {
+        "K7b": ((log_A, log_E, delta0), deltas, cuda_viterbi.maxplus_deltas_seq(log_A, log_E, delta0),
+                0.0, 0.0, None, *_bound(a_bytes + 2 * e_bytes + 4 * q * b, b * (c - 1) * 2 * q * q),
+                (1, c, q, b)),
+        "K8b": ((log_A, deltas, last), cuda_viterbi.maxplus_backtrace_seq_plain(log_A, deltas, last),
+                cuda_viterbi.maxplus_backtrace_seq(log_A, deltas, last), 0.0, 0.0, None,
+                *_bound(a_bytes + e_bytes + 4 * b + 4 * c * b, b * (c - 1) * 2 * q), (1, c, q, b)),
+    }
+
+
+def _flagship_cases(device):
+    """K1–K8's cases (see :func:`_cases`) at the flagship shapes."""
     c, q, R, P = SHAPE["c"], SHAPE["q"], SHAPE["R"], SHAPE["P"]
     rng = np.random.default_rng(0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)  # noqa: E731
@@ -234,10 +287,7 @@ def _cases(device):
     S = rng.normal(size=(2, c, q, R))
     U, V, S, xr = (t(rng.uniform(size=(2, c, q, R))), t(rng.uniform(size=(2, c, q, R))),
                    t(S - S.mean(2, keepdims=True)), t(rng.normal(size=(2, q, R))))
-
-    def bound(nbytes, nops):
-        b, o = 1e3 * nbytes / PEAK_BYTES, 1e3 * nops / PEAK_FLOPS
-        return (b, "bytes") if b >= o else (o, "operations")
+    bound = _bound
 
     log_A, log_E_T = torch.log(A.clamp_min(1e-16)).contiguous(), torch.log(E_T)
     delta0 = (t(rng.normal(-20.0, 5.0, size=(1, q, R))) + log_E_T[:, 0]).contiguous()
@@ -289,10 +339,26 @@ def _cases(device):
     }
 
 
+def _cases(device, kernels=tuple(KERNELS)):
+    """{kernel: [(shape tag, (C arguments before the output, plain result,
+    the package build's result, rtol, atol, mask, bound ms, bound_by, C
+    shape arguments)), ...]} of ``kernels`` at the flagship shapes (K7b,
+    K8b: the sequential decode's, one case for each q), on seeded random
+    inputs; the output takes the plain result's shape and type."""
+    out = {}
+    if set(kernels) - set(KNOBS_OF):
+        out = {kernel: [("", case)] for kernel, case in _flagship_cases(device).items()}
+    if set(KNOBS_OF) & set(kernels):
+        for q in BLOCKED_SHAPE["qs"]:
+            for kernel, case in _blocked_cases(device, q).items():
+                out.setdefault(kernel, []).append((f" q={q}", case))
+    return out
+
+
 def _e2e(other, rounds=40):
-    """Posterior, log-likelihood and decode ms/batch, CE and MAP ms/step with
-    this build's kernel libraries and with ``other`` ({source name: library}),
-    interleaved A, B, B, A."""
+    """Posterior, log-likelihood and decode (q=15 and the q=29 multi-copy)
+    ms/batch, CE and MAP ms/step with this build's kernel libraries and
+    with ``other`` ({source name: library}), interleaved A, B, B, A."""
     from . import HMMLayer, models
 
     layer = HMMLayer(models.GenePredTransitions(), models.GenePredEmissions(**CODONS),
@@ -311,6 +377,16 @@ def _e2e(other, rounds=40):
     labels = labels.clone()  # a normal tensor: autograd saves it
     mask = torch.ones(labels.shape, device=X.device)
     pars = [p for p in layer.parameters() if p.requires_grad]
+    # chip_smoke.py phase 9's multi-copy layer (k=2, q=29; seed 0 + k)
+    gen = torch.Generator().manual_seed(2)
+    multi = HMMLayer(
+        models.GenePredMultiTransitions(k=2, generator=gen),
+        models.GenePredEmissions(num_copies=2, init=models.make_15_class_emission_kernel(num_copies=2),
+                                 **CODONS),
+        use_prior=False, parallel_factor="auto")
+    with torch.no_grad():
+        for p in multi.parameters():
+            p.add_((0.5 * torch.randn(p.shape, generator=gen)).to(p.device))
     own = {name: _cuda_build.load(name) for name in other}
     libs = {"this build": own, "compare": other}
 
@@ -332,9 +408,13 @@ def _e2e(other, rounds=40):
     def map_step():
         torch.autograd.grad(layer.loss(X), pars)
 
+    def decode_q29():
+        with torch.inference_mode():
+            multi.viterbi(X)
+
     calls = {"posterior": (posterior, "ms/batch"), "ce": (ce_step, "ms/step"),
              "map": (map_step, "ms/step"), "loglik": (loglik, "ms/batch"),
-             "decode": (decode, "ms/batch")}
+             "decode": (decode, "ms/batch"), "decode_q29": (decode_q29, "ms/batch")}
     times = {v: {key: [] for key in calls} for v in libs}
     try:
         for i in range(rounds + 1):  # round 0 warms both up, untimed
@@ -390,16 +470,14 @@ def main(argv=None) -> int:
         name, _, _, symbol = KERNELS[kernel]
         print(f"sass {_sass_report(name, [], symbol, out_dir)}", flush=True)
 
-    cases = _cases(device)
+    cases = _cases(device, kernels)
     stream = torch.cuda.current_stream(device).cuda_stream
     failed, cold_of = [], {}
     for lab, name, _, defs, runs in variants:
         so, text = built[lab]
         lib = _load(so, name)
-        for kernel in runs:
-            if kernel not in kernels:
-                continue
-            ins, ref, own, rtol, atol, mask, bound, by, dims = cases[kernel]
+        for kernel, tag, case in ((k, tag, case) for k in runs if k in kernels for tag, case in cases[k]):
+            ins, ref, own, rtol, atol, mask, bound, by, dims = case
             entry, symbol = getattr(lib, KERNELS[kernel][2]), KERNELS[kernel][3]
             out = torch.empty_like(ref)
 
@@ -408,7 +486,7 @@ def main(argv=None) -> int:
                 if err:
                     raise RuntimeError(f"{lab}: cudaError {err}")
 
-            key = lab if len(runs) == 1 else f"{kernel} {lab}"
+            key = (lab if len(runs) == 1 else f"{kernel} {lab}") + tag
             try:
                 fn()
             except RuntimeError as exc:  # a refused launch: the next variant still runs
@@ -428,10 +506,11 @@ def main(argv=None) -> int:
             if not ok:
                 failed.append(key)
     for kernel in kernels:
-        mine = [k for k in cold_of if k.startswith(f"{kernel} ")]
-        if mine:
-            best = min(mine, key=cold_of.get)
-            print(f"fastest {best}: cold {cold_of[best]:.4f} ms")
+        for tag, _ in cases[kernel]:
+            mine = [k for k in cold_of if k.startswith(f"{kernel} ") and k.endswith(tag)]
+            if mine:
+                best = min(mine, key=cold_of.get)
+                print(f"fastest {best}: cold {cold_of[best]:.4f} ms")
     print(f"build defaults {build_defaults()}; on {smi}")
     if args.e2e:
         d = args.compare[0]

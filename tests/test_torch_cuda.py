@@ -444,11 +444,19 @@ def _blocked_inputs(seed, q, c, R, device):
     return log_A.contiguous(), log_E_T, delta0, last
 
 
-@pytest.mark.parametrize("q", [17, 29, 33, 57, 64])
-def test_blocked_maxplus_kernels_equal_plain(cuda, q):
-    """K7b and K8b bit-equal to their plain versions, at a sequential
-    decode's shape (c = L = 777, R = b = 37: a ragged last block)."""
-    log_A, log_E_T, delta0, last = _blocked_inputs(q, q, 777, 37, cuda)
+# The tile edges of K7b (emissions staged 64 steps a tile) and K8b
+# (backpointer tiles of 128 steps): c - 1 at 0, 1, 64, 65, 128, 129 and 776.
+BLOCKED_C = [1, 2, 65, 66, 129, 130, 777]
+
+
+@pytest.mark.parametrize("R", [1, 37])
+@pytest.mark.parametrize("c", BLOCKED_C)
+@pytest.mark.parametrize("q", [17, 29, 32, 33, 57, 64])
+def test_blocked_maxplus_kernels_equal_plain(cuda, q, c, R):
+    """K7b and K8b bit-equal to their plain versions at a sequential
+    decode's shape (c = L, R = b), through the lane-layout wrappers and the
+    sequence-major ones."""
+    log_A, log_E_T, delta0, last = _blocked_inputs(q * c + R, q, c, R, cuda)
     cuda_viterbi.reset_launches()
     deltas = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)
     states = cuda_viterbi.maxplus_backtrace(log_A, deltas, last)
@@ -458,9 +466,47 @@ def test_blocked_maxplus_kernels_equal_plain(cuda, q):
     }
     assert torch.equal(deltas, cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0))
     assert torch.equal(states, cuda_viterbi.maxplus_backtrace_plain(log_A, deltas, last))
-    flat = torch.zeros_like(deltas)  # every state ties: the lowest index wins
-    tied = cuda_viterbi.maxplus_backtrace(torch.zeros_like(log_A), flat, last)
-    assert (tied[:, :-1] == 0).all()
+    log_E, d0 = log_E_T.movedim(-1, 1).contiguous(), delta0.transpose(1, 2).contiguous()
+    deltas_seq = cuda_viterbi.maxplus_deltas_seq(log_A, log_E, d0)
+    assert torch.equal(deltas_seq, deltas.movedim(-1, 1))
+    assert torch.equal(cuda_viterbi.maxplus_backtrace_seq(log_A, deltas_seq, last), states.transpose(1, 2))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("q", [29, 57])
+def test_blocked_backtrace_ties_take_the_lowest_state(cuda, q):
+    """Flat rows: every state ties and state 0 wins. A -0 term ties with +0:
+    deltas of -0 at state 0 and log A of -0 on its row give w = -0 there,
+    +0 elsewhere, and state 0 still wins."""
+    c, R = 150, 5
+    last = torch.arange(R, dtype=torch.int32, device=cuda)[None] % q
+    flat_A = torch.full((1, q, q), -math.log(q), device=cuda)
+    flat = torch.zeros((1, c, q, R), device=cuda)
+    signed_A = torch.zeros((1, q, q), device=cuda)
+    signed_A[:, 0] = -0.0
+    signed = torch.zeros((1, c, q, R), device=cuda)
+    signed[:, :, 0] = -0.0
+    for log_A, deltas in ((flat_A, flat), (signed_A, signed)):
+        states = cuda_viterbi.maxplus_backtrace(log_A, deltas, last)
+        assert torch.equal(states, cuda_viterbi.maxplus_backtrace_plain(log_A, deltas, last))
+        assert (states[:, :-1] == 0).all() and torch.equal(states[:, -1], last)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("q", [29, 57])
+def test_blocked_backtrace_last_state_outside_takes_the_neg_column(cuda, q):
+    """A last state of q (outside [0, q)) is written as given and scored
+    against an all-NEG column of log A: the state before it is the lowest
+    argmax of deltas + NEG, and the path goes on from there."""
+    c, R = 130, 3
+    log_A, log_E_T, delta0, _ = _blocked_inputs(q, q, c, R, cuda)
+    deltas = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)
+    last = torch.full((1, R), q, dtype=torch.int32, device=cuda)
+    states = cuda_viterbi.maxplus_backtrace(log_A, deltas, last)
+    before = (deltas[:, -2] + cuda_viterbi.NEG).argmax(dim=1).to(torch.int32)
+    rest = cuda_viterbi.maxplus_backtrace_plain(log_A, deltas[:, :-1], before)
+    assert torch.equal(states[:, -1], last)
+    assert torch.equal(states[:, :-1], rest)
     torch.cuda.synchronize()
 
 
@@ -501,8 +547,8 @@ def test_multi_copy_viterbi_takes_blocked_kernels(cuda, monkeypatch, pf):
         init, A = layer.transitions.matrices()
         E = layer.emission_probs(X)
         seq = recursion._viterbi_seq(init, A, E)
-        monkeypatch.setattr(cuda_viterbi, "maxplus_deltas", cuda_viterbi.maxplus_deltas_plain)
-        monkeypatch.setattr(cuda_viterbi, "maxplus_backtrace", cuda_viterbi.maxplus_backtrace_plain)
+        monkeypatch.setattr(cuda_viterbi, "maxplus_deltas_seq", cuda_viterbi.maxplus_deltas_seq_plain)
+        monkeypatch.setattr(cuda_viterbi, "maxplus_backtrace_seq", cuda_viterbi.maxplus_backtrace_seq_plain)
         plain = recursion._viterbi_seq_kernels(init, A, E)
     assert paths.dtype == torch.int32 and tuple(paths.shape) == (1, 3, 1200)
     assert torch.equal(paths, plain)

@@ -203,22 +203,25 @@ SEQ = [
 ]
 
 
+def _seq_inputs(m, q, b, L, kind):
+    """init (m, q), A (m, q, q), E (m, b, L, q) float32 of a SEQ case."""
+    if kind == "flat":
+        return (np.full((m, q), 1.0 / q, np.float32), np.full((m, q, q), 1.0 / q, np.float32),
+                np.full((m, b, L, q), 0.5, np.float32))
+    rng = np.random.default_rng(q + m)
+    parts = [random_hmm(rng, q, L, b=b, peaked=kind == "peaked") for _ in range(m)]
+    init, A, E = (np.stack([p[i] for p in parts]) for i in range(3))
+    A[:, :, q // 3] = 0.0  # structural zeros
+    return init, (A / A.sum(-1, keepdims=True)).astype(np.float32), E
+
+
 @pytest.mark.parametrize("m,q,b,L,kind", SEQ)
 def test_seq_kernel_route_matches_jax_blocked_decode(monkeypatch, m, q, b, L, kind):
     """``_viterbi_seq_kernels`` (its wrappers on their plain versions here)
     gives JAX ``_viterbi_seq_pallas``'s paths (interpret mode) and the
     sequential scan's; on the CPU ``viterbi`` keeps its off-GPU routes."""
     monkeypatch.setattr(pallas_viterbi, "FORCE_INTERPRET", True)
-    if kind == "flat":
-        init = np.full((m, q), 1.0 / q, np.float32)
-        A = np.full((m, q, q), 1.0 / q, np.float32)
-        E = np.full((m, b, L, q), 0.5, np.float32)
-    else:
-        rng = np.random.default_rng(q + m)
-        parts = [random_hmm(rng, q, L, b=b, peaked=kind == "peaked") for _ in range(m)]
-        init, A, E = (np.stack([p[i] for p in parts]) for i in range(3))
-        A[:, :, q // 3] = 0.0  # structural zeros
-        A = (A / A.sum(-1, keepdims=True)).astype(np.float32)
+    init, A, E = _seq_inputs(m, q, b, L, kind)
     ref = np.asarray(jax.jit(jrec._viterbi_seq_pallas)(jnp.asarray(init), jnp.asarray(A), jnp.asarray(E)))
     t = [torch.from_numpy(x) for x in (init, A, E)]
     cuda_viterbi.reset_launches()
@@ -231,6 +234,43 @@ def test_seq_kernel_route_matches_jax_blocked_decode(monkeypatch, m, q, b, L, ki
     assert cuda_viterbi.LAUNCHES == {name: 0 for name in cuda_viterbi.LAUNCHES}
     if kind == "flat":  # every path ties: the lowest state everywhere
         assert (got == 0).all()
+
+
+def _seq_glue_through_lane_layout(init, A, E):
+    """The sequential decode through the (m, c, q, R) wrappers, as the glue
+    ran it before the sequence-major entry: E to (m, L, q, b), deltas back,
+    states transposed."""
+    log_A = torch.log(A.clamp_min(EPS))
+    log_E_T = torch.log(E.clamp_min(EPS)).permute(0, 2, 3, 1).contiguous()
+    delta0 = (torch.log(init.clamp_min(EPS))[:, :, None] + log_E_T[:, 0]).contiguous()
+    deltas = cuda_viterbi.maxplus_deltas(log_A, log_E_T, delta0)
+    last = deltas[:, -1].argmax(dim=1).to(torch.int32).contiguous()
+    return cuda_viterbi.maxplus_backtrace(log_A, deltas, last).transpose(-1, -2).contiguous()
+
+
+@pytest.mark.parametrize("m,q,b,L,kind", SEQ)
+def test_seq_major_decode_matches_lane_layout_glue_and_jax(monkeypatch, m, q, b, L, kind):
+    """The sequence-major route (``maxplus_decode_seq`` on the emissions'
+    layout, its wrappers on their plain versions here) equals the old
+    route through the (m, c, q, R) wrappers and JAX's
+    ``_viterbi_seq_pallas`` in interpret mode; its deltas equal the
+    lane-layout plain deltas."""
+    monkeypatch.setattr(pallas_viterbi, "FORCE_INTERPRET", True)
+    init, A, E = _seq_inputs(m, q, b, L, kind)
+    t = [torch.from_numpy(x) for x in (init, A, E)]
+    cuda_viterbi.reset_launches()
+    got = recursion._viterbi_seq_kernels(*t)
+    assert torch.equal(got, _seq_glue_through_lane_layout(*t))
+    ref = np.asarray(jax.jit(jrec._viterbi_seq_pallas)(jnp.asarray(init), jnp.asarray(A), jnp.asarray(E)))
+    np.testing.assert_array_equal(got.numpy(), ref)
+    log_A = torch.log(t[1].clamp_min(EPS))
+    log_E = torch.log(t[2].clamp_min(EPS))
+    delta0 = (torch.log(t[0].clamp_min(EPS))[:, None, :] + log_E[:, :, 0]).contiguous()
+    deltas = cuda_viterbi.maxplus_deltas_seq(log_A, log_E, delta0)
+    assert torch.equal(deltas, cuda_viterbi.maxplus_deltas_plain(
+        log_A, log_E.permute(0, 2, 3, 1), delta0.transpose(1, 2)).permute(0, 3, 1, 2))
+    assert torch.equal(cuda_viterbi.maxplus_decode_seq(log_A, log_E, delta0), got)
+    assert cuda_viterbi.LAUNCHES == {name: 0 for name in cuda_viterbi.LAUNCHES}
 
 
 def test_blocked_wrappers_refuse_other_devices():

@@ -1,6 +1,7 @@
-"""The sweep of the chunk scans K1–K8 (``hmm_layer_torch/tune_scans.py``):
-what it would build, and that it needs a card. The sweep itself runs on the
-card only."""
+"""The sweep of the chunk scans K1–K8 and the blocked decode K7b, K8b
+(``hmm_layer_torch/tune_scans.py``): what it would build, the blocked
+kernels' cases, and that it needs a card. The sweep itself runs on the card
+only."""
 
 import re
 
@@ -14,38 +15,55 @@ from hmm_layer_torch.ops import _cuda_build
 KERNELS = {"K1": ("sum_product", "SUM", 16), "K2": ("sum_product", "FWD", 16),
            "K3": ("sum_product", "BWD", 16), "K4": ("affine", "COMP", 48),
            "K5": ("affine", "OUT", 48), "K6": ("max_plus", "MPS", 16),
-           "K7": ("max_plus", "DELTA", 16), "K8": ("max_plus", "TRACE", 16)}
+           "K7": ("max_plus", "DELTA", 16), "K8": ("max_plus", "TRACE", 16),
+           "K7b": ("max_plus", "DBLK", None), "K8b": ("max_plus", "TBLK", None)}
 KEYS = ("G", "TS", "NB", "UNROLL")
+BLOCKED_KEYS = {"K7b": ("S", "TS"), "K8b": ("T", "G")}
 
 
-def _build_default(name, prefix):
+def _build_default(name, prefix, keys):
     src = _cuda_build.SOURCES[name].read_text()
-    return {k: int(re.search(rf"#define {prefix}_{k} (\d+)", src).group(1)) for k in KEYS}
+    return {k: int(re.search(rf"#define {prefix}_{k} (\d+)", src).group(1)) for k in keys}
+
+
+def _blocked_block(kernel, knobs):
+    """(threads, static shared memory) of the blocked kernels at q = 64."""
+    if kernel == "K7b":
+        return 64 * knobs["S"], 4 * (2 * knobs["TS"] * 64 + 2 * 64)
+    return 65 * knobs["G"], knobs["T"] * (4 * 64 + 80)
 
 
 @pytest.mark.parametrize("kernel", list(KERNELS))
 def test_sweep_covers_the_build_and_fits_shared_memory(kernel):
     name, prefix, words = KERNELS[kernel]
+    keys = BLOCKED_KEYS.get(kernel, KEYS)
     variants = [v for v in tune_scans._variants(["parent"]) if v[4] == (kernel,) and v[3]]
     labels = [v[0] for v in variants]
     assert labels and len(labels) == len(set(labels))
     for lab, src_name, _, defs, _ in variants:
         assert src_name == name and all(d.startswith(f"-D{prefix}_") for d in defs), lab
         knobs = {d.split("=")[0][len(prefix) + 3:]: int(d.split("=")[1]) for d in defs}
-        assert tuple(knobs) == KEYS, lab
-        g, ts, nb = knobs["G"], knobs["TS"], knobs["NB"]
-        smem = 4 * nb * ts * g * words
-        threads = 16 * g
-        assert smem <= tune_scans.SMEM_LIMIT and threads <= 1024 and nb >= 2, lab
+        assert tuple(knobs) == keys, lab
+        if kernel in BLOCKED_KEYS:  # static shared memory: 48 KB
+            threads, smem = _blocked_block(kernel, knobs)
+            assert smem <= 48 * 1024 and threads <= 1024, lab
+        else:
+            g, ts, nb = knobs["G"], knobs["TS"], knobs["NB"]
+            smem = 4 * nb * ts * g * words
+            threads = 16 * g
+            assert smem <= tune_scans.SMEM_LIMIT and threads <= 1024 and nb >= 2, lab
         if kernel in ("K4", "K6"):  # float4 tile reads: the swizzle keeps words whole only for G <= 8
-            assert g in (1, 2, 4, 8), lab
+            assert knobs["G"] in (1, 2, 4, 8), lab
+        if kernel == "K7b":  # S adjacent lanes share a state's terms, read as float4 words
+            assert knobs["S"] in (1, 2, 4), lab
         assert tune_scans.block_shape(kernel, knobs) == (threads, smem), lab
-    default = _build_default(name, prefix)
+    default = _build_default(name, prefix, keys)
     assert default == tune_scans.build_defaults()[kernel]
     assert tune_scans.label(kernel, default) in labels
 
 
-@pytest.mark.parametrize("kernels", [("K1", "K3"), ("K4", "K7"), ("K6", "K8"), tuple(KERNELS)])
+@pytest.mark.parametrize("kernels", [("K1", "K3"), ("K4", "K7"), ("K6", "K8"), ("K7b", "K8b"),
+                                     tuple(KERNELS)])
 def test_compare_builds_run_every_kernel_of_their_source(kernels):
     variants = tune_scans._variants(["parent"], grid=False, kernels=kernels)
     runs = {v[0]: v[4] for v in variants}
@@ -53,6 +71,24 @@ def test_compare_builds_run_every_kernel_of_their_source(kernels):
     assert set(runs) == want
     assert sorted(k for r in runs.values() for k in r) == sorted(kernels)
     assert tune_scans._variants(["parent"], kernels=kernels)[-len(want):] == variants
+
+
+def test_blocked_cases_hold_the_plain_versions(monkeypatch):
+    """K7b's and K8b's cases (here on the CPU, at a small shape): the C
+    shape arguments, sequence-major inputs and outputs, the plain results
+    and bounds."""
+    monkeypatch.setattr(tune_scans, "BLOCKED_SHAPE", dict(b=3, L=40, qs=(17, 33)))
+    cases = tune_scans._cases(torch.device("cpu"), ("K7b", "K8b"))
+    for kernel in ("K7b", "K8b"):
+        assert [tag for tag, _ in cases[kernel]] == [" q=17", " q=33"]
+        for (_, case), q in zip(cases[kernel], (17, 33)):
+            ins, ref, own, rtol, atol, mask, bound, by, dims = case
+            assert dims == (1, 40, q, 3) and (rtol, atol, mask) == (0.0, 0.0, None)
+            assert tuple(ins[1].shape) == ((1, 3, 40, q))
+            assert tuple(ref.shape) == ((1, 3, 40, q) if kernel == "K7b" else (1, 3, 40))
+            assert torch.equal(ref, own) and bound > 0 and by in ("bytes", "operations")
+    states = cases["K8b"][0][1][1]
+    assert states.dtype == torch.int32 and int(states.min()) >= 0 and int(states.max()) < 17
 
 
 def test_sweep_needs_a_card(capsys):
