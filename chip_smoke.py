@@ -51,15 +51,16 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    (bit-equal) at q=29 and q=57 (b=32, L=9999) on the decode's
    sequence-major layout, warm and cold, K7b beside its chain floor (a
    cycle model at the card's maximum SM clock); K9 against its plain
-   version within a float32 accumulation bound at q=29 (b=32, P=33) and
-   q=127 (b=4, P=33). ``HMMLayer.viterbi`` serves 3 requests (K7b, K8b once
-   each per request; paths identical to the glue on the plain versions,
-   valid and score-equal to the sequential decode), ms/batch and the
-   profiler's busy share; ``HMMLayer.log_likelihood`` serves 3 requests
-   with the K9 gate off, then on (K9 once per request, K1 never; equal to
-   the gate-off result and, on a small input, to the sequential
-   recursion), ms/batch for both; one MAP ``loss`` step with the gate on
-   (K9 once, finite gradients).
+   version within a float32 accumulation bound at q=29 (b=32, P=33 and
+   P=303) and q=127 (b=4, P=33), warm and cold. ``HMMLayer.viterbi``
+   serves 3 requests (K7b, K8b once each per request; paths identical to
+   the glue on the plain versions, valid and score-equal to the sequential
+   decode), ms/batch and the profiler's busy share;
+   ``HMMLayer.log_likelihood`` serves 3 requests with the K9 gate off,
+   then on (K9 once per request, K1 never; equal to the gate-off result
+   and, on a small input, to the sequential recursion), ms/batch for both,
+   and the profiler's device busy time and K9 time of one gated request;
+   one MAP ``loss`` step with the gate on (K9 once, finite gradients).
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -123,12 +124,13 @@ TRAIN_STEPS, MAP_STEPS, CLI_STEPS = 5, 2, 10
 # the log-likelihood K1 once more.
 PER_REQUEST = {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1}
 # Kernels timed cold as well as warm in phases 3 and 9: K1's and K6's 19–20
-# MB, K8's 21 MB, K2's, K3's and K7's 38 MB and K8b's 38 MB of inputs and
-# outputs stay in the 50 MB L2 over back-to-back launches (K4's 117 MB, K5's
-# 154 MB and K7b's 74 MB do not, and their cold times show that).
+# MB, K8's 21 MB, K2's, K3's and K7's 38 MB, K8b's 38 MB and K9's 41 MB (q=29)
+# of inputs and outputs stay in the 50 MB L2 over back-to-back launches
+# (K4's 117 MB, K5's 154 MB and K7b's 74 MB do not, and their cold times
+# show that).
 COLD = ("sum_chunk_summaries", "sum_fwd_outputs", "beta_bwd_outputs", "affine_chunk_composites",
         "affine_reverse_outputs", "maxplus_chunk_summaries", "maxplus_deltas", "maxplus_backtrace",
-        "maxplus_deltas_blocked", "maxplus_backtrace_blocked")
+        "maxplus_deltas_blocked", "maxplus_backtrace_blocked", "sum_chunk_summaries_mxu")
 # K7b's chain floor, a model in SM cycles a step (not a measurement): the
 # term's add, a ceil(log2 q)-deep max tree and the emission's add at 4
 # cycles each, a shared-memory store and load of delta (30) and a barrier
@@ -1217,10 +1219,11 @@ def mxu_inputs(layer, X, recursion, P):
 def mxu_kernel_phase(layers, make, recursion, cuda_mxu, peak_bytes, peak_flops):
     """K9 against its plain version at q=29 (b=32, P=33: recorded), at
     q=29 with short chunks (P=303, c=33: |C| small enough that the order of
-    the sums shows) and at q=127 (b=4, P=33: A takes 64 KB of shared
-    memory). Sums run in another order, so the limit is a float32
-    accumulation bound: on entries within 30 nats of their row's maximum,
-    |kernel - plain| <= 2e-4 + the ``f32_log_bound`` of |C| over c steps."""
+    the sums shows) and at q=127 (b=4, P=33: A and two buffers of the
+    operator take 192 KB of shared memory), warm and cold. Sums run in
+    another order, so the limit is a float32 accumulation bound: on entries
+    within 30 nats of their row's maximum, |kernel - plain| <= 2e-4 + the
+    ``f32_log_bound`` of |C| over c steps."""
     records = {}
     for k, b, P in ((MC_K, B, PF), (MC_K, B, 303), (9, 4, PF)):
         with torch.inference_mode():
@@ -1241,9 +1244,11 @@ def mxu_kernel_phase(layers, make, recursion, cuda_mxu, peak_bytes, peak_flops):
                           plain_samples=5)
             if (k, P) == (MC_K, PF):
                 records[name] = rec
+            kern = lambda: cuda_mxu.sum_chunk_summaries_mxu(A, E_S, P)  # noqa: E731
             log(f"phase 9 {name} q={q} (b={b}, P={P}, c={c}, R={R}): {'ok' if ok else 'MISMATCH'} "
                 f"max_abs_err={err:.3e} (limit {atol:.3e} within 30 nats of the row max; |C| max "
-                f"{float(C_plain.abs().max()):.1f}) {timing_text(rec, nbytes, nops)}")
+                f"{float(C_plain.abs().max()):.1f}) {timing_text(rec, nbytes, nops)}"
+                f"{cold_text(name, kern, rec)}")
             if not ok:
                 raise AssertionError(f"K9 disagrees with its plain version at q={q}")
     return records
@@ -1320,7 +1325,8 @@ def multicopy_loglik_phase(layer, make, recursion, cuda_mxu, cuda_forward):
     """``HMMLayer.log_likelihood`` serving 3 multi-copy requests with the
     K9 gate off (plain summaries), then on (K9 once per request, K1 never);
     the two against each other and, on a small input, against the
-    sequential recursion; then one MAP ``loss`` step with the gate on."""
+    sequential recursion; the profiler's device busy time and K9 time of
+    one gated request; then one MAP ``loss`` step with the gate on."""
     requests = [make(SEED + 60 + i, B, L) for i in range(N_REQUESTS)]
     saved_gate = cuda_mxu.MXU_KERNELS
 
@@ -1356,6 +1362,8 @@ def multicopy_loglik_phase(layer, make, recursion, cuda_mxu, cuda_forward):
                 if not ok:
                     raise AssertionError(f"request {i}: K9 loglik disagrees with the plain summaries")
             _, on_ms = serve()
+            profile_request("phase 9 loglik (gate on)", lambda: layer.log_likelihood(requests[0]), "K9",
+                            ("mxu_summary_kernel",))
 
             Xs = make(SEED + 97, 2, 600)
             init, A = layer.transitions.matrices()

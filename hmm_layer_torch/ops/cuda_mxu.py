@@ -5,7 +5,8 @@ Port of ``hmm_layer_tpu/ops/pallas_mxu.py``: the same chunk transfer
 operators as K1 (:func:`.cuda_forward.sum_chunk_summaries`) for the state
 counts whose q x q carry K1's registers cannot hold, one (rows, q) x (q, q)
 product and a row rescale per step. ``csrc/mxu.cu`` computes it with IEEE
-float32 FMAs, one warp per operator row.
+float32 FMAs, a group of threads per chunk element, each thread a register
+tile of the product.
 
 * :func:`sum_chunk_summaries_mxu` takes the plain version for a tensor on
   the CPU, and for a CUDA tensor launches the kernel or raises;

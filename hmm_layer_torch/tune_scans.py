@@ -1,8 +1,8 @@
-"""Tilings of the chunk scans K1–K8 and the blocked decode K7b, K8b on the
-card.
+"""Tilings of the chunk scans K1–K8, the blocked decode K7b, K8b and the
+16 < q <= 128 chunk summaries K9 on the card.
 
 Run from the root of the repository on a machine with a CUDA device:
-``python3 -m hmm_layer_torch.tune_scans [--kernels K7b,K8b] [--compare DIR
+``python3 -m hmm_layer_torch.tune_scans [--kernels K9] [--compare DIR
 ...] [--compare-only] [--e2e] [--out DIR]``.
 
 K1, K2, K3 (``csrc/sum_product.cu``), K4, K5 (``csrc/affine.cu``), K6, K7
@@ -12,22 +12,28 @@ unrolled U times, under the prefixes ``SUM_`` (K1), ``FWD_`` (K2), ``BWD_``
 (K3), ``COMP_`` (K4), ``OUT_`` (K5), ``MPS_`` (K6), ``DELTA_`` (K7) and
 ``TRACE_`` (K8), e.g. ``-DBWD_TS=32``. K7b (``DBLK_``) has S threads per
 state and TS steps a staged tile, K8b (``TBLK_``) T steps a backpointer
-tile and G row groups a tiles block. The package's own build uses the
-defaults in the sources.
-Tilings whose ring exceeds a block's 227 KB of shared memory are left out.
+tile and G row groups a tiles block. K9 (``csrc/mxu.cu``, ``MXU_``) has a
+TM x TN tile of the product a thread, TS steps a ring slot and G elements
+a block at q <= 32. The package's own build uses the defaults in the
+sources.
+Tilings whose block exceeds 227 KB of shared memory (K9: at any padded
+width) or 1,024 threads are left out.
 ``--kernels`` limits the sweep to some of the kernels. The ``nvcc``
 processes run side by side, two for each CPU core, with ``-Xptxas -v``.
-Each ``--compare DIR`` adds the three sources of another commit
-(``DIR/sum_product.cu``, ``DIR/affine.cu``, ``DIR/max_plus.cu``) as
-variants of all ten kernels, so that old and new kernels are timed in the
-same process on the same card; ``--compare-only`` leaves the tilings out.
-Each variant runs at the flagship shapes on seeded random inputs (m=1,
-c=303, q=15, R=1056, P=33; K4, K5: 2m=2, the posterior VJP's stacked
-models; K7b, K8b: the sequential decode's b=32, L=9999 at q=29 and q=57),
-is held against the plain version (K1 rtol 1e-5, atol 1e-3 where C lies
-within 30 nats of its row's maximum; K2, K3 rtol 1e-5, atol 1e-2; K4, K5
-rtol 1e-5, atol 1e-6; K6, K7, K8, K7b, K8b bit-equal) and against the
-package's own build (bit-equal or not), and is timed:
+Each ``--compare DIR`` adds the four sources of another commit
+(``DIR/sum_product.cu``, ``DIR/affine.cu``, ``DIR/max_plus.cu``,
+``DIR/mxu.cu``) as variants of all eleven kernels, so that old and new
+kernels are timed in the same process on the same card;
+``--compare-only`` leaves the tilings out. Each variant runs at the
+flagship shapes on seeded random inputs (m=1, c=303, q=15, R=1056, P=33;
+K4, K5: 2m=2, the posterior VJP's stacked models; K7b, K8b: the
+sequential decode's b=32, L=9999 at q=29 and q=57; K9: L=9999, P=33, so
+c=303, at q=29 with b=32 and at q=127 with b=4), is held against the
+plain version (K1 rtol 1e-5, atol 1e-3 where C lies within 30 nats of its
+row's maximum; K2, K3 rtol 1e-5, atol 1e-2; K4, K5 rtol 1e-5, atol 1e-6;
+K6, K7, K8, K7b, K8b bit-equal; K9, whose sums run in another order, rtol
+= atol = 2e-4 where C lies within 30 nats of its row's maximum) and
+against the package's own build (bit-equal or not), and is timed:
 
 * warm: median of 20 samples of 10 back-to-back launches (CUDA events),
   the inputs then sit in the 50 MB L2;
@@ -41,10 +47,14 @@ and takes posterior cross-entropy and MAP steps (forward and backward, no
 optimizer) with this build's kernels and with DIR's in turns: 40 rounds,
 this build first and DIR first alternately (the libraries are loaded side by side and
 swapped under the wrappers). The multi-copy layer of ``chip_smoke.py``
-phase 9 (k=2, q=29, the same seed) serves decode requests in the same
-rounds (K7b and K8b). Each call is timed with the host clock around a
+phase 9 (k=2, q=29, the same seed) serves decode requests (K7b and K8b),
+log-likelihood requests and takes MAP steps in the same rounds, the last
+two with the K9 gate (``cuda_mxu.MXU_KERNELS``) on around each call and
+restored after it. Each call is timed with the host clock around a
 synchronised call; the medians and the median paired difference are
-printed.
+printed. Then ``torch.profiler`` traces 3 gated q=29 log-likelihood
+requests with each build, in turns, and the median device busy time and
+K9 time of each build are printed.
 
 It prints ptxas's registers and spills of each kernel, the longest run of
 back-to-back ``SHFL`` instructions in each default kernel's SASS
@@ -71,7 +81,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ops import _cuda_build, cuda_adjoint, cuda_forward, cuda_viterbi
+from .ops import _cuda_build, cuda_adjoint, cuda_forward, cuda_mxu, cuda_viterbi
 from .utils.cuda_timing import cold_median_ms, median_ms
 
 CODONS = dict(
@@ -93,12 +103,15 @@ KERNELS = {
     "K8": ("max_plus", "TRACE", "hmm_maxplus_backtrace", "backtrace_kernel"),
     "K7b": ("max_plus", "DBLK", "hmm_maxplus_deltas_blocked", "deltas_blocked_kernel"),
     "K8b": ("max_plus", "TBLK", "hmm_maxplus_backtrace_blocked", "backtrace_blocked_tiles_kernel"),
+    "K9": ("mxu", "MXU", "hmm_sum_chunk_summaries_mxu", "mxu_summary_kernel"),
 }
 SOURCE_NAMES = tuple(dict.fromkeys(source for source, *_ in KERNELS.values()))
 STAGED_PLANES = {"K4": 3, "K5": 3}  # u, v and s; the others stage one plane
 KNOBS = ("G", "TS", "NB", "UNROLL")
-# The blocked bodies' own knobs (the others take KNOBS).
-KNOBS_OF = {"K7b": ("S", "TS"), "K8b": ("T", "G")}
+# The blocked bodies' and K9's own knobs (the others take KNOBS).
+KNOBS_OF = {"K7b": ("S", "TS"), "K8b": ("T", "G"), "K9": ("TM", "TN", "TS", "G")}
+BLOCKED = ("K7b", "K8b")  # static shared memory (48 KB)
+FLAGSHIP = tuple(k for k in KERNELS if k not in KNOBS_OF)  # K1–K8
 _SCAN_GRID = [(4, 32, 2, 1)] + [(g, ts, nb, u) for g in (8, 16) for ts in (16, 32, 64)
                                 for nb in (2, 3) for u in (1, 2, 4)]
 # The knob values tried for each kernel ({-D suffix: value}).
@@ -121,10 +134,15 @@ TILINGS = {
     # K7b: S lanes per state
     "K7b": [dict(S=s, TS=ts) for s in (1, 2, 4) for ts in (16, 32, 64)],
     "K8b": [dict(T=t, G=g) for t in (32, 64, 128) for g in (2, 4, 8)],
+    # K9: a TM x TN tile of the product a thread, G elements a block at q <= 32
+    "K9": [dict(TM=tm, TN=tn, TS=ts, G=g) for tm in (4, 8) for tn in (4, 8) for ts in (8, 16, 32)
+           for g in (2, 4, 8)],
 }
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on Hopper
 SHAPE = dict(c=303, q=15, R=1056, P=33)
 BLOCKED_SHAPE = dict(b=32, L=9999, qs=(29, 57))
+MXU_SHAPE = dict(L=9999, P=33, qb=((29, 32), (127, 4)))  # (q, b) of each K9 case
+MXU_WIDTHS = (32, 64, 96, 128)  # K9's padded widths QP
 PEAK_BYTES, PEAK_FLOPS = 3.35e12, 67e12  # H100 SXM data sheet (float32, no tensor cores)
 
 
@@ -132,10 +150,23 @@ def knobs_of(kernel):
     return KNOBS_OF.get(kernel, KNOBS)
 
 
+def mxu_block(qp, knobs):
+    """(threads, bytes of dynamic shared memory) of K9's block at padded
+    width ``qp``: G elements at qp = 32, else one; NT = (qp / TN) (qp / TM)
+    threads an element (TN = 12 at qp = 96); A, then for each element two
+    buffers of M and two ring slots of TS steps."""
+    tn = 12 if qp == 96 else knobs["TN"]
+    g = knobs["G"] if qp == 32 else 1
+    return g * (qp // tn) * (qp // knobs["TM"]), 4 * (qp * qp + g * (2 * qp * qp + 2 * knobs["TS"] * qp))
+
+
 def block_shape(kernel, knobs):
     """(threads, bytes of shared memory) of a block of ``kernel`` built
     with ``knobs``: dynamic shared memory, or for K7b and K8b their static
-    shared memory at q = 64 (K8b: its tiles block)."""
+    shared memory at q = 64 (K8b: its tiles block); K9: the most of each
+    over its padded widths."""
+    if kernel == "K9":
+        return tuple(map(max, zip(*(mxu_block(qp, knobs) for qp in MXU_WIDTHS))))
     if kernel == "K7b":
         return 64 * knobs["S"], 4 * (2 * knobs["TS"] * 64 + 2 * 64)
     if kernel == "K8b":
@@ -166,7 +197,7 @@ def _variants(compare, grid=True, kernels=tuple(KERNELS)):
         name, prefix = KERNELS[kernel][:2]
         for knobs in TILINGS[kernel]:
             threads, smem = block_shape(kernel, knobs)
-            limit = SMEM_LIMIT if kernel not in KNOBS_OF else 48 * 1024  # static shared memory
+            limit = 48 * 1024 if kernel in BLOCKED else SMEM_LIMIT  # static shared memory
             if smem > limit or threads > 1024:
                 continue
             out.append((label(kernel, knobs), name, _cuda_build.SOURCES[name],
@@ -274,6 +305,31 @@ def _blocked_cases(device, q):
     }
 
 
+def _mxu_cases(device):
+    """K9's cases at L=9999, P=33 (c=303) for each (q, b) of MXU_SHAPE:
+    seeded random A (a structural zero column) and emissions E_S (m, c, R,
+    q); rtol = atol = 2e-4 where C lies within 30 nats of its row's
+    maximum."""
+    P = MXU_SHAPE["P"]
+    c = -(-MXU_SHAPE["L"] // P)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)  # noqa: E731
+    out = []
+    for q, b in MXU_SHAPE["qb"]:
+        R = b * P
+        rng = np.random.default_rng(q)
+        A = rng.dirichlet(np.ones(q), size=(1, q))
+        A[..., 1] = 0.0
+        A, E_S = t(A / A.sum(-1, keepdims=True)), t(rng.uniform(0.05, 1.0, size=(1, c, R, q)))
+        ref = cuda_mxu.sum_chunk_summaries_mxu_plain(A, E_S, P)
+        out.append((f" q={q}", (
+            (A, E_S), ref, cuda_mxu.sum_chunk_summaries_mxu(A, E_S, P), 2e-4, 2e-4,
+            ref >= ref.amax(-1, keepdim=True) - 30.0,
+            # FMA = 2; clamp, product, sum and scale one each
+            *_bound(4 * q * q + 4 * c * R * q + 4 * R * q * q, R * q * (c - 1) * q * (2 * q + 4)),
+            (1, c, q, R, P))))
+    return out
+
+
 def _flagship_cases(device):
     """K1–K8's cases (see :func:`_cases`) at the flagship shapes."""
     c, q, R, P = SHAPE["c"], SHAPE["q"], SHAPE["R"], SHAPE["P"]
@@ -343,22 +399,45 @@ def _cases(device, kernels=tuple(KERNELS)):
     """{kernel: [(shape tag, (C arguments before the output, plain result,
     the package build's result, rtol, atol, mask, bound ms, bound_by, C
     shape arguments)), ...]} of ``kernels`` at the flagship shapes (K7b,
-    K8b: the sequential decode's, one case for each q), on seeded random
-    inputs; the output takes the plain result's shape and type."""
+    K8b: the sequential decode's, one case for each q; K9: MXU_SHAPE's), on
+    seeded random inputs; the output takes the plain result's shape and
+    type."""
     out = {}
-    if set(kernels) - set(KNOBS_OF):
+    if set(FLAGSHIP) & set(kernels):
         out = {kernel: [("", case)] for kernel, case in _flagship_cases(device).items()}
-    if set(KNOBS_OF) & set(kernels):
+    if set(BLOCKED) & set(kernels):
         for q in BLOCKED_SHAPE["qs"]:
             for kernel, case in _blocked_cases(device, q).items():
                 out.setdefault(kernel, []).append((f" q={q}", case))
+    if "K9" in kernels:
+        out["K9"] = _mxu_cases(device)
     return out
+
+
+def _device_busy_ms(fn, symbol):
+    """(device busy ms, ms of the kernels whose name holds ``symbol``) of
+    one synchronised call of ``fn`` under ``torch.profiler``, after one
+    call unprofiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+
+    def us(e):  # renamed from self_cuda_time_total in newer torch
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    return sum(map(us, rows)) / 1e3, sum(us(e) for e in rows if symbol in e.key) / 1e3
 
 
 def _e2e(other, rounds=40):
     """Posterior, log-likelihood and decode (q=15 and the q=29 multi-copy)
-    ms/batch, CE and MAP ms/step with this build's kernel libraries and
-    with ``other`` ({source name: library}), interleaved A, B, B, A."""
+    ms/batch, CE and MAP ms/step, and the q=29 log-likelihood and MAP step
+    with the K9 gate on, with this build's kernel libraries and with
+    ``other`` ({source name: library}), interleaved A, B, B, A."""
     from . import HMMLayer, models
 
     layer = HMMLayer(models.GenePredTransitions(), models.GenePredEmissions(**CODONS),
@@ -387,6 +466,7 @@ def _e2e(other, rounds=40):
     with torch.no_grad():
         for p in multi.parameters():
             p.add_((0.5 * torch.randn(p.shape, generator=gen)).to(p.device))
+    multi_pars = [p for p in multi.parameters() if p.requires_grad]
     own = {name: _cuda_build.load(name) for name in other}
     libs = {"this build": own, "compare": other}
 
@@ -412,9 +492,30 @@ def _e2e(other, rounds=40):
         with torch.inference_mode():
             multi.viterbi(X)
 
+    def k9_gated(fn):
+        """``fn`` with the K9 gate on around the call only."""
+        def call():
+            saved = cuda_mxu.MXU_KERNELS
+            cuda_mxu.MXU_KERNELS = True
+            try:
+                fn()
+            finally:
+                cuda_mxu.MXU_KERNELS = saved
+        return call
+
+    @k9_gated
+    def loglik_q29():
+        with torch.inference_mode():
+            multi.log_likelihood(X)
+
+    @k9_gated
+    def map_q29():
+        torch.autograd.grad(multi.loss(X), multi_pars)
+
     calls = {"posterior": (posterior, "ms/batch"), "ce": (ce_step, "ms/step"),
              "map": (map_step, "ms/step"), "loglik": (loglik, "ms/batch"),
-             "decode": (decode, "ms/batch"), "decode_q29": (decode_q29, "ms/batch")}
+             "decode": (decode, "ms/batch"), "decode_q29": (decode_q29, "ms/batch"),
+             "loglik_q29": (loglik_q29, "ms/batch"), "map_q29": (map_q29, "ms/step")}
     times = {v: {key: [] for key in calls} for v in libs}
     try:
         for i in range(rounds + 1):  # round 0 warms both up, untimed
@@ -427,6 +528,11 @@ def _e2e(other, rounds=40):
                     torch.cuda.synchronize()
                     if i:
                         times[v][key].append(1e3 * (time.perf_counter() - t0))
+        busy = {v: [] for v in libs}  # (device busy ms, K9 ms) of profiled gated requests
+        for i in range(6):
+            v = ("this build", "compare")[i % 2]
+            _cuda_build._libs.update(libs[v])
+            busy[v].append(_device_busy_ms(loglik_q29, KERNELS["K9"][3]))
     finally:
         _cuda_build._libs.update(own)
     for key, (_, unit) in calls.items():
@@ -435,6 +541,11 @@ def _e2e(other, rounds=40):
         print(f"e2e {key}: this build {statistics.median(a):.3f} {unit} [{min(a):.3f}, {max(a):.3f}], "
               f"compare {statistics.median(b_):.3f} [{min(b_):.3f}, {max(b_):.3f}], median paired "
               f"difference {diff:+.3f} ({len(a)} pairs, b={b}, L={length})", flush=True)
+    med = {v: [statistics.median(x) for x in zip(*busy[v])] for v in libs}
+    print(f"e2e loglik_q29 profiled ({len(busy['compare'])} requests each): device busy this build "
+          f"{med['this build'][0]:.3f} ms (K9 {med['this build'][1]:.3f}), compare {med['compare'][0]:.3f} "
+          f"ms (K9 {med['compare'][1]:.3f}), difference {med['this build'][0] - med['compare'][0]:+.3f} ms",
+          flush=True)
 
 
 def main(argv=None) -> int:
@@ -442,11 +553,12 @@ def main(argv=None) -> int:
     parser.add_argument("--kernels", default=",".join(KERNELS),
                         help=f"comma-separated kernels to sweep (default: all of {','.join(KERNELS)})")
     parser.add_argument("--compare", action="append", default=[],
-                        help="directory with another commit's sum_product.cu, affine.cu and max_plus.cu")
+                        help="directory with another commit's sum_product.cu, affine.cu, max_plus.cu "
+                             "and mxu.cu")
     parser.add_argument("--compare-only", action="store_true", help="time the --compare sources only")
     parser.add_argument("--e2e", action="store_true",
-                        help="time the flagship posterior, log-likelihood and decode requests and the CE "
-                             "and MAP steps with this build and with --compare")
+                        help="time the flagship posterior, log-likelihood and decode requests, the CE "
+                             "and MAP steps and the q=29 multi-copy calls with this build and with --compare")
     parser.add_argument("--out", default=str(_cuda_build.BUILD_DIR / "tune"), help="directory for the SASS")
     args = parser.parse_args(argv)
     kernels = tuple(args.kernels.split(","))

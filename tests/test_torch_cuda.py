@@ -567,7 +567,8 @@ def _mxu_inputs(seed, m, q, c, R, device):
     return [torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device) for x in (A, E_S)]
 
 
-@pytest.mark.parametrize("q", [17, 29, 64, 127])
+# Every padded width of K9 (QP = 32, 64, 96, 128) at its first and last q.
+@pytest.mark.parametrize("q", [17, 29, 32, 33, 64, 65, 96, 97, 127, 128])
 def test_mxu_kernel_matches_plain(cuda, q):
     """K9 against its plain version: another order of the sums, so within
     rtol = atol = 2e-4 (the JAX suite's tolerance for this kernel) where
@@ -577,6 +578,53 @@ def test_mxu_kernel_matches_plain(cuda, q):
     C = cuda_mxu.sum_chunk_summaries_mxu(A, E_S, 4)
     assert cuda_mxu.LAUNCHES == {"sum_chunk_summaries_mxu": 1}
     ref = cuda_mxu.sum_chunk_summaries_mxu_plain(A, E_S, 4)
+    mask = ref >= ref.amax(-1, keepdim=True) - 30.0
+    torch.testing.assert_close(C[mask], ref[mask], rtol=2e-4, atol=2e-4)
+    torch.cuda.synchronize()
+
+
+# The edges of K9's blocks and ring (in the build: 8 elements a block at q <=
+# 32, one above; ring slots of 16 steps): c = 1 (step 0 only) and c around a
+# slot, P = 1 (every element a first chunk), first chunks inside a block's
+# elements (P = 3, 5), R not a multiple of 8, m = 2. Fields: m, q, c, R, P.
+MXU_EDGE_CASES = [
+    pytest.param(1, 29, 1, 13, 1, id="c1-q29-R13-P1"),
+    pytest.param(1, 127, 1, 3, 2, id="c1-q127"),
+    pytest.param(1, 29, 16, 21, 1, id="c16-R21-P1"),
+    pytest.param(1, 29, 17, 27, 3, id="c17-R27-P3"),
+    pytest.param(1, 33, 33, 1, 1, id="c33-R1-q33"),
+    pytest.param(1, 97, 15, 5, 5, id="c15-R5-P5-q97"),
+    pytest.param(2, 29, 37, 19, 4, id="m2-c37-R19-P4"),
+    pytest.param(2, 128, 17, 3, 3, id="m2-c17-q128"),
+]
+
+
+@pytest.mark.parametrize("m,q,c,R,P", MXU_EDGE_CASES)
+def test_mxu_kernel_edges_match_plain(cuda, m, q, c, R, P):
+    A, E_S = _mxu_inputs(q + c, m, q, c, R, cuda)
+    C = cuda_mxu.sum_chunk_summaries_mxu(A, E_S, P)
+    ref = cuda_mxu.sum_chunk_summaries_mxu_plain(A, E_S, P)
+    assert torch.isfinite(C).all()
+    mask = ref >= ref.amax(-1, keepdim=True) - 30.0
+    torch.testing.assert_close(C[mask], ref[mask], rtol=2e-4, atol=2e-4)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("k", [2, 9])
+def test_mxu_kernel_gene_pred_matrix_matches_plain(cuda, k):
+    """K9 on the multi-copy gene-prediction A (q = 1 + 14k: exact zeros
+    wherever the model has no edge) and its emissions, laid out as the
+    gated log-likelihood lays them out."""
+    layer = _multi_copy_layer(k, 8, cuda)
+    X = torch.from_numpy(_multi_copy_inputs(k, 3, 96)).to(cuda)
+    with torch.inference_mode():
+        _, A = layer.transitions.matrices()
+        A = A.contiguous()
+        Ec, _ = recursion._split_chunks(layer.emission_probs(X).clamp_min(1e-16), 8)
+        E_S = Ec.transpose(1, 2).contiguous()
+        assert tuple(E_S.shape) == (1, 12, 24, 1 + 14 * k) and bool((A == 0).any())
+        C = cuda_mxu.sum_chunk_summaries_mxu(A, E_S, 8)
+        ref = cuda_mxu.sum_chunk_summaries_mxu_plain(A, E_S, 8)
     mask = ref >= ref.amax(-1, keepdim=True) - 30.0
     torch.testing.assert_close(C[mask], ref[mask], rtol=2e-4, atol=2e-4)
     torch.cuda.synchronize()

@@ -1,7 +1,7 @@
-"""The sweep of the chunk scans K1–K8 and the blocked decode K7b, K8b
-(``hmm_layer_torch/tune_scans.py``): what it would build, the blocked
-kernels' cases, and that it needs a card. The sweep itself runs on the card
-only."""
+"""The sweep of the chunk scans K1–K8, the blocked decode K7b, K8b and the
+16 < q <= 128 chunk summaries K9 (``hmm_layer_torch/tune_scans.py``): what
+it would build, the blocked kernels' and K9's cases, and that it needs a
+card. The sweep itself runs on the card only."""
 
 import re
 
@@ -9,16 +9,18 @@ import pytest
 import torch
 
 from hmm_layer_torch import tune_scans
-from hmm_layer_torch.ops import _cuda_build
+from hmm_layer_torch.ops import _cuda_build, cuda_mxu
 
 # kernel: (source, -D prefix, words a step of one element stages)
 KERNELS = {"K1": ("sum_product", "SUM", 16), "K2": ("sum_product", "FWD", 16),
            "K3": ("sum_product", "BWD", 16), "K4": ("affine", "COMP", 48),
            "K5": ("affine", "OUT", 48), "K6": ("max_plus", "MPS", 16),
            "K7": ("max_plus", "DELTA", 16), "K8": ("max_plus", "TRACE", 16),
-           "K7b": ("max_plus", "DBLK", None), "K8b": ("max_plus", "TBLK", None)}
+           "K7b": ("max_plus", "DBLK", None), "K8b": ("max_plus", "TBLK", None),
+           "K9": ("mxu", "MXU", None)}
 KEYS = ("G", "TS", "NB", "UNROLL")
 BLOCKED_KEYS = {"K7b": ("S", "TS"), "K8b": ("T", "G")}
+MXU_KEYS = ("TM", "TN", "TS", "G")
 
 
 def _build_default(name, prefix, keys):
@@ -33,10 +35,24 @@ def _blocked_block(kernel, knobs):
     return 65 * knobs["G"], knobs["T"] * (4 * 64 + 80)
 
 
+def _mxu_blocks(knobs):
+    """(threads, dynamic shared memory) of K9's block at each padded width
+    QP: G elements of (QP / TN) (QP / TM) threads at QP = 32, one element
+    above (12 columns a thread at QP = 96); A (QP x QP), and per element
+    two buffers of M (QP x QP) and two ring slots (TS x QP)."""
+    out = {}
+    for qp, g in ((32, knobs["G"]), (64, 1), (96, 1), (128, 1)):
+        tn = 12 if qp == 96 else knobs["TN"]
+        assert qp % tn == 0 and qp % knobs["TM"] == 0
+        out[qp] = (g * (qp // tn) * (qp // knobs["TM"]),
+                   4 * (qp * qp + g * (2 * qp * qp + 2 * knobs["TS"] * qp)))
+    return out
+
+
 @pytest.mark.parametrize("kernel", list(KERNELS))
 def test_sweep_covers_the_build_and_fits_shared_memory(kernel):
     name, prefix, words = KERNELS[kernel]
-    keys = BLOCKED_KEYS.get(kernel, KEYS)
+    keys = MXU_KEYS if kernel == "K9" else BLOCKED_KEYS.get(kernel, KEYS)
     variants = [v for v in tune_scans._variants(["parent"]) if v[4] == (kernel,) and v[3]]
     labels = [v[0] for v in variants]
     assert labels and len(labels) == len(set(labels))
@@ -47,6 +63,13 @@ def test_sweep_covers_the_build_and_fits_shared_memory(kernel):
         if kernel in BLOCKED_KEYS:  # static shared memory: 48 KB
             threads, smem = _blocked_block(kernel, knobs)
             assert smem <= 48 * 1024 and threads <= 1024, lab
+        elif kernel == "K9":  # dynamic shared memory at every padded width
+            blocks = _mxu_blocks(knobs)
+            for qp, (t, b) in blocks.items():
+                assert b <= tune_scans.SMEM_LIMIT and t <= 1024 and t % 32 == 0, (lab, qp)
+                nc = qp // (12 if qp == 96 else knobs["TN"])
+                assert nc <= 32 and nc & (nc - 1) == 0, (lab, qp)  # a row's threads: xor shuffles
+            threads, smem = (max(v) for v in zip(*blocks.values()))
         else:
             g, ts, nb = knobs["G"], knobs["TS"], knobs["NB"]
             smem = 4 * nb * ts * g * words
@@ -63,7 +86,7 @@ def test_sweep_covers_the_build_and_fits_shared_memory(kernel):
 
 
 @pytest.mark.parametrize("kernels", [("K1", "K3"), ("K4", "K7"), ("K6", "K8"), ("K7b", "K8b"),
-                                     tuple(KERNELS)])
+                                     ("K9",), tuple(KERNELS)])
 def test_compare_builds_run_every_kernel_of_their_source(kernels):
     variants = tune_scans._variants(["parent"], grid=False, kernels=kernels)
     runs = {v[0]: v[4] for v in variants}
@@ -91,6 +114,27 @@ def test_blocked_cases_hold_the_plain_versions(monkeypatch):
     assert states.dtype == torch.int32 and int(states.min()) >= 0 and int(states.max()) < 17
 
 
+def test_mxu_cases_hold_the_plain_version(monkeypatch):
+    """K9's cases (here on the CPU, at a small shape): the C shape
+    arguments (m, c, q, R, P), the inputs' layouts, the plain result, the
+    tolerance and mask, and the bound."""
+    monkeypatch.setattr(tune_scans, "MXU_SHAPE", dict(L=20, P=4, qb=((17, 3), (33, 2))))
+    cases = tune_scans._cases(torch.device("cpu"), ("K9",))
+    assert list(cases) == ["K9"] and [tag for tag, _ in cases["K9"]] == [" q=17", " q=33"]
+    for (_, case), (q, b) in zip(cases["K9"], ((17, 3), (33, 2))):
+        ins, ref, own, rtol, atol, mask, bound, by, dims = case
+        R = 4 * b
+        assert dims == (1, 5, q, R, 4) and (rtol, atol) == (2e-4, 2e-4)
+        assert tuple(ins[0].shape) == (1, q, q) and tuple(ins[1].shape) == (1, 5, R, q)
+        assert tuple(ref.shape) == (1, R, q, q) and torch.isfinite(ref).all()
+        torch.testing.assert_close(ref, cuda_mxu.sum_chunk_summaries_mxu_plain(*ins, 4))
+        assert torch.equal(ref, own) and mask.dtype == torch.bool and mask.any(-1).all()
+        nops = R * q * 4 * q * (2 * q + 4)
+        assert by == "operations" and bound == pytest.approx(1e3 * nops / tune_scans.PEAK_FLOPS)
+        torch.testing.assert_close(ins[0].sum(-1), torch.ones(1, q))  # rows of A sum to 1
+        assert float(ins[0][..., 1].abs().max()) == 0.0  # its structural zero column
+
+
 def test_sweep_needs_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("on a card the sweep runs for real (python3 -m hmm_layer_torch.tune_scans)")
@@ -99,4 +143,4 @@ def test_sweep_needs_a_card(capsys):
     with pytest.raises(SystemExit):
         tune_scans.main(["--e2e"])  # the A/B run needs one --compare directory
     with pytest.raises(SystemExit):
-        tune_scans.main(["--kernels", "K9"])  # K9 has no sweep
+        tune_scans.main(["--kernels", "K10"])  # no kernel K10
