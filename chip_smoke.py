@@ -61,6 +61,27 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    and, on a small input, to the sequential recursion), ms/batch for both,
    and the profiler's device busy time and K9 time of one gated request;
    one MAP ``loss`` step with the gate on (K9 once, finite gradients).
+10. Options and auxiliary inference, at the flagship width on the phase-4
+   inputs with seeded weights; each item prints its launches, checks and
+   times. ``emit_embeddings`` (d = 32 seeded N(0, 1) embedding channels):
+   3 posterior requests (K1–K3 once each; the plain route), the MVN's peak
+   memory, 2 CE steps with the aux loss (K1–K5 once each, every parameter
+   moving) and one full-covariance request against its plain route.
+   ``onehot_lookup_kmers``: emissions against the 3-mer contraction on the
+   same weights, 3 posterior requests beside the contraction path's.
+   ``trainable_nucleotides_at_exons`` with ``use_experimental_prior``: 2
+   MAP steps (K1–K3 once; finite prior, a nonzero nucleotide gradient).
+   ``sample_paths``: S = 8 at q = 15 (K1 once a request; every start and
+   transition valid), state frequencies of 1000 paths of one sequence
+   against exp(log gamma), and S = 8 at q = 29 with the K9 gate on (K9
+   once, K1 never). ``em_step``: 3 steps (K1–K3 once each, loglik not
+   falling, stochastic rows; step 1 against the plain route). Streaming
+   over 3 blocks of 3333 at P = 33: the filter (K1 once a block) against
+   the whole sequence's log-likelihood, the smoother (lag 263) against the
+   posterior of the sequence truncated at each window's end, the fixed-lag
+   Viterbi (lag 256) valid; ms per block. The profiler's device busy time
+   of one posterior with embeddings, one ``sample_paths``, one ``em_step``,
+   the filter, the smoother and one fixed-lag Viterbi block.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -197,18 +218,23 @@ def make_inputs(seed, b, length, device):
     return torch.from_numpy(np.concatenate([cls, nucs], axis=-1)).to(device)
 
 
-def build_layer(HMMLayer, models):
-    layer = HMMLayer(
-        models.GenePredTransitions(),
-        models.GenePredEmissions(**CODONS),
-        use_prior=False,
-        parallel_factor="auto",
-    )
-    gen = torch.Generator().manual_seed(SEED)  # random weights around the default init
+def seeded_layer(HMMLayer, transitions, emissions, seed, **kwargs):
+    """A layer on the card with seeded random weights around its init:
+    N(0, 0.5) added to every parameter, N(0, 0.1) to the embedding
+    kernel."""
+    layer = HMMLayer(transitions, emissions, parallel_factor="auto", **kwargs)
+    gen = torch.Generator().manual_seed(seed)
     with torch.no_grad():
-        for p in layer.parameters():
-            p.add_((0.5 * torch.randn(p.shape, generator=gen)).to(p.device))
+        for name, p in layer.named_parameters():
+            sd = 0.1 if "embedding" in name else 0.5
+            p.add_((sd * torch.randn(p.shape, generator=gen)).to(p.device))
     return layer
+
+
+def build_layer(HMMLayer, models):
+    """The flagship layer (q = 15) with seeded random weights."""
+    return seeded_layer(HMMLayer, models.GenePredTransitions(),
+                        models.GenePredEmissions(**CODONS), SEED, use_prior=False)
 
 
 def kernel_phase(layer, X, recursion, cuda_forward, peak_bytes, peak_flops):
@@ -1399,6 +1425,448 @@ def multicopy_loglik_phase(layer, make, recursion, cuda_mxu, cuda_forward):
 
 
 
+# ---------------------------------------------------------------------------
+# 10. Options and auxiliary inference
+# ---------------------------------------------------------------------------
+
+EMB_DIM = 32  # embedding channels of phase 10 (the repo fixes no width)
+SAMPLES, FREQ_SAMPLES = 8, 1000  # paths per request; paths of the frequency check
+EM_STEPS, OPTION_STEPS = 3, 2
+STREAM_BLOCK = L // 3  # 3333 = 33 x 101
+# The smoother's windows hold 1 + lag + 3333 positions after the first (the
+# seam's pseudo-position in front) and 1 + lag at the end: at lag 263 they
+# are 3597 = 33 x 109 and 264 = 33 x 8, so every window takes the chunked
+# route at P = 33 (at lag 256 all but the first would run sequentially).
+SMOOTHER_LAG, VITERBI_LAG = 263, 256
+K1_K3 = ("sum_chunk_summaries", "sum_fwd_outputs", "beta_bwd_outputs")
+K1_K3_KEYS = ("outputs_kernel", "chunk_summaries_rows_kernel")  # their profiler names
+
+
+def with_embeddings(X, seed):
+    """The class channels, ``EMB_DIM`` seeded N(0, 1) embedding channels,
+    the nucleotide channels."""
+    gen = torch.Generator(device=X.device).manual_seed(seed)
+    emb = torch.randn(X.shape[:-1] + (EMB_DIM,), generator=gen, device=X.device)
+    return torch.cat([X[..., :NUM_CLASSES], emb, X[..., NUM_CLASSES:]], dim=-1)
+
+
+def launches_of(cuda_forward, cuda_adjoint, cuda_mxu):
+    return {**all_launches(cuda_forward, cuda_adjoint), **cuda_mxu.LAUNCHES}
+
+
+def reset_phase10(cuda_forward, cuda_adjoint, cuda_mxu):
+    reset_all(cuda_forward, cuda_adjoint)
+    cuda_mxu.reset_launches()
+
+
+def expect(launches, **want):
+    """Fail unless ``launches`` holds ``want`` and zero for every other kernel."""
+    wanted = {k: want.get(k, 0) for k in launches}
+    if launches != wanted:
+        raise AssertionError(f"launch counts {launches}, expected {wanted}")
+
+
+def posterior_route_check(tag, layer, X, lg, recursion):
+    """The phase-4 criteria: log gamma against the same layer's plain
+    route where gamma >= 1e-3 within twice the float32 bound, and its
+    normalisation within the bound of the plain route's own (emissions
+    far below the engine's EPS clamp, as an MVN gives states far from a
+    position's best one, keep log gamma from normalising in both routes
+    and in the JAX package alike)."""
+    with torch.inference_mode():
+        init, A = layer.transitions.matrices()
+        E = layer.emission_probs(X)
+        P = layer._pf(E)
+        with plain_route(recursion):
+            lg_p, ll_p = recursion.posterior(init, A, E, P)
+    bound = f32_log_bound(ll_p, E.shape[2] // P)
+    err, ok = within(lg, lg_p, 0.0, 2 * bound, mask=lg_p.exp() >= 1e-3)
+    norm = float(torch.logsumexp(lg, -1).abs().max())
+    norm_p = float(torch.logsumexp(lg_p, -1).abs().max())
+    log(f"phase 10 {tag}: log gamma vs plain route where gamma >= 1e-3 max abs {err:.3e} "
+        f"(bound {2 * bound:.3f}); |logsumexp(log gamma)| max {norm:.3e} (plain route "
+        f"{norm_p:.3e}; bound {bound:.3f} above the larger of 0 and the plain route's)")
+    if not ok or norm > max(bound, norm_p + bound) or not bool(torch.isfinite(lg).all()):
+        raise AssertionError(f"{tag}: kernel route disagrees with the plain route")
+
+
+def serve_posteriors(tag, layer, requests, counters):
+    """One posterior per request (K1-K3 once each); ms per batch."""
+    ms, out = [], []
+    with torch.inference_mode():
+        layer.state_posterior_log_probs(requests[0])  # warm-up, not counted
+        torch.cuda.synchronize()
+        for X in requests:
+            reset_phase10(*counters)
+            t0 = time.perf_counter()
+            out.append(layer.state_posterior_log_probs(X))
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            launches = launches_of(*counters)
+            expect(launches, **{k: 1 for k in K1_K3})
+    log(f"phase 10 {tag}: {len(requests)} posterior requests, launches {launches} each, "
+        f"{statistics.median(ms):.3f} ms/batch median {[round(t, 3) for t in ms]}")
+    return out, ms
+
+
+def embedding_phase(HMMLayer, models, requests, recursion, counters, smi):
+    """``emit_embeddings`` (d = 32): 3 posterior requests, 2 CE steps with
+    the aux loss, one full-covariance request; the MVN's peak memory."""
+    make_emb = lambda full: seeded_layer(  # noqa: E731
+        HMMLayer, models.GenePredTransitions(),
+        models.GenePredEmissions(**CODONS, emit_embeddings=True, embedding_dim=EMB_DIM,
+                                 full_covariance=full, generator=torch.Generator().manual_seed(SEED)),
+        SEED + 70, use_prior=False)
+    layer = make_emb(False)
+    Xs = [with_embeddings(X, SEED + 71 + i) for i, X in enumerate(requests)]
+    out, ms = serve_posteriors("emit_embeddings (diagonal, d=32)", layer, Xs, counters)
+    for i, (X, lg) in enumerate(zip(Xs, out)):
+        posterior_route_check(f"emit_embeddings request {i}", layer, X, lg, recursion)
+    profile_request("phase 10 emit_embeddings posterior", lambda: layer.state_posterior_log_probs(Xs[0]),
+                    "K1-K3", K1_K3_KEYS)
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        layer.emission_probs(Xs[0])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+    log(f"phase 10 emit_embeddings emissions (b={B}, L={L}, 13 parameter states, d={EMB_DIM}): "
+        f"peak {peak / 2**20:.1f} MiB above the inputs on {smi}")
+
+    labels, mask = ce_targets(layer, Xs[0])
+    pars = [p for p in layer.parameters() if p.requires_grad]
+    before = [p.detach().clone() for p in pars]
+    opt = torch.optim.Adam(pars, lr=1e-2)
+    step_ms, losses = [], []
+    for i in range(OPTION_STEPS):
+        reset_phase10(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = layer.posterior_cross_entropy(Xs[0], labels, label_mask=mask)
+        loss.backward()
+        opt.step()
+        torch.cuda.synchronize()
+        step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = launches_of(*counters)
+        losses.append(float(loss.detach()))
+        log(f"phase 10 emit_embeddings CE step {i + 1}: loss {losses[-1]:.6f} (aux "
+            f"{float(layer.aux_loss().detach()):.6f}), {step_ms[-1]:.3f} ms, launches {launches}")
+        expect(launches, **{k: 1 for k in K1_K3 + ("affine_chunk_composites", "affine_reverse_outputs")})
+    moved = [not torch.equal(p.detach(), p0) for p, p0 in zip(pars, before)]
+    log(f"phase 10 emit_embeddings CE: {step_ms[-1]:.3f} ms/step (step {OPTION_STEPS}); every "
+        f"parameter moved: {all(moved)} ({len(pars)} parameters)")
+    if not all(np.isfinite(losses)) or not all(moved):
+        raise AssertionError("emit_embeddings CE: loss not finite or a parameter did not move")
+
+    full = make_emb(True)
+    with torch.inference_mode():
+        full.state_posterior_log_probs(Xs[1])  # warm-up, not counted
+        reset_phase10(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = full.state_posterior_log_probs(Xs[1])
+        torch.cuda.synchronize()
+        full_ms = 1e3 * (time.perf_counter() - t0)
+        expect(launches_of(*counters), **{k: 1 for k in K1_K3})
+    log(f"phase 10 emit_embeddings full covariance: one request {full_ms:.3f} ms, K1-K3 once")
+    posterior_route_check("emit_embeddings full covariance", full, Xs[1], lg, recursion)
+    return {"emb_post_ms": statistics.median(ms), "emb_ce_ms": step_ms[-1], "emb_full_ms": full_ms,
+            "emb_peak_mib": peak / 2**20}
+
+
+def lookup_phase(HMMLayer, models, requests, recursion, counters):
+    """``onehot_lookup_kmers``: emissions against the 3-mer contraction on
+    the same weights, posterior requests beside the contraction path's."""
+    base = build_layer(HMMLayer, models)
+    lookup = HMMLayer(models.GenePredTransitions(),
+                      models.GenePredEmissions(**CODONS, onehot_lookup_kmers=True),
+                      use_prior=False, parallel_factor="auto")
+    lookup.load_state_dict(base.state_dict())
+    with torch.inference_mode():
+        E_l, E_c = lookup.emission_probs(requests[0]), base.emission_probs(requests[0])
+    err, ok = within(E_l, E_c, 1e-5, 0.0)
+    log(f"phase 10 onehot_lookup_kmers emissions vs the 3-mer contraction: max abs {err:.3e} "
+        f"(rtol 1e-5: a 64-term float32 sum against a table lookup)")
+    if not ok:
+        raise AssertionError("onehot_lookup_kmers emissions disagree with the contraction path")
+    out, ms = serve_posteriors("onehot_lookup_kmers", lookup, requests, counters)
+    posterior_route_check("onehot_lookup_kmers request 0", lookup, requests[0], out[0], recursion)
+    _, ms_c = serve_posteriors("3-mer contraction (same weights)", base, requests, counters)
+    return {"lookup_post_ms": statistics.median(ms), "einsum_post_ms": statistics.median(ms_c)}
+
+
+def option_map_phase(HMMLayer, models, requests, counters):
+    """``trainable_nucleotides_at_exons`` with ``use_experimental_prior``:
+    2 MAP ``loss`` steps."""
+    layer = seeded_layer(
+        HMMLayer, models.GenePredTransitions(use_experimental_prior=True),
+        models.GenePredEmissions(**CODONS, trainable_nucleotides_at_exons=True),
+        SEED + 80, use_prior=True, num_seqs=100 * B)
+    pars = dict(layer.named_parameters())
+    opt = torch.optim.Adam(pars.values(), lr=1e-2)
+    name = "emissions.0.nuc_emission_kernel"
+    for i in range(OPTION_STEPS):
+        reset_phase10(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        opt.zero_grad()
+        loss = layer.loss(requests[0])
+        loss.backward()
+        torch.cuda.synchronize()
+        step_ms = 1e3 * (time.perf_counter() - t0)
+        launches = launches_of(*counters)
+        prior = float(layer.compute_prior(scaled=False).detach().sum())
+        g = pars[name].grad
+        nuc_ok = bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+        opt.step()
+        log(f"phase 10 exon nucleotides + Dirichlet prior MAP step {i + 1}: loss {float(loss.detach()):.3f}, "
+            f"prior {prior:.3f}, |grad {name}| max {float(g.abs().max()):.3e}, {step_ms:.3f} ms, "
+            f"launches {launches}")
+        expect(launches, **{k: 1 for k in K1_K3})
+        if not (math.isfinite(prior) and math.isfinite(float(loss.detach())) and nuc_ok):
+            raise AssertionError("option MAP step: prior or loss not finite, or no nucleotide gradient")
+    return {"option_map_ms": step_ms}
+
+
+def check_paths(tag, paths, init, A):
+    """Every first state has init > 0 and every sampled transition A > 0."""
+    p = paths[0].long()
+    first = bool((init[0][p[..., 0]] > 0).all())
+    trans = bool((A[0][p[..., :-1], p[..., 1:]] > 0).all())
+    if not (first and trans):
+        raise AssertionError(f"{tag}: a sampled path takes a zero-probability start or transition")
+    return p
+
+
+def sampling_phase(HMMLayer, models, requests, counters, cuda_mxu):
+    """``sample_paths``: S = 8 at q = 15 (K1 once a request), the state
+    frequencies of 1000 paths of one sequence against exp(log gamma), and
+    S = 8 at q = 29 with the K9 gate on (K9 once, K1 never)."""
+    layer = build_layer(HMMLayer, models)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    init, A = (x.detach() for x in layer.transitions.matrices())
+    layer.sample_paths(requests[0], num_samples=SAMPLES, generator=gen)  # warm-up
+    ms = []
+    for i, X in enumerate(requests):
+        reset_phase10(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = layer.sample_paths(X, num_samples=SAMPLES, generator=gen)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        launches = launches_of(*counters)
+        expect(launches, sum_chunk_summaries=1)
+        if tuple(paths.shape) != (1, B, SAMPLES, L):
+            raise AssertionError(f"sample_paths shape {tuple(paths.shape)}")
+        check_paths(f"sample_paths request {i}", paths, init, A)
+    log(f"phase 10 sample_paths (q=15, S={SAMPLES}, b={B}, L={L}): launches {launches} each; every "
+        f"start has init > 0 and every transition A > 0; {statistics.median(ms):.3f} ms/batch median "
+        f"{[round(t, 3) for t in ms]}")
+    profile_request("phase 10 sample_paths", lambda: layer.sample_paths(
+        requests[0], num_samples=SAMPLES, generator=gen), "K1", ("chunk_summaries_rows_kernel",))
+
+    X1 = requests[0][:, :1]
+    with torch.inference_mode():
+        paths = layer.sample_paths(X1, num_samples=FREQ_SAMPLES, generator=gen)[0, 0].long()  # (S, L)
+        lg = layer.state_posterior_log_probs(X1)[0, 0]
+        counts = torch.zeros((L, 15), device=paths.device).scatter_add_(
+            1, paths.T.contiguous(), torch.ones(paths.T.shape, device=paths.device))
+    err = float((counts / FREQ_SAMPLES - lg.exp()).abs().max())
+    tol = 4.5 / math.sqrt(FREQ_SAMPLES)
+    log(f"phase 10 sample_paths state frequencies of {FREQ_SAMPLES} paths of one sequence vs "
+        f"exp(log gamma): max abs {err:.3e} (tolerance 4.5/sqrt(S) = {tol:.3f})")
+    if err > tol:
+        raise AssertionError("sampled state frequencies disagree with the posterior")
+
+    mc = build_multicopy_layer(HMMLayer, models, MC_K)
+    init, A = (x.detach() for x in mc.transitions.matrices())
+    saved = cuda_mxu.MXU_KERNELS
+    try:
+        cuda_mxu.MXU_KERNELS = True
+        mc.sample_paths(requests[0], num_samples=SAMPLES, generator=gen)  # warm-up
+        reset_phase10(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = mc.sample_paths(requests[0], num_samples=SAMPLES, generator=gen)
+        torch.cuda.synchronize()
+        mc_ms = 1e3 * (time.perf_counter() - t0)
+        launches = launches_of(*counters)
+    finally:
+        cuda_mxu.MXU_KERNELS = saved
+    expect(launches, sum_chunk_summaries_mxu=1)
+    check_paths("sample_paths q=29", paths, init, A)
+    log(f"phase 10 sample_paths (q={1 + 14 * MC_K}, S={SAMPLES}, K9 gate on): launches {launches}; "
+        f"every start and transition valid; {mc_ms:.3f} ms")
+    return {"sample_ms": statistics.median(ms), "sample_q29_ms": mc_ms}
+
+
+def em_phase(HMMLayer, models, requests, recursion, counters):
+    """``em_step``: 3 steps on the flagship's init, A, E (K1-K3 once a
+    step), the log-likelihood not falling, stochastic rows; step 1 against
+    the plain route."""
+    from hmm_layer_torch.ops import em
+
+    layer = build_layer(HMMLayer, models)
+    with torch.inference_mode():
+        init, A = layer.transitions.matrices()
+        E = layer.emission_probs(requests[0])
+        P = layer._pf(E)
+        with plain_route(recursion):
+            g_p, _, _ = em.expected_statistics(init, A, E, P)
+            ref = em.em_step(init, A, E, P)
+        g_k, _, _ = em.expected_statistics(init, A, E, P)
+        d_gamma = float((g_k - g_p).abs().max())
+        lls, ms = [], []
+        for i in range(EM_STEPS):
+            reset_phase10(*counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            new_init, new_A, ll = em.em_step(init, A, E, P)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t0))
+            launches = launches_of(*counters)
+            expect(launches, **{k: 1 for k in K1_K3})
+            if i == 0:
+                limit = max(1e-3, d_gamma)
+                errs = [within(a, r, 0.0, limit)[0] for a, r in zip((new_init, new_A), ref[:2])]
+                ll_err, ll_ok = within(ll, ref[2], 1e-5, 0.0)
+                log(f"phase 10 em_step 1 vs plain route: init, A max abs {errs[0]:.3e}, {errs[1]:.3e} "
+                    f"(limit {limit:.3e}: max of 1e-3 and the routes' gamma difference); loglik max abs "
+                    f"{ll_err:.3e} (rtol 1e-5)")
+                if max(errs) > limit or not ll_ok:
+                    raise AssertionError("em_step disagrees with the plain route")
+            lls.append(float(ll.double().sum()))
+            tol = B * f32_log_bound(ll, L // P)
+            rows = new_A.sum(-1)
+            stochastic = bool(((rows - 1).abs() <= 1e-5).all()) and abs(float(new_init.sum()) - 1) <= 1e-5
+            kept = bool((new_A[A == 0] == 0).all())
+            log(f"phase 10 em_step {i + 1}: summed loglik {lls[-1]:.3f}, {ms[-1]:.3f} ms, launches "
+                f"{launches}; rows stochastic {stochastic}, structural zeros kept {kept}")
+            if not (stochastic and kept) or (i and lls[-1] < lls[-2] - tol):
+                raise AssertionError(f"em_step {i + 1}: loglik fell (tolerance {tol:.3f}) or rows broke")
+            init, A = new_init, new_A
+    log(f"phase 10 em_step: {statistics.median(ms):.3f} ms/step median {[round(t, 3) for t in ms]}")
+    profile_request("phase 10 em_step", lambda: em.em_step(init, A, E, P), "K1-K3", K1_K3_KEYS)
+    return {"em_ms": statistics.median(ms)}
+
+
+def streaming_phase(HMMLayer, models, requests, recursion, counters):
+    """The sequence cut into 3 blocks of 3333 at P = 33: the filter (K1
+    once a block) against the whole-sequence log-likelihood, the smoother
+    (lag 263) against the posterior of the sequence truncated at each
+    window's end, and the fixed-lag Viterbi (lag 256)."""
+    from hmm_layer_torch import streaming
+
+    layer = build_layer(HMMLayer, models)
+    with torch.inference_mode():
+        init, A = layer.transitions.matrices()
+        E = layer.emission_probs(requests[0])
+    blocks = [E[:, :, i:i + STREAM_BLOCK] for i in range(0, L, STREAM_BLOCK)]
+
+    def run(tag, body, want):
+        streaming.streaming_init(init, A, blocks[0], PF)  # warm-up
+        reset_phase10(*counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = body()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / len(blocks)
+        launches = launches_of(*counters)
+        expect(launches, **want)
+        log(f"phase 10 streaming {tag}: {ms:.3f} ms/block ({len(blocks)} blocks of {STREAM_BLOCK}), "
+            f"launches {launches}")
+        return out, ms
+
+    def filt():
+        st = streaming.streaming_init(init, A, blocks[0], PF)
+        for blk in blocks[1:]:
+            st = streaming.streaming_update(st, A, blk, PF)
+        return st
+
+    st, filter_ms = run("filter", filt, {"sum_chunk_summaries": len(blocks)})
+    profile_request(f"phase 10 streaming filter ({len(blocks)} blocks)", filt, "K1",
+                    ("chunk_summaries_rows_kernel",))
+    with torch.inference_mode():
+        ll_ref = recursion.log_likelihood(init, A, E, PF)
+    err, ok = within(st.log_lik, ll_ref, 1e-4, 0.0)
+    log(f"phase 10 streaming filter loglik vs the whole sequence: max abs {err:.3e} (rtol 1e-4)")
+    if not ok:
+        raise AssertionError("streaming filter loglik disagrees with the whole sequence")
+
+    def smooth():
+        st, c0 = streaming.streaming_smoother_init(init, A, blocks[0], SMOOTHER_LAG, PF)
+        out = [c0]
+        for blk in blocks[1:]:
+            st, c = streaming.streaming_smoother_update(st, A, blk, PF)
+            out.append(c)
+        return out + [streaming.streaming_smoother_finalize(st, A, PF)]
+
+    commits, smoother_ms = run(f"smoother (lag {SMOOTHER_LAG})", smooth,
+                               {"sum_chunk_summaries": 8, "sum_fwd_outputs": 4, "beta_bwd_outputs": 4})
+    lo = 0
+    for k, got in enumerate(commits):
+        end = min(L, (k + 1) * STREAM_BLOCK)
+        with torch.inference_mode():
+            ref, ll = recursion.posterior(init, A, E[:, :, :end], PF)
+        ref = ref[:, :, lo:lo + got.shape[2]]
+        ref = ref - torch.logsumexp(ref, -1, keepdim=True)
+        bound = 2 * f32_log_bound(ll, end // PF)
+        err, ok = within(got, ref, 0.0, bound, mask=ref.exp() >= 1e-3)
+        p_err = float((got.exp() - ref.exp()).abs().max())
+        log(f"phase 10 smoother commit {k} (positions {lo}-{lo + got.shape[2] - 1}) vs the posterior of "
+            f"positions 0-{end - 1}: log marginal where >= 1e-3 max abs {err:.3e} (bound {bound:.3f}), "
+            f"marginal max abs {p_err:.3e}")
+        if not ok:
+            raise AssertionError(f"smoother commit {k} disagrees with the truncated posterior")
+        lo += got.shape[2]
+    if lo != L:
+        raise AssertionError(f"the smoother committed {lo} positions, not {L}")
+
+    def decode():
+        st, c0 = streaming.streaming_viterbi_init(init, A, blocks[0], VITERBI_LAG)
+        out = [c0]
+        for blk in blocks[1:]:
+            st, c = streaming.streaming_viterbi_update(st, init, A, blk)
+            out.append(c)
+        return torch.cat(out + [streaming.streaming_viterbi_finalize(st, init, A)], dim=-1)
+
+    profile_request(f"phase 10 streaming smoother (lag {SMOOTHER_LAG}, {len(blocks)} blocks)", smooth,
+                    "K1-K3", K1_K3_KEYS)
+
+    path, viterbi_ms = run(f"Viterbi (lag {VITERBI_LAG})", decode, {})
+    if tuple(path.shape) != (1, B, L):
+        raise AssertionError(f"streaming Viterbi shape {tuple(path.shape)}")
+    check_paths("streaming Viterbi", path[:, :, None], init, A)
+    with torch.inference_mode():
+        agree = float((path == layer.viterbi(requests[0])).float().mean())
+    log(f"phase 10 streaming Viterbi: every transition valid; agrees with the offline decode at "
+        f"{100 * agree:.3f}% of positions")
+    st_v, _ = streaming.streaming_viterbi_init(init, A, blocks[0], VITERBI_LAG)
+    profile_request("phase 10 streaming Viterbi (one update block)",
+                    lambda: streaming.streaming_viterbi_update(st_v, init, A, blocks[1]),
+                    "kernels of the port (none)", ())
+    return {"filter_ms": filter_ms, "smoother_ms": smoother_ms, "stream_viterbi_ms": viterbi_ms}
+
+
+def options_phase(HMMLayer, models, make, recursion, counters, smi):
+    """Phase 10 at the flagship width on the phase-4 inputs."""
+    t0 = time.perf_counter()
+    requests = [make(SEED + 1 + i, B, L) for i in range(N_REQUESTS)]
+    cuda_mxu = counters[2]
+    times = {}
+    times.update(embedding_phase(HMMLayer, models, requests, recursion, counters, smi))
+    times.update(lookup_phase(HMMLayer, models, requests, recursion, counters))
+    times.update(option_map_phase(HMMLayer, models, requests, counters))
+    times.update(sampling_phase(HMMLayer, models, requests, counters, cuda_mxu))
+    times.update(em_phase(HMMLayer, models, requests, recursion, counters))
+    times.update(streaming_phase(HMMLayer, models, requests, recursion, counters))
+    log(f"phase 10 summary on {smi}: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device",
@@ -1517,6 +1985,9 @@ def main() -> int:
         f"{max(off_ms):.3f}]; gate on (K9) {statistics.median(on_ms):.3f} ms/batch median of "
         f"{len(on_ms)} [{min(on_ms):.3f}, {max(on_ms):.3f}] on {smi}")
     log(f"phase 9 took {time.perf_counter() - t0:.1f} s")
+
+    # 10. Options and auxiliary inference
+    options_phase(HMMLayer, models, make, recursion, (cuda_forward, cuda_adjoint, cuda_mxu), smi)
 
     launches.update({k: v for k, v in decode_launches.items() if k in DECODE_Q16})
     launches.update({k: train_launches[k] for k in cuda_adjoint.LAUNCHES})

@@ -36,13 +36,20 @@ _EXPORTS = {
     "Trainer": ".training",
     "load_jax_params": ".convert",
     "params_from_jax": ".convert",
+    "set_prior_alpha": ".convert",
+    "sample_posterior": ".ops.sampling",
+    "em_step": ".ops.em",
+    "expected_statistics": ".ops.em",
+    "rnn_scan": ".ops.scan",
+    "bidirectional_scan": ".ops.scan",
 }
+_MODULES = ("models", "ops", "streaming", "utils")
 
-__all__ = sorted(_EXPORTS) + ["models", "ops"]
+__all__ = sorted(_EXPORTS) + list(_MODULES)
 
 
 def __getattr__(name):
-    if name in ("models", "ops"):
+    if name in _MODULES:
         return importlib.import_module(f".{name}", __name__)
     if name not in _EXPORTS:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

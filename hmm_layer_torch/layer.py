@@ -14,8 +14,11 @@ chunked VJPs of :mod:`.ops.recursion`. The recursions take the JAX
 layer's ``return_prior`` and then append the unscaled prior and the
 auxiliary loss.
 
-Not ported yet: ``sample_paths`` (ROADMAP Queue 1 item 9), the sparse
-route and its fused cross-entropy (item 11), the profile family's
+:meth:`HMMLayer.sample_paths` draws exact posterior paths (FFBS,
+:mod:`.ops.sampling`) on the dense route.
+
+Not ported yet: the sparse route, its fused cross-entropy and its path
+sampling (ROADMAP Queue 1 item 11), the profile family's
 ``structured_forward`` log-likelihood and ``resize`` (item 10), and the
 ``mesh``/``partition`` routes (item 13).
 """
@@ -25,7 +28,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .ops import recursion
+from .ops import recursion, sampling
 
 __all__ = ["HMMLayer"]
 
@@ -165,15 +168,33 @@ class HMMLayer(nn.Module):
         init, A, E = self._ingredients(inputs, end_hints, False)
         return recursion.viterbi(init, A, E, self._pf(E, for_viterbi=True))
 
+    @torch.no_grad()
+    def sample_paths(self, inputs, num_samples: int = 1, end_hints=None, generator=None):
+        """Exact posterior path samples; (m, b, num_samples, L) int32.
+
+        Gumbel noise comes from ``generator`` (a ``torch.Generator``, best
+        on the layer's device; the device's default generator when
+        ``None``). Every sampled transition has ``A > 0`` and every first
+        state ``init > 0``.
+        """
+        if getattr(self.transitions, "sparse_forward", False):
+            raise NotImplementedError(
+                "sample_paths of sparse_forward transitions needs the sparse "
+                "edge-list engine, not ported yet (ROADMAP Queue 1 item 11)"
+            )
+        init, A, E = self._ingredients(inputs, end_hints, False)
+        return sampling.sample_posterior(init, A, E, generator, num_samples, self._pf(E))
+
     # -- priors / weights / losses ------------------------------------------------
 
     def reset_parameters(self, generator: torch.Generator | None = None, input_dim: int | None = None):
         """Every component back to its initial parameters (the JAX
-        ``init_params``): transition noise from ``generator``, emission
-        kernels ``input_dim`` class channels wide."""
+        ``init_params``): transition noise and the embedding kernels drawn
+        from ``generator``, emission kernels ``input_dim`` class channels
+        wide."""
         self.transitions.reset_parameters(generator)
         for em in self.emissions:
-            em.reset_parameters(input_dim)
+            em.reset_parameters(input_dim, generator)
 
     def compute_prior(self, scaled: bool = True):
         """Summed parameter prior per model; (m,)."""

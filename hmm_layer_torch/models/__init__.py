@@ -1,6 +1,7 @@
 """Model families of the port: the gene-prediction transitions (one gene
-model, or ``k`` copies sharing the intergenic state) and emissions, their
-initial class kernel, and the annotation (GFF3) of decoded paths."""
+model, or ``k`` copies sharing the intergenic state) and emissions (with
+the MVN embedding densities of :mod:`.mvn`), their initial class kernel,
+and the annotation (GFF3) of decoded paths."""
 
 from .annotation import (
     GeneFeature,
@@ -26,6 +27,7 @@ from .gene_pred_transitions import (
     SimpleGenePredTransitions,
 )
 from .initializers import make_15_class_emission_kernel
+from .mvn import MvnMixture
 from .transition_utils import (
     dense_from_edge_probs,
     gather_edge_probs,
@@ -38,6 +40,7 @@ __all__ = [
     "GenePredEmissions",
     "GenePredMultiTransitions",
     "GenePredTransitions",
+    "MvnMixture",
     "SimpleGenePredEmissions",
     "SimpleGenePredTransitions",
     "apply_end_hints",

@@ -2,16 +2,15 @@
 ``hmm_layer_tpu/models/gene_pred_emissions.py``).
 
 * :class:`SimpleGenePredEmissions` — ``1 + 6·num_copies`` states scored from
-  class predictions, optional shared intron parameters, ``end_hints``
+  class predictions, optional MVN embedding emissions with temperature
+  (``emit_embeddings``), optional shared intron parameters, ``end_hints``
   border masking.
 * :class:`GenePredEmissions` — ``1 + 14·num_copies`` states: START, STOP,
   donor and acceptor states multiply their class emissions by fixed
   codon-probability tables contracted against 3-mer encodings of the
-  nucleotide track.
-
-Not ported yet (they raise ``NotImplementedError``): ``emit_embeddings``,
-``trainable_nucleotides_at_exons`` and ``onehot_lookup_kmers``
-(ROADMAP Queue 1 item 4).
+  nucleotide track (or looked up from a (125, 9) table of base-5 codon
+  indices, ``onehot_lookup_kmers``), plus optional trainable exon
+  nucleotide distributions and the MVN L2 auxiliary loss.
 """
 
 from __future__ import annotations
@@ -21,7 +20,9 @@ import torch
 from torch import nn
 
 from ..ops.kmer import encode_kmer_string, make_k_mers
+from ..utils.bijectors import DefaultDiagBijector
 from .emission_utils import apply_end_hints
+from .mvn import MvnMixture
 
 __all__ = [
     "SimpleGenePredEmissions",
@@ -29,12 +30,6 @@ __all__ = [
     "make_codon_probs",
     "assert_codons",
 ]
-
-
-def _not_ported(option):
-    return NotImplementedError(
-        f"{option} is not ported to hmm_layer_torch yet (ROADMAP Queue 1 item 4)"
-    )
 
 
 def assert_codons(codons):
@@ -67,7 +62,12 @@ class SimpleGenePredEmissions(nn.Module):
     The module owns ``emission_kernel`` (m, num_param_states, input_dim):
     ``init`` as an array gives it (and ``input_dim``) directly; a scalar
     ``init`` fills it, with ``input_dim`` class channels (default: one per
-    state).
+    state). With ``emit_embeddings`` the inputs carry ``embedding_dim``
+    trailing embedding channels, scored per state by an MVN
+    (:class:`~hmm_layer_torch.models.mvn.MvnMixture`) whose kernel
+    ``embedding_emission_kernel`` (1, num_param_states, 1, num_params) is
+    drawn as ``0.02 * N(0, 1)`` from ``generator``; it stays trainable
+    whatever ``trainable_emissions`` says.
     """
 
     states_per_copy = 6
@@ -85,12 +85,23 @@ class SimpleGenePredEmissions(nn.Module):
         temperature: float = 1.0,
         share_intron_parameters: bool = True,
         input_dim: int | None = None,
+        generator: torch.Generator | None = None,
     ):
         super().__init__()
         if emit_embeddings:
-            raise _not_ported("emit_embeddings")
-        if embedding_dim is not None:
-            raise ValueError("embedding_dim must be None when emit_embeddings=False")
+            if embedding_dim is None:
+                raise ValueError("embedding_dim is required when emit_embeddings=True")
+            if num_models != 1:
+                raise ValueError("embedding emissions support a single model")
+            self.mvn = MvnMixture(
+                embedding_dim,
+                diag_only=not full_covariance,
+                diag_bijector=DefaultDiagBijector(initial_variance),
+            )
+        else:
+            if embedding_dim is not None:
+                raise ValueError("embedding_dim must be None when emit_embeddings=False")
+            self.mvn = None
         self.num_models = num_models
         self.num_copies = num_copies
         self.num_states = 1 + self.states_per_copy * num_copies
@@ -105,6 +116,8 @@ class SimpleGenePredEmissions(nn.Module):
         self.emission_kernel = nn.Parameter(
             self._initial_kernel(input_dim), requires_grad=trainable_emissions
         )
+        if emit_embeddings:
+            self.embedding_emission_kernel = nn.Parameter(self._initial_embedding_kernel(generator))
 
     @property
     def num_param_states(self) -> int:
@@ -128,23 +141,45 @@ class SimpleGenePredEmissions(nn.Module):
             )
         return kernel.clone()
 
+    def _initial_embedding_kernel(self, generator):
+        shape = (1, self.num_param_states, 1, self.mvn.num_params())
+        return 0.02 * torch.randn(shape, generator=generator)
+
     def make_B(self):
         return torch.softmax(self.emission_kernel, dim=-1)
 
-    def reset_parameters(self, input_dim: int | None = None) -> None:
-        """A fresh ``emission_kernel`` from ``init``, ``input_dim`` class
-        channels wide for a scalar ``init``."""
-        kernel = self._initial_kernel(input_dim).to(self.emission_kernel.device)
+    def reset_parameters(
+        self, input_dim: int | None = None, generator: torch.Generator | None = None
+    ) -> None:
+        """Fresh kernels: ``emission_kernel`` from ``init`` (``input_dim``
+        class channels wide for a scalar ``init``), the embedding kernel
+        drawn from ``generator``."""
+        device = self.emission_kernel.device
+        kernel = self._initial_kernel(input_dim).to(device)
         self.emission_kernel = nn.Parameter(kernel, requires_grad=self.trainable_emissions)
+        if self.emit_embeddings:
+            self.embedding_emission_kernel = nn.Parameter(
+                self._initial_embedding_kernel(generator).to(device)
+            )
 
     def prior_log_density(self) -> torch.Tensor:
-        """(num_models,) zeros: no emission prior in the default modes."""
+        """(num_models,) zeros: the emitters carry no prior."""
         return torch.zeros(self.num_models, device=self.emission_kernel.device)
 
     def aux_loss(self) -> torch.Tensor:
-        """Scalar zero: only the unported ``emit_embeddings`` mode has an
-        auxiliary loss (ROADMAP Queue 1 item 4)."""
+        """Scalar zero (:class:`GenePredEmissions` adds the MVN L2 loss)."""
         return torch.zeros((), device=self.emission_kernel.device)
+
+    def duplicate(self, share_kernels: bool = False):
+        """A copy of this emitter (same config, same device) whose
+        parameters are this one's own tensors (``share_kernels``) or
+        copies of them."""
+        copy = type(self).from_config(self.get_config()).to(self.emission_kernel.device)
+        for name, param in self.named_parameters(recurse=False):
+            if not share_kernels:
+                param = nn.Parameter(param.detach().clone(), requires_grad=param.requires_grad)
+            setattr(copy, name, param)
+        return copy
 
     def _expand_shared_introns(self, emit):
         if not self.share_intron_parameters:
@@ -157,13 +192,33 @@ class SimpleGenePredEmissions(nn.Module):
         """Per-state emission probabilities (m, b, L, num_states), linear space.
 
         Args:
-            inputs: (m, b, L, s) class predictions.
+            inputs: (m, b, L, s) class predictions, plus ``embedding_dim``
+                trailing channels when ``emit_embeddings``.
             end_hints: optional border-state masks, (m, b, 2, num_states) or
                 (m, b, P, 2, num_states) (see
                 :func:`~hmm_layer_torch.models.emission_utils.apply_end_hints`).
         """
         B = self.make_B()  # (m, q_param, s)
-        emit = torch.matmul(inputs, B.transpose(-1, -2)[:, None])
+        if self.emit_embeddings:
+            d = self.embedding_dim
+            emit = torch.matmul(inputs[..., :-d], B.transpose(-1, -2)[:, None])
+            flat = inputs[..., -d:].reshape(1, -1, d)
+            log_pdf = self.mvn.log_pdf(self.embedding_emission_kernel, flat)
+            log_pdf = log_pdf.reshape(emit.shape)
+            # Per-position max-shift before the exponent: posterior
+            # marginals, Viterbi paths and the posterior-CE objective do not
+            # change under a positive per-position rescaling of E, and the
+            # raw density overflows float32 once a trained component
+            # sharpens (NaN losses after ~20 CE steps). The maximum carries
+            # no gradient, as in the JAX package.
+            log_pdf = log_pdf - log_pdf.amax(-1, keepdim=True).detach()
+            embedding_emit = torch.exp(log_pdf / self.temperature)
+            if training:
+                emit = emit + 1e-10
+                embedding_emit = embedding_emit + 1e-10
+            emit = emit * embedding_emit
+        else:
+            emit = torch.matmul(inputs, B.transpose(-1, -2)[:, None])
         emit = self._expand_shared_introns(emit)
         return apply_end_hints(emit, end_hints)
 
@@ -195,7 +250,13 @@ class GenePredEmissions(SimpleGenePredEmissions):
     With ``compute_kmers_in_bf16`` the (b, L, 64) 3-mer tensors are built
     in bfloat16 (exact for one-hot ACGTN inputs, whose 3-mer entries are
     powers of two) and cast to float32 for the float32 codon contraction,
-    as the JAX package promotes them.
+    as the JAX package promotes them. With ``onehot_lookup_kmers`` the codon
+    factor is instead gathered from a (2, 125, 9) table by the base-5 index
+    of each position's 3-letter windows (exact for one-hot inputs; the
+    nucleotide channels then carry no gradient). With
+    ``trainable_nucleotides_at_exons`` the exon states multiply in a
+    trainable nucleotide distribution, ``nuc_emission_kernel`` (1, 3c, 4)
+    (zeros: uniform), and every other state 1/4.
     """
 
     states_per_copy = 14
@@ -212,11 +273,9 @@ class GenePredEmissions(SimpleGenePredEmissions):
         onehot_lookup_kmers: bool = False,
         **kwargs,
     ):
-        if trainable_nucleotides_at_exons:
-            raise _not_ported("trainable_nucleotides_at_exons")
-        if onehot_lookup_kmers:
-            raise _not_ported("onehot_lookup_kmers")
         super().__init__(**kwargs)
+        if trainable_nucleotides_at_exons and self.num_models != 1:
+            raise ValueError("trainable nucleotide emissions support a single model")
         self.start_codons = start_codons
         self.stop_codons = stop_codons
         self.intron_begin_pattern = intron_begin_pattern
@@ -245,11 +304,54 @@ class GenePredEmissions(SimpleGenePredEmissions):
             axis=0,
         )
         # (2, 9, 64): pivot side x constrained states x 3-mer classes.
+        codon_probs = np.stack([left, right], axis=0).astype(np.float32)
+        self.register_buffer("codon_probs", torch.from_numpy(codon_probs), persistent=False)
         self.register_buffer(
-            "codon_probs",
-            torch.from_numpy(np.stack([left, right], axis=0).astype(np.float32)),
+            "codon_lookup",
+            torch.from_numpy(self._build_codon_lookup(codon_probs)) if onehot_lookup_kmers else None,
             persistent=False,
         )
+        if trainable_nucleotides_at_exons:
+            self.nuc_emission_kernel = nn.Parameter(self._initial_nuc_kernel())
+
+    def _initial_nuc_kernel(self):
+        return torch.zeros((self.num_models, 3 * self.num_copies, 4))
+
+    def reset_parameters(
+        self, input_dim: int | None = None, generator: torch.Generator | None = None
+    ) -> None:
+        super().reset_parameters(input_dim, generator)
+        if self.trainable_nucleotides_at_exons:
+            self.nuc_emission_kernel = nn.Parameter(
+                self._initial_nuc_kernel().to(self.emission_kernel.device)
+            )
+
+    @staticmethod
+    def _build_codon_lookup(codon_probs) -> np.ndarray:
+        """(2, 125, 9) float32: per pivot side, the codon-pattern
+        probability of every 3-letter ACGTN string (base-5 index, first
+        letter most significant), built from ``encode_kmer_string`` so that
+        the class layout and the N marginalisation are ``make_k_mers``'s."""
+        letters = "ACGTN"
+        table = np.zeros((2, 125, 9), np.float32)
+        for j in range(125):
+            s = letters[j // 25] + letters[(j // 5) % 5] + letters[j % 5]
+            for side, pivot_left in ((0, True), (1, False)):
+                enc = np.asarray(encode_kmer_string(s, pivot_left=pivot_left)).reshape(64)
+                table[side, j] = codon_probs[side] @ enc
+        return table
+
+    def _codon_factor_lookup(self, nucleotides):
+        """(m, b, L, 9) codon factors by table lookup (one-hot inputs)."""
+        n_idx = nucleotides.argmax(-1)  # (m, b, L)
+        fill = torch.full(tuple(n_idx.shape[:-1]) + (1,), 4, dtype=n_idx.dtype, device=n_idx.device)
+        nxt1 = torch.cat([n_idx[..., 1:], fill], dim=-1)
+        nxt2 = torch.cat([n_idx[..., 2:], fill, fill], dim=-1)
+        prv1 = torch.cat([fill, n_idx[..., :-1]], dim=-1)
+        prv2 = torch.cat([fill, fill, n_idx[..., :-2]], dim=-1)
+        idx_left = 25 * n_idx + 5 * nxt1 + nxt2  # window (t, t+1, t+2)
+        idx_right = 25 * prv2 + 5 * prv1 + n_idx  # window (t-2, t-1, t)
+        return self.codon_lookup[0][idx_left] * self.codon_lookup[1][idx_right]
 
     def emissions(self, inputs, end_hints=None, training: bool = False):
         """Inputs: (m, b, L, s + 5); the trailing 5 channels are one-hot ACGTN."""
@@ -257,15 +359,18 @@ class GenePredEmissions(SimpleGenePredEmissions):
         emit = super().emissions(inputs[..., :-5], end_hints=end_hints, training=training)
 
         m, b, L = nucleotides.shape[:3]
-        nuc_flat = nucleotides.reshape(m * b, L, 5)
-        if self.compute_kmers_in_bf16:
-            nuc_flat = nuc_flat.to(torch.bfloat16)
-        factors = []
-        for side, pivot_left in ((0, True), (1, False)):
-            k_mers = make_k_mers(nuc_flat, k=3, pivot_left=pivot_left)
-            k_mers = k_mers.reshape(m, b, L, 64).to(torch.float32)
-            factors.append(torch.matmul(k_mers, self.codon_probs[side].T))
-        codon_factor = factors[0] * factors[1]  # (m, b, L, 9)
+        if self.onehot_lookup_kmers:
+            codon_factor = self._codon_factor_lookup(nucleotides)  # (m, b, L, 9)
+        else:
+            nuc_flat = nucleotides.reshape(m * b, L, 5)
+            if self.compute_kmers_in_bf16:
+                nuc_flat = nuc_flat.to(torch.bfloat16)
+            factors = []
+            for side, pivot_left in ((0, True), (1, False)):
+                k_mers = make_k_mers(nuc_flat, k=3, pivot_left=pivot_left)
+                k_mers = k_mers.reshape(m, b, L, 64).to(torch.float32)
+                factors.append(torch.matmul(k_mers, self.codon_probs[side].T))
+            codon_factor = factors[0] * factors[1]  # (m, b, L, 9)
 
         if self.num_copies > 1:
             codon_factor = codon_factor.repeat_interleave(self.num_copies, dim=-1)
@@ -278,7 +383,25 @@ class GenePredEmissions(SimpleGenePredEmissions):
         codon_factor = torch.cat([unconstrained, codon_factor], dim=-1)
         if training:
             codon_factor = codon_factor + 1e-7
-        return emit * codon_factor
+        emission = emit * codon_factor
+
+        if self.trainable_nucleotides_at_exons:
+            nuc_no_n = nucleotides[..., :4] + nucleotides[..., 4:] / 4.0
+            nuc_probs = torch.softmax(self.nuc_emission_kernel, dim=-1)  # (m, 3c, 4)
+            exon_factor = torch.matmul(nuc_no_n, nuc_probs.transpose(-1, -2)[:, None])
+            c = self.num_copies
+            lead = tuple(emission.shape[:-1])
+            pre = emission.new_full(lead + (1 + 3 * c,), 0.25)
+            post = emission.new_full(lead + (self.num_states - (1 + 6 * c),), 0.25)
+            emission = emission * torch.cat([pre, exon_factor, post], dim=-1)
+        return emission
+
+    def aux_loss(self) -> torch.Tensor:
+        """``l2_lambda`` times the MVN scale kernel's L2 loss with
+        ``emit_embeddings``, else a scalar zero."""
+        if self.emit_embeddings:
+            return self.l2_lambda * self.mvn.regularization_l2_loss(self.embedding_emission_kernel)
+        return super().aux_loss()
 
     def get_config(self) -> dict:
         config = super().get_config()

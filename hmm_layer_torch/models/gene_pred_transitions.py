@@ -197,18 +197,32 @@ class GenePredTransitions(SimpleGenePredTransitions):
     """15-state grammar with START/donor/acceptor/STOP structure states.
 
     State order: ``Ir, I0-2, E0-2, START, EI0-2, IE0-2, STOP``.
+
+    ``use_experimental_prior`` adds a Dirichlet prior on the binary
+    (stay, leave) distributions of the loop states and (advance, other) of
+    the exon states. Its concentration ``prior_alpha`` (1 + 6k, 2) is a
+    buffer, left out of ``state_dict``: the binary probabilities of the
+    initial matrix times 1e3, drawn with the transition init's noise from
+    ``generator`` after the kernel's own draw (no noise at the default
+    ``init_component_sd`` of 0, where it equals the JAX package's). Set it
+    from a JAX layer's with :func:`~hmm_layer_torch.convert.set_prior_alpha`.
     """
 
     num_states = 15
 
-    def __init__(self, use_experimental_prior: bool = False, **kwargs):
-        if use_experimental_prior:
-            raise NotImplementedError(
-                "the experimental Dirichlet transition prior is not ported "
-                "yet (ROADMAP Queue 1 item 4)"
-            )
-        super().__init__(**kwargs)
+    def __init__(
+        self,
+        use_experimental_prior: bool = False,
+        generator: torch.Generator | None = None,
+        **kwargs,
+    ):
+        super().__init__(generator=generator, **kwargs)
         self.use_experimental_prior = use_experimental_prior
+        self.register_buffer(
+            "prior_alpha",
+            self.make_prior_alpha(generator) if use_experimental_prior else None,
+            persistent=False,
+        )
 
     def make_transition_indices(self) -> np.ndarray:
         Ir = 0
@@ -228,6 +242,48 @@ class GenePredTransitions(SimpleGenePredTransitions):
             edges.append((IE[cds], E[cds]))
         assert len(edges) == 23
         return np.asarray(edges, np.int64)
+
+    # -- experimental Dirichlet prior -----------------------------------------
+
+    def gather_binary_probs(self, A):
+        """(1 + 6k, 2): (stay, leave) of the intergenic and intron states,
+        then (advance, other) of the exon states, from one (q, q) ``A``."""
+        k = self.k
+        n = 1 + 3 * k
+        diag = torch.diagonal(A[:n, :n])
+        probs_loop = torch.stack([diag, A[:n].sum(-1) - diag], dim=1)
+        rows = []
+        for i in range(3):
+            for j in range(k):
+                e = 1 + (i + 3) * k + j
+                next_e = 1 + 3 * k + ((i + 1) % 3) * k + j
+                rows.append(torch.stack([A[e, next_e], A[e].sum() - A[e, next_e]]))
+        return torch.cat([probs_loop, torch.stack(rows)], dim=0)
+
+    def make_prior_alpha(self, generator=None, n: float = 1e3) -> torch.Tensor:
+        """Dirichlet concentration anchored at the length-geometry init."""
+        p0 = torch.from_numpy(self.make_transition_init(generator))
+        A0 = masked_row_softmax_from_edges(torch.from_numpy(self.indices), p0, self.num_states)
+        return self.gather_binary_probs(A0) * n
+
+    def prior_log_density(self) -> torch.Tensor:
+        """(num_models,): the Dirichlet log-density (up to its constant) of
+        model 0's binary probabilities, with ``use_experimental_prior``;
+        zeros otherwise."""
+        if not self.use_experimental_prior:
+            return super().prior_log_density()
+        binary = self.gather_binary_probs(self.make_A()[0])
+        log_p = torch.log(torch.clamp_min(binary, 1e-16))
+        prior = ((self.prior_alpha - 1.0) * log_p).sum()
+        return prior.expand(self.num_models)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """Back to the initial logits with fresh noise from ``generator``,
+        and (with the prior) a fresh ``prior_alpha`` drawn after it."""
+        super().reset_parameters(generator)
+        if self.use_experimental_prior:
+            self.prior_alpha = self.make_prior_alpha(generator).to(self.transition_kernel.device)
 
     def get_config(self) -> dict:
         config = super().get_config()

@@ -1,6 +1,31 @@
-"""Recursions, semiring primitives, k-mers and the CUDA kernels of the port.
+"""Recursions, semiring primitives, k-mers, auxiliary inference and the
+CUDA kernels of the port.
 
 Submodules: :mod:`.semiring`, :mod:`.kmer`, :mod:`.recursion`,
-:mod:`.cuda_forward` (kernels K1–K3), :mod:`.cuda_adjoint` (kernels K4–K5),
-:mod:`.cuda_viterbi` (kernels K6–K8) and :mod:`._cuda_build` (their build).
+:mod:`.sampling` (posterior path sampling), :mod:`.em` (Baum-Welch),
+:mod:`.scan` (scan loops for custom cells), :mod:`.cuda_forward`
+(kernels K1–K3), :mod:`.cuda_adjoint` (kernels K4–K5),
+:mod:`.cuda_viterbi` (kernels K6–K8b), :mod:`.cuda_mxu` (K9) and
+:mod:`._cuda_build` (their build). The functions named in ``__all__``
+load their modules on first access.
 """
+
+from __future__ import annotations
+
+import importlib
+
+_EXPORTS = {
+    "em_step": ".em",
+    "expected_statistics": ".em",
+    "sample_posterior": ".sampling",
+    "rnn_scan": ".scan",
+    "bidirectional_scan": ".scan",
+}
+
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(_EXPORTS[name], __name__), name)

@@ -325,25 +325,28 @@ def _lanes_to_mblq(x, b):
     return x.reshape(m, c, q, b, P).permute(0, 3, 4, 1, 2).reshape(m, b, P * c, q)
 
 
-def _outputs_kernels(init, A, E_T, T, S):
-    """K2 and K3: log alpha and log beta (m, c, q, R) from the boundary
-    values, with the starts built as :func:`_forward_outputs` and
-    :func:`_backward_outputs` build theirs. ``A`` contiguous."""
-    P, m, b, q = T.shape
-    R = b * P
+def _alpha_kernels(init, A, E_T, T):
+    """K2: log alpha (m, c, q, R) from the boundary values, with the starts
+    built as :func:`_forward_outputs` builds them. ``A`` contiguous."""
     R0_log = _forward_boundary_starts(init, A, T)  # (m, R, q)
     ll0 = torch.logsumexp(R0_log, dim=-1)
     r0 = torch.exp(R0_log - ll0[..., None])
-    log_alpha = cuda_forward.sum_fwd_outputs(
-        A, E_T, r0.transpose(-1, -2).contiguous(), ll0.contiguous()
-    )
-    S_flat = S.movedim(0, 2).reshape(m, R, q)
-    ll0b = S_flat.amax(-1)
-    beta0 = torch.exp(S_flat - ll0b[..., None])
-    log_beta = cuda_forward.beta_bwd_outputs(
-        A, E_T, beta0.transpose(-1, -2).contiguous(), ll0b.contiguous()
-    )
-    return log_alpha, log_beta
+    return cuda_forward.sum_fwd_outputs(A, E_T, r0.transpose(-1, -2).contiguous(), ll0.contiguous())
+
+
+def _beta_kernels(A, E_T, S):
+    """K3: log beta (m, c, q, R) from the boundary values, with the starts
+    built as :func:`_backward_outputs` builds them. ``A`` contiguous."""
+    P, m, b, q = S.shape
+    S_flat = S.movedim(0, 2).reshape(m, b * P, q)
+    ll0 = S_flat.amax(-1)
+    beta0 = torch.exp(S_flat - ll0[..., None])
+    return cuda_forward.beta_bwd_outputs(A, E_T, beta0.transpose(-1, -2).contiguous(), ll0.contiguous())
+
+
+def _outputs_kernels(init, A, E_T, T, S):
+    """K2 and K3: log alpha and log beta (m, c, q, R)."""
+    return _alpha_kernels(init, A, E_T, T), _beta_kernels(A, E_T, S)
 
 
 def _posterior_chunked_kernels(init, A, E, P, no_loglik):
@@ -381,6 +384,25 @@ def _chunked_values(init, A, E, C, P):
         la, lb = _outputs_kernels(init, A.contiguous(), _kernel_chunk_inputs(E, P), T, S)
         return _lanes_to_mblq(la, b), _lanes_to_mblq(lb, b), ll
     return _forward_outputs(init, A, E, T, P), _backward_outputs(A, E, S, P), ll
+
+
+def _forward_values(init, A, E, T, P):
+    """log alpha (m, b, L, q) from the boundary values ``T``: K2 on CUDA at
+    q <= 16 (the JAX package runs its plain output scan here), the plain
+    output pass elsewhere."""
+    if _use_kernels(E):
+        la = _alpha_kernels(init, A.contiguous(), _kernel_chunk_inputs(E, P), T)
+        return _lanes_to_mblq(la, E.shape[1])
+    return _forward_outputs(init, A, E, T, P)
+
+
+def _backward_values(A, E, S, P):
+    """log beta (m, b, L, q) from the boundary values ``S``: K3 on CUDA at
+    q <= 16, the plain output pass elsewhere."""
+    if _use_kernels(E):
+        lb = _beta_kernels(A.contiguous(), _kernel_chunk_inputs(E, P), S)
+        return _lanes_to_mblq(lb, E.shape[1])
+    return _backward_outputs(A, E, S, P)
 
 
 def _use_mxu_kernel(E) -> bool:
@@ -682,7 +704,7 @@ class _ForwardChunked(torch.autograd.Function):
     def forward(ctx, init, A, E, P):
         C = _chunk_summaries_dispatch(A, E, P)
         T, _, ll = _boundary_values(init, C)
-        la = _forward_outputs(init, A, E, T, P)
+        la = _forward_values(init, A, E, T, P)
         ctx.P = P
         ctx.save_for_backward(init, A, E, la, ll)
         return la, ll
@@ -713,7 +735,7 @@ class _BackwardChunked(torch.autograd.Function):
     def forward(ctx, init, A, E, P):
         C = _chunk_summaries_dispatch(A, E, P)
         _, S, _ = _boundary_values(init, C)
-        lb = _backward_outputs(A, E, S, P)
+        lb = _backward_values(A, E, S, P)
         ctx.P = P
         ctx.save_for_backward(init, A, E, lb)
         return lb
@@ -1073,8 +1095,9 @@ def recommended_parallel_factor(
 
 def forward(init, A, E, parallel_factor: int = 1) -> ForwardResult:
     """Forward algorithm: per-position ``log P(x_{1..t}, s_t)`` and the
-    per-sequence log-likelihood. At ``parallel_factor`` > 1 the gradient
-    is the analytic adjoint VJP (:class:`_ForwardChunked`)."""
+    per-sequence log-likelihood. At ``parallel_factor`` > 1 on CUDA at
+    q <= 16 it runs K1 and K2; the gradient is the analytic adjoint VJP
+    (:class:`_ForwardChunked`)."""
     if parallel_factor == 1:
         return ForwardResult(*_forward_seq(init, A, E))
     return ForwardResult(*_ForwardChunked.apply(init, A, E, parallel_factor))
@@ -1082,8 +1105,8 @@ def forward(init, A, E, parallel_factor: int = 1) -> ForwardResult:
 
 def backward(init, A, E, parallel_factor: int = 1) -> torch.Tensor:
     """Backward algorithm: ``log_beta[t, i] = log P(x_{t+1..L} | s_t = i)``.
-    At ``parallel_factor`` > 1 the gradient is the analytic adjoint VJP
-    (:class:`_BackwardChunked`)."""
+    At ``parallel_factor`` > 1 on CUDA at q <= 16 it runs K1 and K3; the
+    gradient is the analytic adjoint VJP (:class:`_BackwardChunked`)."""
     if parallel_factor == 1:
         return _backward_seq(A, E)
     return _BackwardChunked.apply(init, A, E, parallel_factor)

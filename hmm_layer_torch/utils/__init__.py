@@ -1,4 +1,5 @@
 """Utilities of the port: :mod:`.checkpoint` (the ``.npz`` format shared
 with the JAX package, training state and configs), :mod:`.metrics`
-(JSON-lines metrics, throughput) and :mod:`.resilience` (hang watchdog,
-latest checkpoint)."""
+(JSON-lines metrics, throughput), :mod:`.resilience` (hang watchdog,
+latest checkpoint), :mod:`.bijectors` (the MVN scale parameterisation)
+and :mod:`.profiling` (traces, synchronised timing, anomaly detection)."""

@@ -1,8 +1,9 @@
 """The port's CUDA kernels K1–K9 on the card: each against its plain
 PyTorch version, the layer's kernel routes (posterior, Viterbi, the
 gradients of the training objectives, the multi-copy decode and the gated
-K9 log-likelihood) against their plain routes, the launch counts and the
-refusals.
+K9 log-likelihood) and the auxiliary inference on them (path sampling,
+EM, the streaming filter, chunked forward/backward) against their plain
+routes, the launch counts and the refusals.
 
 Every test here needs a CUDA device and skips where there is none. The file
 imports no JAX, so it runs where JAX is not installed:
@@ -15,14 +16,14 @@ import numpy as np
 import pytest
 import torch
 
-from hmm_layer_torch import HMMLayer
+from hmm_layer_torch import HMMLayer, streaming
 from hmm_layer_torch.models import (
     GenePredEmissions,
     GenePredMultiTransitions,
     GenePredTransitions,
     make_15_class_emission_kernel,
 )
-from hmm_layer_torch.ops import cuda_adjoint, cuda_forward, cuda_mxu, cuda_viterbi, recursion
+from hmm_layer_torch.ops import cuda_adjoint, cuda_forward, cuda_mxu, cuda_viterbi, em, recursion
 from oracle import random_hmm
 
 pytestmark = pytest.mark.gpu
@@ -660,3 +661,85 @@ def test_blocked_and_mxu_kernels_refuse_what_they_cannot_take(cuda):
     with pytest.raises(TypeError, match="float32"):
         cuda_mxu.sum_chunk_summaries_mxu(torch.zeros((1, 29, 29), device=cuda),
                                          torch.zeros((1, 4, 3, 29), device=cuda, dtype=torch.float64), 1)
+
+
+# ---------------------------------------------------------------------------
+# auxiliary inference on the kernels (q = 15 gene-pred, K1–K3)
+# ---------------------------------------------------------------------------
+
+
+def _gene_pred_ingredients(cuda, b=3, L=1200, seed=1):
+    layer = HMMLayer(GenePredTransitions(), GenePredEmissions(**CODONS), use_prior=False,
+                     parallel_factor="auto")
+    rng = np.random.default_rng(seed)
+    cls = rng.dirichlet(np.ones(15), size=(1, b, L)).astype(np.float32)
+    nuc = np.eye(5, dtype=np.float32)[rng.integers(0, 4, size=(1, b, L))]
+    X = np.concatenate([cls, nuc], axis=-1)
+    with torch.no_grad():
+        init, A = layer.transitions.matrices()
+        E = layer.emission_probs(X)
+    return layer, X, init, A, E
+
+
+def test_sample_paths_kernel_route_valid(cuda, monkeypatch):
+    layer, X, init, A, E = _gene_pred_ingredients(cuda)
+    cuda_forward.reset_launches()
+    paths = layer.sample_paths(X, num_samples=8, generator=torch.Generator(cuda).manual_seed(0))
+    assert dict(cuda_forward.LAUNCHES) == {"sum_chunk_summaries": 1, "sum_fwd_outputs": 0,
+                                           "beta_bwd_outputs": 0}
+    monkeypatch.setattr(recursion, "_use_kernels", lambda x: False)
+    plain = layer.sample_paths(X, num_samples=8, generator=torch.Generator(cuda).manual_seed(0))
+    for p in (paths, plain):
+        assert p.shape == (1, 3, 8, 1200) and p.dtype == torch.int32
+        p = p[0].long()
+        assert bool((init[0][p[..., 0]] > 0).all())
+        assert bool((A[0][p[..., :-1], p[..., 1:]] > 0).all())
+    # The same noise through both routes: operators that agree to float32
+    # rounding flip no more than a sliver of the draws.
+    assert float((paths == plain).float().mean()) >= 0.99
+
+
+def test_em_step_kernel_route_matches_plain(cuda, monkeypatch):
+    layer, X, init, A, E = _gene_pred_ingredients(cuda)
+    P = layer._pf(E)
+    cuda_forward.reset_launches()
+    new_init, new_A, ll = em.em_step(init, A, E, parallel_factor=P)
+    assert dict(cuda_forward.LAUNCHES) == {"sum_chunk_summaries": 1, "sum_fwd_outputs": 1,
+                                           "beta_bwd_outputs": 1}
+    monkeypatch.setattr(recursion, "_use_kernels", lambda x: False)
+    ref_init, ref_A, ref_ll = em.em_step(init, A, E, parallel_factor=P)
+    torch.testing.assert_close(ll, ref_ll, rtol=1e-5, atol=0)
+    torch.testing.assert_close(new_A, ref_A, rtol=0, atol=1e-3)
+    torch.testing.assert_close(new_init, ref_init, rtol=0, atol=1e-3)
+    torch.testing.assert_close(new_A.sum(-1), torch.ones_like(new_A[..., 0]), rtol=0, atol=1e-5)
+    assert bool((new_A[A == 0] == 0).all())
+
+
+def test_streaming_filter_kernel_route_matches_plain(cuda, monkeypatch):
+    layer, X, init, A, E = _gene_pred_ingredients(cuda)
+    cuda_forward.reset_launches()
+    st = streaming.streaming_init(init, A, E[:, :, :600], parallel_factor=4)
+    st = streaming.streaming_update(st, A, E[:, :, 600:], parallel_factor=4)
+    assert cuda_forward.LAUNCHES["sum_chunk_summaries"] == 2
+    ll_dense = recursion.log_likelihood(init, A, E, 4)
+    monkeypatch.setattr(recursion, "_use_kernels", lambda x: False)
+    sp = streaming.streaming_init(init, A, E[:, :, :600], parallel_factor=4)
+    sp = streaming.streaming_update(sp, A, E[:, :, 600:], parallel_factor=4)
+    torch.testing.assert_close(st.log_lik, sp.log_lik, rtol=1e-5, atol=0)
+    torch.testing.assert_close(st.log_lik, ll_dense, rtol=1e-4, atol=0)
+    torch.testing.assert_close(st.log_filter.exp(), sp.log_filter.exp(), rtol=0, atol=1e-3)
+
+
+def test_chunked_forward_backward_take_k2_k3(cuda, monkeypatch):
+    layer, X, init, A, E = _gene_pred_ingredients(cuda)
+    cuda_forward.reset_launches()
+    la, ll = recursion.forward(init, A, E, 4)
+    lb = recursion.backward(init, A, E, 4)
+    assert dict(cuda_forward.LAUNCHES) == {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1,
+                                           "beta_bwd_outputs": 1}
+    monkeypatch.setattr(recursion, "_use_kernels", lambda x: False)
+    la_p, ll_p = recursion.forward(init, A, E, 4)
+    lb_p = recursion.backward(init, A, E, 4)
+    torch.testing.assert_close(ll, ll_p, rtol=1e-5, atol=0)
+    torch.testing.assert_close(la, la_p, rtol=1e-5, atol=1e-2)
+    torch.testing.assert_close(lb, lb_p, rtol=1e-5, atol=1e-2)

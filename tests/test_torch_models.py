@@ -80,10 +80,13 @@ def test_init_component_sd_draws_noise_on_intergenic_out_edges():
 
 
 def test_unported_transition_options_raise():
+    """``sparse_forward`` still raises; the experimental prior is ported
+    (held against JAX in ``tests/test_torch_options.py``)."""
     with pytest.raises(NotImplementedError, match="item 11"):
         tm.GenePredTransitions(sparse_forward=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tm.GenePredTransitions(use_experimental_prior=True)
+    t = tm.GenePredTransitions(use_experimental_prior=True)
+    assert t.get_config()["use_experimental_prior"] is True
+    assert torch.isfinite(t.prior_log_density()).all()
 
 
 @pytest.mark.parametrize("lead", [(), (3,)])
@@ -204,11 +207,20 @@ def test_array_init_and_default_init_match_jax():
     "option", ["emit_embeddings", "trainable_nucleotides_at_exons", "onehot_lookup_kmers"]
 )
 def test_unported_emission_options_raise(option):
+    """The three options are ported (held against JAX in
+    ``tests/test_torch_options.py``): each builds, keeps its config and
+    gives finite emissions; a missing or stray ``embedding_dim`` raises."""
     kwargs = {option: True}
     if option == "emit_embeddings":
         kwargs["embedding_dim"] = 4
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tm.GenePredEmissions(**CODONS, **kwargs)
+        with pytest.raises(ValueError, match="embedding_dim"):
+            tm.GenePredEmissions(**CODONS, emit_embeddings=True)
+    em = tm.GenePredEmissions(**CODONS, **kwargs)
+    assert em.get_config()[option] is True
+    x = torch.rand(1, 2, 9, 15 + kwargs.get("embedding_dim", 0) + 5)
+    assert torch.isfinite(em.emissions(x)).all()
+    with pytest.raises(ValueError, match="embedding_dim"):
+        tm.GenePredEmissions(**CODONS, embedding_dim=4)
 
 
 @pytest.mark.parametrize(
