@@ -82,6 +82,25 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    Viterbi (lag 256) valid; ms per block. The profiler's device busy time
    of one posterior with embeddings, one ``sample_paths``, one ``em_step``,
    the filter, the smoother and one fixed-lag Viterbi block.
+11. The sparse edge-list engine (``ops/sparse.py``, no kernel of its own;
+   every item checks that none of K1–K9 launched). Config 5:
+   ``GenePredMultiTransitions(k=36, sparse_forward=True)`` +
+   ``GenePredEmissions(num_copies=36)`` (q = 505, 793 edges), seeded
+   weights, b=8, L=10,000, against a dense twin of the same parameters (the
+   sequential engine at q > 64): 3 posterior + loglik requests
+   (normalisation, log gamma and loglik against the twin, ms/batch of both,
+   the profiler's busy share of one), one decode (valid, float64 score equal
+   to the dense decode's), one MAP step, the fused CE against the unfused
+   one (value, peak device memory; gradients at b=2, L=2000), two ``Trainer``
+   CE steps (fused, block 1000), ``sample_paths`` (S = 4; S = 1000 on one
+   sequence against exp(log gamma)), 3 ``sparse_em_step`` calls (step 1 against
+   the dense ``em_step``), the sparse streaming filter over 4 blocks of 2,500
+   and two bit-equal ``sparse_forward`` calls. The flagship (q = 15, b=32,
+   L=9999) through ``GenePredTransitions(sparse_forward=True)`` against the
+   K1–K3 posterior and the K6–K8 decode of the same weights, and its CE
+   gradients against the dense chunked ones (b=2, L=1200). k = 1000 (q =
+   14,001, 22,001 edges, b=2, L=2000): ``sparse_log_likelihood`` against the
+   dense sequential engine (A: 784 MB), both timed.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -1867,6 +1886,500 @@ def options_phase(HMMLayer, models, make, recursion, counters, smi):
     log(f"phase 10 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the sparse edge-list engine
+# ---------------------------------------------------------------------------
+
+SPARSE_K, SPARSE_B, SPARSE_L = 36, 8, 10_000  # config 5: q = 505, 793 edges
+SPARSE_BLOCK = 1000  # the fused CE's backward block
+SPARSE_SAMPLES, SPARSE_STREAM_BLOCK = 4, 2500
+WALL_K, WALL_B, WALL_L = 1000, 2, 2000  # q = 14,001, 22,001 edges
+
+
+def kernel_counts(counters):
+    """Launches of every kernel K1–K9 since the last reset."""
+    out = {}
+    for module in counters:
+        out.update(module.LAUNCHES)
+    return out
+
+
+def reset_kernels(counters):
+    for module in counters:
+        module.reset_launches()
+
+
+def no_kernels(tag, counters):
+    """Fail if any of K1–K9 launched since the last reset."""
+    launched = {k: v for k, v in kernel_counts(counters).items() if v}
+    if launched:
+        raise AssertionError(f"{tag}: the sparse route launched {launched}; it must launch none of K1-K9")
+
+
+def synced_ms(fn):
+    """(result, ms) of ``fn()`` on the host clock, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def build_config5(HMMLayer, models, sparse_forward):
+    """Config 5: ``GenePredMultiTransitions(k=36)`` + ``GenePredEmissions(
+    num_copies=36)`` from the 15-class kernel, seeded random weights around
+    that init as in phase 9."""
+    gen = torch.Generator().manual_seed(SEED + SPARSE_K)
+    layer = HMMLayer(
+        models.GenePredMultiTransitions(k=SPARSE_K, generator=gen, sparse_forward=sparse_forward),
+        models.GenePredEmissions(num_copies=SPARSE_K,
+                                 init=models.make_15_class_emission_kernel(num_copies=SPARSE_K), **CODONS),
+        use_prior=False,
+        parallel_factor="auto",
+    )
+    with torch.no_grad():
+        for p in layer.parameters():
+            p.add_((0.5 * torch.randn(p.shape, generator=gen)).to(p.device))
+    return layer
+
+
+def edge_support(layer):
+    """(init, dense A) of a sparse layer, for the path checks."""
+    with torch.no_grad():
+        idx, probs = layer.transitions.make_A_sparse()
+        from hmm_layer_torch.models.transition_utils import dense_from_edge_probs
+
+        A = dense_from_edge_probs(idx, probs, layer.transitions.num_states)
+        return layer.transitions.make_initial_distribution(), A
+
+
+def config5_posterior(layer, twin, requests, counters):
+    """3 posterior + loglik requests on the sparse route, each held against
+    the dense twin; no kernel may launch."""
+    out = {}
+    with torch.inference_mode():
+        sparse_ms, dense_ms, lls, d_gamma = [], [], [], []
+        for i, X in enumerate(requests):
+            reset_kernels(counters)
+            (lg, ll), ms = synced_ms(lambda: (layer.state_posterior_log_probs(X), layer.log_likelihood(X)))
+            no_kernels(f"config 5 posterior request {i}", counters)
+            sparse_ms.append(ms)
+            lls.append(ll)
+            init, A = twin.transitions.matrices()
+            E = twin.emission_probs(X)
+            (lg_d, ll_d), ms_d = synced_ms(lambda: recursion_posterior(twin, init, A, E))
+            dense_ms.append(ms_d)
+            bound = f32_log_bound(ll_d, SPARSE_L)
+            norm = float(torch.logsumexp(lg, -1).abs().max())
+            norm_d = float(torch.logsumexp(lg_d, -1).abs().max())
+            lg_err, lg_ok = within(lg, lg_d, 0.0, 2 * bound, mask=lg_d.exp() >= 1e-3)
+            ll_err, ll_ok = within(ll, ll_d, 1e-4, 0.0)
+            d_gamma.append(float((lg.exp() - lg_d.exp()).abs().max()))
+            log(f"phase 11 config 5 request {i}: loglik {float(ll.mean()):.2f} mean, vs the dense twin max abs "
+                f"{ll_err:.3e} (rtol 1e-4); |logsumexp(log gamma)| max {norm:.3e} (dense twin {norm_d:.3e}, "
+                f"bound {bound:.3f} + the twin's); log gamma vs dense where gamma >= 1e-3 max abs {lg_err:.3e} "
+                f"(bound {2 * bound:.3f}); launches none; {ms:.3f} ms sparse, {ms_d:.3f} ms dense")
+            if norm > bound + norm_d or not lg_ok or not ll_ok:
+                raise AssertionError(f"config 5 request {i}: the sparse route disagrees with the dense twin")
+    log(f"phase 11 config 5 posterior + loglik (q={lg.shape[-1]}, b={SPARSE_B}, L={SPARSE_L}): sparse "
+        f"{statistics.median(sparse_ms):.3f} ms/batch median {[round(t, 3) for t in sparse_ms]}; dense "
+        f"sequential twin (posterior, loglik from one forward) {statistics.median(dense_ms):.3f} ms/batch "
+        f"{[round(t, 3) for t in dense_ms]}")
+    profile_request("phase 11 config 5 sparse posterior", lambda: layer.state_posterior_log_probs(requests[0]),
+                    "kernels of the port (none)", ())
+    out["c5_posterior_ms"] = statistics.median(sparse_ms)
+    out["c5_dense_posterior_ms"] = statistics.median(dense_ms)
+    return out, lls, d_gamma
+
+
+def recursion_posterior(twin, init, A, E):
+    from hmm_layer_torch.ops import recursion
+
+    return recursion.posterior(init, A, E, twin._pf(E))
+
+
+def check_support(tag, paths, init, A):
+    """Every first state has init > 0 and every transition is an edge with
+    A > 0; paths (m, b, [S,] L)."""
+    p = paths[0].long()
+    if not (bool((init[0][p[..., 0]] > 0).all()) and bool((A[0][p[..., :-1], p[..., 1:]] > 0).all())):
+        raise AssertionError(f"{tag}: a path leaves the edge support or starts where init = 0")
+
+
+def config5_viterbi(layer, twin, X, counters):
+    with torch.inference_mode():
+        reset_kernels(counters)
+        path, ms = synced_ms(lambda: layer.viterbi(X))
+        no_kernels("config 5 viterbi", counters)
+        path_d, ms_d = synced_ms(lambda: twin.viterbi(X))
+        init, A = twin.transitions.matrices()
+        E = twin.emission_probs(X)
+        check_support("config 5 sparse decode", path, init, A)
+        score, _ = path_score64(init, A, E, path)
+        score_d, _ = path_score64(init, A, E, path_d)
+        err, ok = within(score, score_d, 1e-5, 0.0)
+        same = float((path == path_d).float().mean())
+    log(f"phase 11 config 5 viterbi: every transition on an edge with A > 0; float64 path scores vs the dense "
+        f"decode max abs {err:.3e} (rtol 1e-5; mean score {float(score.mean()):.2f}); paths equal at "
+        f"{100 * same:.3f}% of positions; launches none; sparse {ms:.3f} ms/batch, dense sequential {ms_d:.3f}")
+    if not ok:
+        raise AssertionError("config 5 sparse decode scores below the dense decode")
+    return {"c5_viterbi_ms": ms, "c5_dense_viterbi_ms": ms_d}, path
+
+
+def masked_ce(lg, labels, mask):
+    """The unfused CE: mask-weighted mean of -log gamma at the labels (b, L)."""
+    ce = -torch.gather(lg, -1, labels.expand(lg.shape[:-1])[..., None])[..., 0]
+    return (ce * mask).sum() / mask.sum().clamp_min(1.0)
+
+
+def config5_training(layer, X, path, counters, sparse_ops, make):
+    """One MAP step; the unfused CE's value, gradient and peak memory, then
+    two Trainer CE steps (fused, blocked), the first of which gives the
+    fused value and peak on the same parameters; the fused gradients
+    against the unfused ones at b=2, L=2000."""
+    import functools
+
+    from hmm_layer_torch.training import Trainer
+
+    pars = [p for p in layer.parameters() if p.requires_grad]
+    names = [n for n, p in layer.named_parameters() if p.requires_grad]
+    out = {}
+    reset_kernels(counters)
+    (loss, grads), ms = synced_ms(lambda: (lambda v: (v.detach(), torch.autograd.grad(v, pars)))(layer.loss(X)))
+    no_kernels("config 5 MAP step", counters)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    log(f"phase 11 config 5 MAP loss step: loss {float(loss):.3f}, gradients finite {finite}, {ms:.3f} ms "
+        f"(forward + analytic backward); launches none")
+    if not (finite and math.isfinite(float(loss))):
+        raise AssertionError("config 5 MAP step: loss or gradients not finite")
+    out["c5_map_ms"] = ms
+
+    labels = path[0].long()
+    mask = torch.ones(labels.shape, device=labels.device)
+    mask[::4, -1000:] = 0.0
+
+    def peak_of(fn):
+        """(result, ms, peak device memory above what is allocated before)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        result, t = synced_ms(fn)
+        return result, t, torch.cuda.max_memory_allocated() - base
+
+    (ce_u, _), ms_u, peak_u = peak_of(lambda: (lambda v: (v.detach(), torch.autograd.grad(v, pars)))(
+        masked_ce(layer.state_posterior_log_probs(X, training=True), labels, mask)))
+
+    before = [p.detach().clone() for p in pars]
+    batch = {"x": X, "labels": labels, "mask": mask}
+
+    def ce_loss(batch, indices):
+        return layer.posterior_cross_entropy(batch["x"], batch["labels"], label_mask=batch["mask"])
+
+    trainer = Trainer(layer, optimizer=functools.partial(torch.optim.Adam, lr=1e-2), loss_fn=ce_loss)
+    trainer.init_from_params()
+    losses, step_ms = [], []
+    prev = sparse_ops.set_sparse_posterior_block(SPARSE_BLOCK)
+    try:
+        for i in range(2):
+            reset_kernels(counters)
+            loss, ms, peak = peak_of(lambda: trainer.fit([batch]))
+            no_kernels(f"config 5 Trainer CE step {i + 1}", counters)
+            losses.append(float(loss))
+            step_ms.append(ms)
+            if i == 0:
+                peak_f = peak
+    finally:
+        sparse_ops.set_sparse_posterior_block(prev)
+    moved = [not torch.equal(p.detach(), p0) for p, p0 in zip(pars, before)]
+    err, ok = within(torch.tensor(losses[0]), ce_u.cpu(), 1e-5, 0.0)
+    log(f"phase 11 config 5 CE (b={SPARSE_B}, L={SPARSE_L}): fused (Trainer step 1) {losses[0]:.6f} vs unfused "
+        f"{float(ce_u):.6f}, abs diff {err:.3e} (rtol 1e-5); peak device memory above what was allocated before: "
+        f"fused + blocked Trainer step (block {SPARSE_BLOCK}) {peak_f / 2**20:.1f} MiB, unfused value + gradient "
+        f"{peak_u / 2**20:.1f} MiB ({ms_u:.3f} ms)")
+    log(f"phase 11 config 5 Trainer CE steps (fused, block {SPARSE_BLOCK}, Adam 1e-2): losses "
+        f"{[round(v, 6) for v in losses]}, {[round(t, 3) for t in step_ms]} ms/step; every parameter moved: "
+        f"{all(moved)}; launches none")
+    if not ok or not peak_f < peak_u:
+        raise AssertionError("fused CE: value differs from the unfused one, or its peak memory is not lower")
+    if not (all(np.isfinite(losses)) and all(moved)):
+        raise AssertionError("config 5 CE training: loss not finite or a parameter did not move")
+    out.update(c5_ce_step_ms=step_ms[-1], c5_ce_unfused_ms=ms_u, c5_peak_fused_mib=peak_f / 2**20,
+               c5_peak_unfused_mib=peak_u / 2**20)
+
+    # Gradients of every parameter: fused (blocked) against unfused, b=2, L=2000.
+    Xs = make(SEED + 131, 2, 2000)
+    with torch.no_grad():
+        lab_s = layer.viterbi(Xs)[0].long()
+    mask_s = torch.ones(lab_s.shape, device=lab_s.device)
+    mask_s[0, -500:] = 0.0
+    g_fused = torch.autograd.grad(sparse_ops_ce(layer, sparse_ops, Xs, lab_s, mask_s, 500), pars)
+    g_unfused = torch.autograd.grad(
+        masked_ce(layer.state_posterior_log_probs(Xs, training=True), lab_s, mask_s), pars)
+    rel = [float((a - r).abs().max() / r.abs().max().clamp_min(1e-30)) for a, r in zip(g_fused, g_unfused)]
+    log(f"phase 11 config 5 CE gradients (b=2, L=2000, block 500) fused vs unfused, max |diff| / max "
+        f"|unfused| per parameter {dict(zip(names, [f'{x:.3e}' for x in rel]))} (limit 1e-4)")
+    if max(rel) > 1e-4:
+        raise AssertionError("fused CE gradients differ from the unfused ones")
+    return out
+
+
+def sparse_ops_ce(layer, sparse_ops, X, labels, mask, block):
+    init, indices, probs, E = layer._sparse_ingredients(X, None, True)
+    return sparse_ops.sparse_posterior_cross_entropy(init, indices, probs, E, labels, label_mask=mask,
+                                                     backward_block=block)
+
+
+def config5_sampling(layer, X, counters):
+    init, A = edge_support(layer)
+    gen = torch.Generator(device=X.device).manual_seed(SEED)
+    reset_kernels(counters)
+    paths, ms = synced_ms(lambda: layer.sample_paths(X, num_samples=SPARSE_SAMPLES, generator=gen))
+    no_kernels("config 5 sample_paths", counters)
+    if tuple(paths.shape) != (1, SPARSE_B, SPARSE_SAMPLES, SPARSE_L):
+        raise AssertionError(f"config 5 sample_paths shape {tuple(paths.shape)}")
+    check_support("config 5 sample_paths", paths, init, A)
+    X1 = X[:, :1]
+    with torch.inference_mode():
+        many, ms1 = synced_ms(lambda: layer.sample_paths(X1, num_samples=FREQ_SAMPLES, generator=gen))
+        check_support("config 5 sample_paths S=1000", many, init, A)
+        p = many[0, 0].long()
+        q = A.shape[-1]
+        counts = torch.zeros((SPARSE_L, q), device=p.device).scatter_add_(
+            1, p.T.contiguous(), torch.ones(p.T.shape, device=p.device))
+        lg = layer.state_posterior_log_probs(X1)[0, 0]
+    # log gamma is off its normalisation by up to the float32 bound at this
+    # length (both engines; the request checks above), and the sampler draws
+    # from the normalised posterior: compare with gamma normalised per position.
+    norm = torch.logsumexp(lg, -1, keepdim=True)
+    err = float((counts / FREQ_SAMPLES - (lg - norm).exp()).abs().max())
+    tol = 4.5 / math.sqrt(FREQ_SAMPLES)
+    log(f"phase 11 config 5 sample_paths: S={SPARSE_SAMPLES} over b={SPARSE_B} {ms:.3f} ms/batch, every start and "
+        f"transition on the edge support; S={FREQ_SAMPLES} on one sequence {ms1:.3f} ms, state frequencies vs "
+        f"exp(log gamma) normalised per position (|logsumexp(log gamma)| max {float(norm.abs().max()):.3e}) max "
+        f"abs {err:.3e} (tolerance 4.5/sqrt(S) = {tol:.3f}); launches none")
+    if err > tol:
+        raise AssertionError("config 5 sampled state frequencies disagree with the posterior")
+    return {"c5_sample_ms": ms, "c5_sample_1000_ms": ms1}
+
+
+def config5_em(layer, twin, X, d_gamma, counters, sparse_ops):
+    """3 ``sparse_em_step`` calls; step 1 against the dense ``em_step``
+    (P = 1): within rtol 1e-4 / atol 1e-6 on the first 18 positions of 3
+    sequences (the shape of the JAX package's test), and on the whole input
+    within ``d_gamma``, the two engines' largest gamma difference on it
+    (phase 11's request 0): at |loglik| ~ 1e5 both carry float32 log-scales
+    rounded at 2^-7, and an EM update is a ratio of sums of gamma."""
+    from hmm_layer_torch.ops import em
+
+    with torch.inference_mode():
+        init, indices, probs, E = layer._sparse_ingredients(X, None, False)
+        A = twin.transitions.make_A()
+        src = torch.as_tensor(indices[:, 0], device=E.device)
+        dst = torch.as_tensor(indices[:, 1], device=E.device)
+        Es = E[:, :3, :18]
+        got = sparse_ops.sparse_em_step(init, indices, probs, Es)
+        ref = em.em_step(init, A, Es, 1)
+        errs = [within(got[0], ref[0], 1e-4, 1e-6), within(got[1], ref[1][:, src, dst], 1e-4, 1e-6),
+                within(got[2], ref[2], 1e-5, 0.0)]
+        log(f"phase 11 config 5 sparse_em_step vs the dense em_step (P=1) on b=3, L=18: init, edge probs max abs "
+            f"{errs[0][0]:.3e}, {errs[1][0]:.3e} (rtol 1e-4, atol 1e-6), loglik {errs[2][0]:.3e} (rtol 1e-5)")
+        if not all(ok for _, ok in errs):
+            raise AssertionError("sparse_em_step disagrees with the dense em_step on a short input")
+        ref_init, ref_A, ref_ll = em.em_step(init, A, E, 1)
+        lls, ms = [], []
+        for i in range(EM_STEPS):
+            reset_kernels(counters)
+            (new_init, new_w, ll), t = synced_ms(lambda: sparse_ops.sparse_em_step(init, indices, probs, E))
+            no_kernels(f"config 5 sparse_em_step {i + 1}", counters)
+            ms.append(t)
+            if i == 0:
+                e_init, ok_init = within(new_init, ref_init, 1e-4, 1e-6)
+                e_w, ok_w = within(new_w, ref_A[:, src, dst], 1e-4, 1e-6)
+                e_ll, ok_ll = within(ll, ref_ll, 1e-5, 0.0)
+                log(f"phase 11 config 5 sparse_em_step 1 vs the dense em_step (P=1), b={SPARSE_B}, L={SPARSE_L}: "
+                    f"init max abs {e_init:.3e}, edge probs {e_w:.3e} (rtol 1e-4 / atol 1e-6: {ok_init and ok_w}; "
+                    f"else within {d_gamma:.3e}, the engines' gamma difference), loglik {e_ll:.3e} (rtol 1e-5)")
+                ok_init = ok_init or e_init <= d_gamma
+                ok_w = ok_w or e_w <= d_gamma
+                if not (ok_init and ok_w and ok_ll):
+                    raise AssertionError("config 5 sparse_em_step disagrees with the dense em_step")
+            lls.append(float(ll.double().sum()))
+            rows = torch.zeros(A.shape[-1], dtype=torch.float64, device=E.device).index_add_(
+                0, src, new_w[0].double())
+            has_out = torch.zeros(A.shape[-1], dtype=torch.bool, device=E.device)
+            has_out[src] = True
+            stochastic = (bool(((rows[has_out] - 1).abs() <= 1e-5).all())
+                          and abs(float(new_init.sum()) - 1) <= 1e-5)
+            tol = SPARSE_B * f32_log_bound(ll, SPARSE_L)
+            log(f"phase 11 config 5 sparse_em_step {i + 1}: summed loglik {lls[-1]:.3f}, {t:.3f} ms; rows "
+                f"stochastic over the edge support {stochastic}; launches none")
+            if not stochastic or (i and lls[-1] < lls[-2] - tol):
+                raise AssertionError(f"config 5 sparse_em_step {i + 1}: loglik fell (tolerance {tol:.3f}) "
+                                     "or rows broke")
+            init, probs = new_init, new_w
+    log(f"phase 11 config 5 sparse_em_step: {statistics.median(ms):.3f} ms/step median {[round(t, 3) for t in ms]}")
+    return {"c5_em_ms": statistics.median(ms)}
+
+
+def config5_streaming(layer, X, ll_whole, counters):
+    from hmm_layer_torch import streaming
+
+    with torch.inference_mode():
+        init, indices, probs, E = layer._sparse_ingredients(X, None, False)
+        blocks = [E[:, :, s:s + SPARSE_STREAM_BLOCK] for s in range(0, SPARSE_L, SPARSE_STREAM_BLOCK)]
+        reset_kernels(counters)
+
+        def run():
+            st = streaming.sparse_streaming_init(init, indices, probs, blocks[0])
+            for blk in blocks[1:]:
+                st = streaming.sparse_streaming_update(st, indices, probs, blk)
+            return st
+
+        st, ms = synced_ms(run)
+        no_kernels("config 5 sparse streaming", counters)
+    err, ok = within(st.log_lik, ll_whole, 1e-4, 0.0)
+    log(f"phase 11 config 5 sparse streaming filter ({len(blocks)} blocks of {SPARSE_STREAM_BLOCK}): loglik vs "
+        f"sparse_log_likelihood of the whole sequence max abs {err:.3e} (rtol 1e-4); "
+        f"{ms / len(blocks):.3f} ms/block; launches none")
+    if not ok:
+        raise AssertionError("config 5 sparse streaming filter disagrees with the whole sequence")
+    return {"c5_stream_ms_per_block": ms / len(blocks)}
+
+
+def config5_determinism(layer, X, sparse_ops):
+    with torch.inference_mode():
+        init, indices, probs, E = layer._sparse_ingredients(X, None, False)
+        la, ll = sparse_ops.sparse_forward(init, indices, probs, E)
+        la2, ll2 = sparse_ops.sparse_forward(init, indices, probs, E)
+        equal = torch.equal(la, la2) and torch.equal(ll, ll2)
+    log(f"phase 11 config 5 determinism: two identical sparse_forward calls bit-equal: {equal}")
+    if not equal:
+        raise AssertionError("sparse_forward is not deterministic on the card")
+
+
+def flagship_sparse(HMMLayer, models, make, recursion, counters):
+    """The flagship (q = 15, b = 32, L = 9999) through the sparse route,
+    against the kernel route of the same weights."""
+    out = {}
+    dense = build_layer(HMMLayer, models)
+    sp = seeded_layer(HMMLayer, models.GenePredTransitions(sparse_forward=True),
+                      models.GenePredEmissions(**CODONS), SEED, use_prior=False)
+    X = make(SEED + 1, B, L)
+    with torch.inference_mode():
+        dense.state_posterior_log_probs(X)  # warm-up, not counted
+        reset_kernels(counters)
+        (lg_k, ll_k), ms_k = synced_ms(lambda: (dense.state_posterior_log_probs(X), dense.log_likelihood(X)))
+        launches = kernel_counts(counters)
+        expect(launches, **PER_REQUEST)
+        reset_kernels(counters)
+        (lg, ll), ms = synced_ms(lambda: (sp.state_posterior_log_probs(X), sp.log_likelihood(X)))
+        no_kernels("flagship sparse posterior", counters)
+        bound = f32_log_bound(ll_k, L // PF) + f32_log_bound(ll_k, L)
+        lg_err, lg_ok = within(lg, lg_k, 0.0, bound, mask=lg_k.exp() >= 1e-3)
+        ll_err, ll_ok = within(ll, ll_k, 2e-4, 0.0)
+        norm = float(torch.logsumexp(lg, -1).abs().max())
+        log(f"phase 11 flagship through the sparse route (q=15, b={B}, L={L}): log gamma vs the kernel route "
+            f"(K1-K3 once each: {launches}) where gamma >= 1e-3 max abs {lg_err:.3e} (bound {bound:.3f}: "
+            f"sequential + chunked float32 bounds), loglik max abs {ll_err:.3e} (rtol 2e-4); |logsumexp(log "
+            f"gamma)| max {norm:.3e}; posterior + loglik sparse {ms:.3f} ms/batch, kernel route {ms_k:.3f}")
+        if not (lg_ok and ll_ok and norm <= bound):
+            raise AssertionError("the flagship's sparse route disagrees with the kernel route")
+        out.update(flagship_sparse_ms=ms, flagship_kernel_ms=ms_k)
+
+        reset_kernels(counters)
+        path_k, ms_vk = synced_ms(lambda: dense.viterbi(X))
+        launches = kernel_counts(counters)
+        expect(launches, **{k: 1 for k in DECODE_Q16})
+        reset_kernels(counters)
+        path, ms_v = synced_ms(lambda: sp.viterbi(X))
+        no_kernels("flagship sparse decode", counters)
+        init, A = dense.transitions.matrices()
+        E = dense.emission_probs(X)
+        check_support("flagship sparse decode", path, init, A)
+        score, _ = path_score64(init, A, E, path)
+        score_k, _ = path_score64(init, A, E, path_k)
+        err, ok = within(score, score_k, 1e-5, 0.0)
+        log(f"phase 11 flagship sparse decode: valid; float64 path scores vs the K6-K8 decode ({launches}) max "
+            f"abs {err:.3e} (rtol 1e-5); sparse {ms_v:.3f} ms/batch, kernel route {ms_vk:.3f}")
+        if not ok:
+            raise AssertionError("the flagship's sparse decode scores differ from the K6-K8 decode")
+        out.update(flagship_sparse_viterbi_ms=ms_v, flagship_kernel_viterbi_ms=ms_vk)
+
+    # Gradients at b=2, L=1200: the sparse analytic posterior VJP against the
+    # dense chunked analytic VJP (K4-K5 on the card), scale-normalised.
+    Xs = make(SEED + 141, 2, 1200)
+    with torch.no_grad():
+        labels = dense.viterbi(Xs)[0].long()
+    mask = torch.ones(labels.shape, device=labels.device)
+    names = [n for n, p in dense.named_parameters() if p.requires_grad]
+    grads = []
+    for layer in (sp, dense):
+        pars = [p for p in layer.parameters() if p.requires_grad]
+        grads.append(torch.autograd.grad(masked_ce(layer.state_posterior_log_probs(Xs), labels, mask), pars))
+    rel = [float((a - r).abs().max() / r.abs().max().clamp_min(1e-30)) for a, r in zip(*grads)]
+    log(f"phase 11 flagship CE gradients (b=2, L=1200, dense P={recursion.recommended_parallel_factor(1200, 15, 1)}): sparse analytic vs dense "
+        f"chunked analytic, max |diff| / max |dense| per parameter {dict(zip(names, [f'{x:.3e}' for x in rel]))} "
+        f"(limit 2e-3)")
+    if max(rel) > 2e-3:
+        raise AssertionError("the flagship's sparse gradients differ from the dense chunked ones")
+    return out
+
+
+def dense_wall(models, recursion, sparse_ops, counters, device):
+    """k = 1000 (q = 14,001, 22,001 edges), b = 2, L = 2000: the sparse
+    log-likelihood against the dense sequential engine (A: 784 MB)."""
+    t = models.GenePredMultiTransitions(k=WALL_K, generator=torch.Generator().manual_seed(SEED + WALL_K)).to(device)
+    q = t.num_states
+    rng = np.random.default_rng(SEED + WALL_K)
+    E = torch.from_numpy(rng.uniform(0.05, 1.0, (1, WALL_B, WALL_L, q)).astype(np.float32)).to(device)
+    with torch.inference_mode():
+        indices, probs = t.make_A_sparse()
+        init = t.make_initial_distribution()
+        sparse_ops.sparse_log_likelihood(init, indices, probs, E[:, :, :8])  # plan on the card
+        reset_kernels(counters)
+        ll, ms = synced_ms(lambda: sparse_ops.sparse_log_likelihood(init, indices, probs, E))
+        no_kernels("q=14001 sparse loglik", counters)
+        A, ms_a = synced_ms(t.make_A)
+        ll_d, ms_d = synced_ms(lambda: recursion.log_likelihood(init, A, E, 1))
+    err, ok = within(ll, ll_d, 1e-4, 0.0)
+    log(f"phase 11 past the dense wall (k={WALL_K}: q={q}, {len(indices)} edges, b={WALL_B}, L={WALL_L}): "
+        f"sparse_log_likelihood vs the dense sequential engine max abs {err:.3e} (rtol 1e-4; loglik "
+        f"{float(ll.mean()):.2f} mean); sparse {ms:.3f} ms, dense {ms_d:.3f} ms (+ {ms_a:.3f} ms to build the "
+        f"{A.numel() * 4 / 2**20:.0f} MiB A)")
+    if not ok:
+        raise AssertionError("q=14001 sparse loglik disagrees with the dense engine")
+    return {"wall_sparse_ms": ms, "wall_dense_ms": ms_d, "wall_build_A_ms": ms_a}
+
+
+def sparse_phase(HMMLayer, models, make, recursion, counters, smi):
+    """Phase 11: the sparse edge-list engine at config 5, the flagship
+    through the sparse route, and q = 14,001."""
+    from hmm_layer_torch.ops import sparse as sparse_ops
+
+    t0 = time.perf_counter()
+    layer = build_config5(HMMLayer, models, sparse_forward=True)
+    twin = build_config5(HMMLayer, models, sparse_forward=False)
+    twin.load_state_dict(layer.state_dict())
+    q = layer.transitions.num_states
+    log(f"phase 11 config 5: q={q}, {layer.transitions.num_transitions} edges, b={SPARSE_B}, L={SPARSE_L}; "
+        f"dense twin parallel factor {recursion.recommended_parallel_factor(SPARSE_L, q, 1)} (sequential engine)")
+    requests = [make(SEED + 111 + i, SPARSE_B, SPARSE_L) for i in range(N_REQUESTS)]
+    times, lls, d_gamma = config5_posterior(layer, twin, requests, counters)
+    more, path = config5_viterbi(layer, twin, requests[0], counters)
+    times.update(more)
+    times.update(config5_sampling(layer, requests[0], counters))
+    times.update(config5_em(layer, twin, requests[0], d_gamma[0], counters, sparse_ops))
+    times.update(config5_streaming(layer, requests[0], lls[0], counters))
+    config5_determinism(layer, requests[0], sparse_ops)
+    times.update(config5_training(layer, requests[0], path, counters, sparse_ops, make))
+    del layer, twin, requests, lls, path
+    times.update(flagship_sparse(HMMLayer, models, make, recursion, counters))
+    times.update(dense_wall(models, recursion, sparse_ops, counters, make(SEED, 1, 1).device))
+    log(f"phase 11 summary on {smi}: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device",
@@ -1988,6 +2501,9 @@ def main() -> int:
 
     # 10. Options and auxiliary inference
     options_phase(HMMLayer, models, make, recursion, (cuda_forward, cuda_adjoint, cuda_mxu), smi)
+
+    # 11. The sparse edge-list engine
+    sparse_phase(HMMLayer, models, make, recursion, (cuda_forward, cuda_adjoint, cuda_viterbi, cuda_mxu), smi)
 
     launches.update({k: v for k, v in decode_launches.items() if k in DECODE_Q16})
     launches.update({k: train_launches[k] for k in cuda_adjoint.LAUNCHES})

@@ -15,12 +15,21 @@ layer's ``return_prior`` and then append the unscaled prior and the
 auxiliary loss.
 
 :meth:`HMMLayer.sample_paths` draws exact posterior paths (FFBS,
-:mod:`.ops.sampling`) on the dense route.
+:mod:`.ops.sampling`).
 
-Not ported yet: the sparse route, its fused cross-entropy and its path
-sampling (ROADMAP Queue 1 item 11), the profile family's
-``structured_forward`` log-likelihood and ``resize`` (item 10), and the
-``mesh``/``partition`` routes (item 13).
+Transitions built with ``sparse_forward=True`` route
+:meth:`~HMMLayer.state_posterior_log_probs`, :meth:`~HMMLayer.log_likelihood`
+(so :meth:`~HMMLayer.loss` and ``forward``), :meth:`~HMMLayer.viterbi`,
+:meth:`~HMMLayer.sample_paths` (sequential; ``parallel_factor`` ignored) and
+:meth:`~HMMLayer.posterior_cross_entropy` (the fused objective) through the
+sparse edge-list engine (:mod:`.ops.sparse`) over the transitions'
+``make_A_sparse``; the dense (q, q) matrix is never built.
+``forward_recursion`` and ``backward_recursion`` keep the dense engine, as
+in the JAX layer.
+
+Not ported yet: the profile family's ``structured_forward``
+log-likelihood and ``resize`` (item 10), and the ``mesh``/``partition``
+routes (item 13), with the sparse engine's edge-sharded ``state`` route.
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 from torch import nn
 
 from .ops import recursion, sampling
+from .ops import sparse as sparse_ops
 
 __all__ = ["HMMLayer"]
 
@@ -128,6 +138,17 @@ class HMMLayer(nn.Module):
 
     # -- inference -------------------------------------------------------------
 
+    def _sparse_route(self) -> bool:
+        """Whether the transitions ask for the sparse edge-list engine (the
+        port has no mesh, so no other route exists)."""
+        return bool(getattr(self.transitions, "sparse_forward", False))
+
+    def _sparse_ingredients(self, inputs, end_hints, training):
+        """(init (m, q), host edge indices, edge probs (m, n), E)."""
+        indices, probs = self.transitions.make_A_sparse()
+        init = self.transitions.make_initial_distribution()
+        return init, indices, probs, self.emission_probs(inputs, end_hints, training)
+
     def _prior_and_aux(self):
         """(unscaled prior (m,), aux loss): what ``return_prior`` appends."""
         return self.compute_prior(scaled=False), self.aux_loss()
@@ -150,12 +171,19 @@ class HMMLayer(nn.Module):
         """log P(s_t = q | x); (m, b, L, q)[, prior, aux_loss]. ``no_loglik``
         skips the loglik normalisation. With ``return_prior`` the unscaled
         prior (m,) and the auxiliary loss follow, as in the JAX layer."""
-        init, A, E = self._ingredients(inputs, end_hints, training)
-        lg, _ = recursion.posterior(init, A, E, self._pf(E), no_loglik=no_loglik)
+        if self._sparse_route():
+            lg, _ = sparse_ops.sparse_posterior(
+                *self._sparse_ingredients(inputs, end_hints, training), no_loglik=no_loglik
+            )
+        else:
+            init, A, E = self._ingredients(inputs, end_hints, training)
+            lg, _ = recursion.posterior(init, A, E, self._pf(E), no_loglik=no_loglik)
         return (lg, *self._prior_and_aux()) if return_prior else lg
 
     def log_likelihood(self, inputs, end_hints=None, training=False):
         """Per-model per-sequence loglik; (m, b)."""
+        if self._sparse_route():
+            return sparse_ops.sparse_log_likelihood(*self._sparse_ingredients(inputs, end_hints, training))
         init, A, E = self._ingredients(inputs, end_hints, training)
         return recursion.log_likelihood(init, A, E, self._pf(E))
 
@@ -165,6 +193,8 @@ class HMMLayer(nn.Module):
         ``end_hints`` clamp chunk-border emissions as in
         :meth:`state_posterior_log_probs` (hint-constrained MAP decoding).
         """
+        if self._sparse_route():
+            return sparse_ops.sparse_viterbi(*self._sparse_ingredients(inputs, end_hints, False))
         init, A, E = self._ingredients(inputs, end_hints, False)
         return recursion.viterbi(init, A, E, self._pf(E, for_viterbi=True))
 
@@ -175,13 +205,14 @@ class HMMLayer(nn.Module):
         Gumbel noise comes from ``generator`` (a ``torch.Generator``, best
         on the layer's device; the device's default generator when
         ``None``). Every sampled transition has ``A > 0`` and every first
-        state ``init > 0``.
+        state ``init > 0``. Sparse-forward transitions take the edge-list
+        FFBS (:func:`~hmm_layer_torch.ops.sparse.sparse_sample_paths`,
+        sequential; ``parallel_factor`` is ignored), whose samples stay on
+        the edge support.
         """
-        if getattr(self.transitions, "sparse_forward", False):
-            raise NotImplementedError(
-                "sample_paths of sparse_forward transitions needs the sparse "
-                "edge-list engine, not ported yet (ROADMAP Queue 1 item 11)"
-            )
+        if self._sparse_route():
+            init, indices, probs, E = self._sparse_ingredients(inputs, end_hints, False)
+            return sparse_ops.sparse_sample_paths(init, indices, probs, E, generator, num_samples)
         init, A, E = self._ingredients(inputs, end_hints, False)
         return sampling.sample_posterior(init, A, E, generator, num_samples, self._pf(E))
 
@@ -265,9 +296,27 @@ class HMMLayer(nn.Module):
           no_loglik: skip the loglik normalisation inside the posterior (the
             CE then also penalises total mass).
 
+        Sparse-forward transitions take the fused objective
+        (:func:`~hmm_layer_torch.ops.sparse.sparse_posterior_cross_entropy`):
+        the (m, b, L, q) posterior and its cotangent never exist, and the
+        time block of its backward is
+        :func:`~hmm_layer_torch.ops.sparse.set_sparse_posterior_block`'s.
+
         Returns:
           scalar loss: mean CE − scaled prior (if ``use_prior``) + aux.
         """
+        if self._sparse_route():
+            init, indices, probs, E = self._sparse_ingredients(inputs, end_hints, training)
+            loss = sparse_ops.sparse_posterior_cross_entropy(
+                init, indices, probs, E, labels, label_mask=label_mask, no_loglik=no_loglik
+            )
+        else:
+            loss = self._dense_cross_entropy(inputs, labels, label_mask, end_hints, training, no_loglik)
+        if self.use_prior:
+            loss = loss - self.compute_prior().mean()
+        return loss + self.aux_loss()
+
+    def _dense_cross_entropy(self, inputs, labels, label_mask, end_hints, training, no_loglik):
         lg = self.state_posterior_log_probs(
             inputs, end_hints=end_hints, training=training, no_loglik=no_loglik
         )
@@ -277,13 +326,8 @@ class HMMLayer(nn.Module):
         ce = -torch.gather(lg, -1, labels[..., None])[..., 0]
         if label_mask is not None:
             mask = torch.as_tensor(label_mask, dtype=ce.dtype, device=ce.device).expand(ce.shape)
-            ce_mean = (ce * mask).sum() / mask.sum().clamp_min(1.0)
-        else:
-            ce_mean = ce.mean()
-        loss = ce_mean
-        if self.use_prior:
-            loss = loss - self.compute_prior().mean()
-        return loss + self.aux_loss()
+            return (ce * mask).sum() / mask.sum().clamp_min(1.0)
+        return ce.mean()
 
     def forward(self, inputs, indices=None, training=False, end_hints=None):
         """``layer(inputs)``: (loglik (m, b), aggregated loglik[, prior

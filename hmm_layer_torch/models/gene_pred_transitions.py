@@ -22,7 +22,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .transition_utils import masked_row_softmax_from_edges
+from .transition_utils import masked_row_softmax_from_edges, sparse_edge_softmax
 
 __all__ = ["SimpleGenePredTransitions", "GenePredTransitions", "GenePredMultiTransitions"]
 
@@ -33,6 +33,10 @@ class SimpleGenePredTransitions(nn.Module):
     State order: ``Ir, I0, I1, I2, E0, E1, E2``.
 
     Args:
+        sparse_forward: route the layer's inference and training through
+            the sparse edge-list engine (:mod:`hmm_layer_torch.ops.sparse`)
+            over :meth:`make_A_sparse`; the dense (q, q) matrix is never
+            built. For large multi-copy models (q = 1 + 14k).
         generator: draws the ``init_component_sd`` noise of the
             intergenic out-edges (none is drawn at the default sd of 0).
     """
@@ -53,11 +57,6 @@ class SimpleGenePredTransitions(nn.Module):
         generator: torch.Generator | None = None,
     ):
         super().__init__()
-        if sparse_forward:
-            raise NotImplementedError(
-                "sparse_forward needs the sparse edge-list engine, not ported "
-                "yet (ROADMAP Queue 1 item 11)"
-            )
         self.sparse_forward = sparse_forward
         self.num_models = num_models
         self.initial_exon_len = initial_exon_len
@@ -154,6 +153,21 @@ class SimpleGenePredTransitions(nn.Module):
             self.edge_indices, self.transition_kernel, self.num_states
         )
         return A.expand((self.num_models,) + tuple(A.shape))
+
+    def make_A_sparse(self):
+        """Edge-list transition probabilities, never densified.
+
+        Returns ``(indices (n_edges, 2), probs (num_models, n_edges))``:
+        ``indices`` is the host (numpy) edge list, which keys the sparse
+        engine's edge plan (:mod:`hmm_layer_torch.ops.sparse`).
+        """
+        probs = sparse_edge_softmax(self.edge_indices, self.transition_kernel, self.num_states)
+        return self.indices, probs.expand(self.num_models, self.num_transitions)
+
+    def make_log_A_sparse(self):
+        """Edge-list log-probabilities; the layout of :meth:`make_A_sparse`."""
+        indices, probs = self.make_A_sparse()
+        return indices, torch.log(torch.clamp_min(probs, 1e-32))
 
     def make_initial_distribution(self) -> torch.Tensor:
         """(num_models, q)."""

@@ -56,6 +56,11 @@ def sparse_edge_softmax(indices, values, num_states):
 
     Each state's outgoing edges compete through a softmax restricted to the
     sparsity pattern, computed with segment reductions over the edge list.
+    Both reductions are deterministic on CUDA too (a max, and an
+    accumulating ``index_put_``, which sums each row serially after a sort;
+    ``index_add`` would add with atomics in a varying order): the sparse
+    engine's float32 log-scales at |loglik| ~ 1e5 turn a last-bit change of
+    a probability into ~1e-3 changes of log gamma.
 
     Args:
         indices: (n_edges, 2) int array of (from_state, to_state).
@@ -72,5 +77,5 @@ def sparse_edge_softmax(indices, values, num_states):
     row_max = torch.full(seg_shape, -torch.inf, dtype=v.dtype, device=v.device)
     row_max = row_max.scatter_reduce(0, index, v, reduce="amax", include_self=True)
     e = torch.exp(torch.clamp_min(v - row_max[rows], LOG_ZERO))
-    denom = torch.zeros(seg_shape, dtype=v.dtype, device=v.device).index_add(0, rows, e)
+    denom = torch.zeros(seg_shape, dtype=v.dtype, device=v.device).index_put_((rows,), e, accumulate=True)
     return (e / torch.clamp_min(denom[rows], 1e-16)).movedim(0, -1)

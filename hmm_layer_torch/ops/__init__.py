@@ -3,11 +3,13 @@ CUDA kernels of the port.
 
 Submodules: :mod:`.semiring`, :mod:`.kmer`, :mod:`.recursion`,
 :mod:`.sampling` (posterior path sampling), :mod:`.em` (Baum-Welch),
-:mod:`.scan` (scan loops for custom cells), :mod:`.cuda_forward`
+:mod:`.scan` (scan loops for custom cells), :mod:`.sparse` (the
+recursions over COO edge lists, for large multi-copy models),
+:mod:`.cuda_forward`
 (kernels K1–K3), :mod:`.cuda_adjoint` (kernels K4–K5),
 :mod:`.cuda_viterbi` (kernels K6–K8b), :mod:`.cuda_mxu` (K9) and
-:mod:`._cuda_build` (their build). The functions named in ``__all__``
-load their modules on first access.
+:mod:`._cuda_build` (their build). The functions named in ``__all__`` and
+the submodule ``sparse`` load their modules on first access.
 """
 
 from __future__ import annotations
@@ -22,10 +24,14 @@ _EXPORTS = {
     "bidirectional_scan": ".scan",
 }
 
-__all__ = sorted(_EXPORTS)
+_MODULES = ("sparse",)
+
+__all__ = sorted(_EXPORTS) + list(_MODULES)
 
 
 def __getattr__(name):
+    if name in _MODULES:
+        return importlib.import_module(f".{name}", __name__)
     if name not in _EXPORTS:
         raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
     return getattr(importlib.import_module(_EXPORTS[name], __name__), name)

@@ -1,5 +1,5 @@
-"""Streaming (online) inference over unbounded sequences, dense route
-(port of ``hmm_layer_tpu/streaming.py``).
+"""Streaming (online) inference over unbounded sequences (port of
+``hmm_layer_tpu/streaming.py``).
 
 * **Filter** — the carried state is the normalised filter
   ``log P(s_t | x_{1..t})`` plus the running log-likelihood, O(q) per
@@ -15,9 +15,13 @@
   :func:`~hmm_layer_torch.ops.recursion.backward`, K1–K3 on CUDA at
   q <= 16 when ``parallel_factor`` divides the window) with the seam
   filter folded in as a pseudo-position.
-
-The sparse edge-list streams (``sparse_streaming_init/update``) need the
-sparse engine and raise ``NotImplementedError``.
+* **Sparse filter** — ``sparse_streaming_init/update`` carry the same
+  state over an edge list (:mod:`.ops.sparse`): no dense ``A`` is built,
+  the only streaming route past the dense (q, q) wall. Each position runs
+  the sparse engine's single-sourced forward step, so the blockwise
+  log-likelihood equals
+  :func:`~hmm_layer_torch.ops.sparse.sparse_log_likelihood` of the whole
+  sequence.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from .ops import sparse as _sparse
 from .ops.recursion import _chunk_summaries_dispatch, _clamped, backward, forward
 from .ops.semiring import logmatvec
 
@@ -110,21 +115,44 @@ def streaming_filter_log_probs(state: StreamingForwardState) -> torch.Tensor:
     return state.log_filter
 
 
-def _sparse_not_ported():
-    return NotImplementedError(
-        "sparse streaming needs the sparse edge-list engine, not ported yet "
-        "(ROADMAP Queue 1 item 11)"
-    )
+def _sparse_block_fold(alpha, log_lik, dp, edge_probs, E_block):
+    """Scaled sparse forward over a block from a normalised filter carry.
+
+    Every position applies transition then emission (the carry is the
+    filter at the position before), so the caller handles the stream's
+    first position (emission only). The step is the sparse engine's own:
+    blockwise parity with the whole sequence depends on it.
+    """
+    step = _sparse._scaled_fwd_step(dp.matvec(edge_probs, E_block.shape[:2], transpose=True))
+    Ec = _clamped(E_block)
+    for t in range(E_block.shape[2]):
+        alpha, log_lik = step(alpha, log_lik, Ec[:, :, t])
+    return StreamingForwardState(torch.log(alpha), log_lik)
 
 
+@torch.no_grad()
 def sparse_streaming_init(init, indices, edge_probs, E_block) -> StreamingForwardState:
-    """Not ported yet: raises ``NotImplementedError`` (item 11)."""
-    raise _sparse_not_ported()
+    """Start a stream with the edge-list engine (no dense ``A`` is built).
+    Same state as :func:`streaming_init`; the blockwise loglik matches
+    :func:`~hmm_layer_torch.ops.sparse.sparse_log_likelihood` of the
+    concatenated blocks to float tolerance.
+
+    Args:
+        init: (m, q); indices: (n_edges, 2) host edge list; edge_probs:
+            (m, n_edges); E_block: (m, b, L_block, q) linear emissions.
+    """
+    dp = _sparse.EdgePlan.cached(indices).on(E_block.device, E_block.shape[-1])
+    alpha, ll = _sparse._fwd_start(init, _clamped(E_block[:, :, 0]))
+    return _sparse_block_fold(alpha, ll, dp, edge_probs, E_block[:, :, 1:])
 
 
-def sparse_streaming_update(state, indices, edge_probs, E_block) -> StreamingForwardState:
-    """Not ported yet: raises ``NotImplementedError`` (item 11)."""
-    raise _sparse_not_ported()
+@torch.no_grad()
+def sparse_streaming_update(
+    state: StreamingForwardState, indices, edge_probs, E_block
+) -> StreamingForwardState:
+    """Consume the next block over the edge list; O(q) carried state."""
+    dp = _sparse.EdgePlan.cached(indices).on(E_block.device, E_block.shape[-1])
+    return _sparse_block_fold(torch.exp(state.log_filter), state.log_lik, dp, edge_probs, E_block)
 
 
 # ---------------------------------------------------------------------------

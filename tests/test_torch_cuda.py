@@ -3,7 +3,9 @@ PyTorch version, the layer's kernel routes (posterior, Viterbi, the
 gradients of the training objectives, the multi-copy decode and the gated
 K9 log-likelihood) and the auxiliary inference on them (path sampling,
 EM, the streaming filter, chunked forward/backward) against their plain
-routes, the launch counts and the refusals.
+routes, the launch counts and the refusals; and the sparse edge-list
+engine (no kernel of its own) on the card against the same calls on the
+CPU, its refusal of CUDA edge indices and its determinism.
 
 Every test here needs a CUDA device and skips where there is none. The file
 imports no JAX, so it runs where JAX is not installed:
@@ -743,3 +745,89 @@ def test_chunked_forward_backward_take_k2_k3(cuda, monkeypatch):
     torch.testing.assert_close(ll, ll_p, rtol=1e-5, atol=0)
     torch.testing.assert_close(la, la_p, rtol=1e-5, atol=1e-2)
     torch.testing.assert_close(lb, lb_p, rtol=1e-5, atol=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# The sparse edge-list engine: the same calls on the card and on the CPU
+# ---------------------------------------------------------------------------
+
+
+def _sparse_problem(k=2, b=3, L=40, seed=4):
+    """Multi-copy transitions, seeded emissions, labels and a mask on the
+    CPU: (indices, init, probs, E, labels, mask)."""
+    from hmm_layer_torch.ops import sparse  # noqa: F401 (import check)
+
+    t = GenePredMultiTransitions(k=k, sparse_forward=True, generator=torch.Generator().manual_seed(seed))
+    indices, probs = t.make_A_sparse()
+    init = t.make_initial_distribution().detach()
+    rng = np.random.default_rng(seed)
+    E = torch.from_numpy(rng.uniform(0.05, 1.0, (1, b, L, t.num_states)).astype(np.float32))
+    labels = torch.from_numpy(rng.integers(0, t.num_states, (1, b, L)))
+    mask = torch.from_numpy((rng.random((1, b, L)) > 0.3).astype(np.float32))
+    return indices, init, probs.detach(), E, labels, mask
+
+
+def test_sparse_posterior_and_viterbi_match_cpu(cuda):
+    from hmm_layer_torch.ops import sparse
+
+    indices, init, probs, E, _, _ = _sparse_problem()
+    on = [x.to(cuda) for x in (init, probs, E)]
+    lg, ll = sparse.sparse_posterior(init, indices, probs, E)
+    lg_c, ll_c = sparse.sparse_posterior(on[0], indices, on[1], on[2])
+    assert lg_c.is_cuda
+    np.testing.assert_allclose(lg_c.cpu().numpy(), lg.numpy(), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(ll_c.cpu().numpy(), ll.numpy(), rtol=1e-6)
+    paths = sparse.sparse_viterbi(init, indices, probs, E)
+    paths_c = sparse.sparse_viterbi(*on[:1], indices, *on[1:])
+    assert paths_c.is_cuda and paths_c.dtype == torch.int32
+    assert torch.equal(paths_c.cpu(), paths)
+
+
+def test_sparse_fused_ce_gradient_matches_cpu(cuda):
+    from hmm_layer_torch.ops import sparse
+
+    indices, init, probs, E, labels, mask = _sparse_problem()
+
+    def grads(device):
+        leaves = [x.detach().clone().to(device).requires_grad_() for x in (init, probs, E)]
+        ce = sparse.sparse_posterior_cross_entropy(
+            leaves[0], indices, leaves[1], leaves[2], labels.to(device), label_mask=mask.to(device),
+            backward_block=10)
+        ce.backward()
+        return ce.item(), [x.grad.cpu().numpy() for x in leaves]
+
+    v, g = grads("cpu")
+    v_c, g_c = grads(cuda)
+    np.testing.assert_allclose(v_c, v, rtol=1e-5)
+    for a, b in zip(g_c, g):
+        scale = np.abs(b).max() + 1e-9
+        np.testing.assert_allclose(a / scale, b / scale, atol=5e-5)
+
+
+def test_sparse_em_step_matches_cpu(cuda):
+    from hmm_layer_torch.ops import sparse
+
+    indices, init, probs, E, _, _ = _sparse_problem()
+    ref = sparse.sparse_em_step(init, indices, probs, E)
+    got = sparse.sparse_em_step(init.to(cuda), indices, probs.to(cuda), E.to(cuda))
+    for a, b in zip(got, ref):
+        assert a.is_cuda
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-4, atol=1e-6)
+
+
+def test_sparse_refuses_cuda_indices_and_is_deterministic(cuda):
+    from hmm_layer_torch.ops import sparse
+
+    indices, init, probs, E, _, _ = _sparse_problem(L=64)
+    init, probs, E = (x.to(cuda) for x in (init, probs, E))
+    with pytest.raises(TypeError, match="host array"):
+        sparse.sparse_forward(init, torch.from_numpy(indices).to(cuda), probs, E)
+    la, ll = sparse.sparse_forward(init, indices, probs, E)
+    la2, ll2 = sparse.sparse_forward(init, indices, probs, E)
+    assert torch.equal(la, la2) and torch.equal(ll, ll2)
+    # The edge softmax's row sums too (a last-bit change moves the
+    # log-scales of long sequences).
+    t = GenePredMultiTransitions(k=36, sparse_forward=True).to(cuda)
+    with torch.no_grad():
+        first = t.make_A_sparse()[1]
+        assert all(torch.equal(t.make_A_sparse()[1], first) for _ in range(10))

@@ -19,6 +19,18 @@ from hmm_layer_tpu.models import GenePredTransitions as JaxGenePredTransitions
 from hmm_layer_torch.ops import cuda_forward, recursion
 from oracle import random_hmm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny CPU ops: the test workers
+    share the cores, and per-op thread pools contending for them made
+    these tests many times slower than one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 RTOL, ATOL = 1e-5, 1e-4
 Q = 15
 

@@ -22,6 +22,18 @@ from hmm_layer_torch.models import GenePredEmissions, GenePredTransitions
 from hmm_layer_torch.ops import cuda_adjoint, recursion
 from oracle import random_hmm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny CPU ops: the test workers
+    share the cores, and per-op thread pools contending for them made
+    these tests many times slower than one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CODONS = dict(
     start_codons=[("ATG", 1.0)],
     stop_codons=[("TAG", 0.34), ("TAA", 0.33), ("TGA", 0.33)],
@@ -162,7 +174,7 @@ def _port_grads(fn, hmm, w, wl, pf):
 
 def _jax_grads(fn, hmm, w, wl, pf):
     f = _objective(fn, jrec, jnp.asarray(w), jnp.asarray(wl), pf)
-    return [np.asarray(g) for g in jax.grad(f, argnums=(0, 1, 2))(*map(jnp.asarray, hmm))]
+    return [np.asarray(g) for g in jax.jit(jax.grad(f, argnums=(0, 1, 2)))(*map(jnp.asarray, hmm))]
 
 
 FNS = ["log_likelihood", "forward", "backward", "posterior", "posterior_no_loglik"]
@@ -251,7 +263,7 @@ def test_gene_pred_param_grads_match_jax_at_length(objective):
                                               label_mask=jnp.asarray(mask))
         return jl.loss(p, jnp.asarray(X))
 
-    _, jg = jax.value_and_grad(jax_loss)(params)
+    _, jg = jax.jit(jax.value_and_grad(jax_loss))(params)
     jg = {name: np.asarray(g) for name, g in params_from_jax(jax.device_get(jg)).items()}
     pars = dict(tl.named_parameters())
     if objective == "ce":

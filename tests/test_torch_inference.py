@@ -26,6 +26,18 @@ from hmm_layer_torch.ops import em, recursion, sampling, scan
 from hmm_layer_torch.utils import profiling
 from oracle import posterior_np, random_hmm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny CPU ops: the test workers
+    share the cores, and per-op thread pools contending for them made
+    these tests many times slower than one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CODONS = dict(
     start_codons=[("ATG", 1.0)],
     stop_codons=[("TAG", 0.34), ("TAA", 0.33), ("TGA", 0.33)],
@@ -250,9 +262,11 @@ def test_streaming_filter_matches_jax_and_dense():
 
 
 def test_sparse_streaming_raises():
+    """The sparse streams are ported (held against the whole sequence in
+    ``tests/test_torch_sparse.py``); a malformed edge list raises."""
     for fn in (streaming.sparse_streaming_init, streaming.sparse_streaming_update):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            fn(None, None, None, None)
+        with pytest.raises(ValueError, match="n_edges, 2"):
+            fn(None, np.zeros((3, 3), np.int64), None, torch.ones((1, 1, 2, 4)))
 
 
 def _decode_streamed(mod, init, A, E, block, lag):

@@ -14,6 +14,18 @@ from hmm_layer_tpu.models import GenePredTransitions as JaxTransitions
 from hmm_layer_torch import HMMLayer, load_jax_params, params_from_jax
 from hmm_layer_torch.models import GenePredEmissions, GenePredTransitions
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny CPU ops: the test workers
+    share the cores, and per-op thread pools contending for them made
+    these tests many times slower than one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CODONS = dict(
     start_codons=[("ATG", 1.0)],
     stop_codons=[("TAG", 0.34), ("TAA", 0.33), ("TGA", 0.33)],

@@ -16,6 +16,18 @@ from hmm_layer_torch import models as tm
 from hmm_layer_torch.models import emission_utils as teu
 from hmm_layer_torch.models import transition_utils as ttu
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny CPU ops: the test workers
+    share the cores, and per-op thread pools contending for them made
+    these tests many times slower than one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CODONS = dict(
     start_codons=[("ATG", 1.0)],
     stop_codons=[("TAG", 0.34), ("TAA", 0.33), ("TGA", 0.33)],
@@ -80,10 +92,16 @@ def test_init_component_sd_draws_noise_on_intergenic_out_edges():
 
 
 def test_unported_transition_options_raise():
-    """``sparse_forward`` still raises; the experimental prior is ported
-    (held against JAX in ``tests/test_torch_options.py``)."""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tm.GenePredTransitions(sparse_forward=True)
+    """Every transition option is ported: ``sparse_forward`` (held against
+    JAX in ``tests/test_torch_sparse.py``) and the experimental prior (in
+    ``tests/test_torch_options.py``). The sparse engine refuses an edge
+    list that is not on the host."""
+    t = tm.GenePredTransitions(sparse_forward=True)
+    assert t.get_config()["sparse_forward"] is True
+    from hmm_layer_torch.ops import sparse
+
+    with pytest.raises(TypeError, match="host array"):
+        sparse.EdgePlan.cached(t.edge_indices.to("meta"))
     t = tm.GenePredTransitions(use_experimental_prior=True)
     assert t.get_config()["use_experimental_prior"] is True
     assert torch.isfinite(t.prior_log_density()).all()

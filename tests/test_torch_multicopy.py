@@ -28,6 +28,18 @@ from hmm_layer_torch import models as tm
 from hmm_layer_torch.ops import cuda_mxu, cuda_viterbi, recursion
 from oracle import random_hmm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny CPU ops: the test workers
+    share the cores, and per-op thread pools contending for them made
+    these tests many times slower than one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 NEG = -1e30
 EPS = 1e-16
 CODONS = dict(

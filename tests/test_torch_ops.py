@@ -20,6 +20,18 @@ from hmm_layer_tpu.ops import semiring as jsemi
 from hmm_layer_torch.ops import kmer, recursion, semiring
 from oracle import posterior_np, random_hmm
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny CPU ops: the test workers
+    share the cores, and per-op thread pools contending for them made
+    these tests many times slower than one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 

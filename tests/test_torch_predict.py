@@ -24,6 +24,18 @@ from hmm_layer_torch.models import annotation
 from hmm_layer_torch.models.initializers import make_15_class_emission_kernel
 from hmm_layer_torch.utils import checkpoint
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny CPU ops: the test workers
+    share the cores, and per-op thread pools contending for them made
+    these tests many times slower than one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 ROOT = Path(__file__).resolve().parent.parent
 
 

@@ -34,6 +34,18 @@ from hmm_layer_torch.utils import checkpoint
 from hmm_layer_torch.utils.metrics import MetricsLogger, Throughput
 from hmm_layer_torch.utils.resilience import HangWatchdog, latest_checkpoint
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny CPU ops: the test workers
+    share the cores, and per-op thread pools contending for them made
+    these tests many times slower than one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 CODONS = dict(
     start_codons=[("ATG", 1.0)],
     stop_codons=[("TAG", 0.34), ("TAA", 0.33), ("TGA", 0.33)],

@@ -11,6 +11,18 @@ import torch
 from hmm_layer_torch import tune_scans
 from hmm_layer_torch.ops import _cuda_build, cuda_mxu
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this file's tiny CPU ops: the test workers
+    share the cores, and per-op thread pools contending for them made
+    these tests many times slower than one thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # kernel: (source, -D prefix, words a step of one element stages)
 KERNELS = {"K1": ("sum_product", "SUM", 16), "K2": ("sum_product", "FWD", 16),
            "K3": ("sum_product", "BWD", 16), "K4": ("affine", "COMP", 48),
