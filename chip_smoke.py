@@ -101,6 +101,25 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    gradients against the dense chunked ones (b=2, L=1200). k = 1000 (q =
    14,001, 22,001 edges, b=2, L=2000): ``sparse_log_likelihood`` against the
    dense sequential engine (A: 784 MB), both timed.
+12. The profile-HMM family (no kernel of its own; every item prints its
+   launches of K1–K9). Config 4 (``benchmarks/profile_train_bench.py``):
+   ``ProfileTransitions([60, 64, 68, 72, 76])`` + ``ProfileEmissions``
+   (q up to 155), the port's default initializers from a seeded generator,
+   ``use_prior``, ``num_seqs=1000``, ``parallel_factor="auto"`` (= 1), b=64,
+   L=400, one-hot residues over 26 channels: 3 log-likelihood + posterior
+   requests (log gamma normalised over each model's real states, the
+   log-likelihood equal to ``structured_log_likelihood``; none of K1–K9),
+   ``set_dp_precision("high")`` bit-equal to "highest", the structured
+   route's loss and gradients against the dense route's, 5 ``Trainer``
+   MAP steps with Adam(0.05) (loss falling, every trainable parameter
+   moving, the frozen insertion kernels not), gradients against float64
+   autograd (m=2, b=4, L=100), and the q=155 model's decode (valid, float64
+   scores equal to a CPU copy's); ms/batch, ms/step and the profiler's busy
+   share. Then ``python -m hmm_layer_torch align`` in-process on a planted
+   family (Lm=24, 64 sequences): K7b and K8b once each in its final decode
+   and no other kernel, the paths equal to the glue on the plain versions,
+   every row its input, pairs F1 >= 0.9 against the planted truth; and
+   ``align --adapt-rounds 2 --model-length 18`` (rows, F1).
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -1913,7 +1932,7 @@ def no_kernels(tag, counters):
     """Fail if any of K1–K9 launched since the last reset."""
     launched = {k: v for k, v in kernel_counts(counters).items() if v}
     if launched:
-        raise AssertionError(f"{tag}: the sparse route launched {launched}; it must launch none of K1-K9")
+        raise AssertionError(f"{tag}: launched {launched}; it must launch none of K1-K9")
 
 
 def synced_ms(fn):
@@ -2380,6 +2399,376 @@ def sparse_phase(HMMLayer, models, make, recursion, counters, smi):
     log(f"phase 11 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the profile-HMM family and the align command
+# ---------------------------------------------------------------------------
+
+# Config 4 (benchmarks/profile_train_bench.py): 5 models, q up to 155.
+PROFILE_LENGTHS = [60, 64, 68, 72, 76]
+PROFILE_B, PROFILE_L, PROFILE_S = 64, 400, 26
+PROFILE_STEPS, PROFILE_LR = 5, 0.05  # align's default learning rate
+# The planted family of benchmarks/msa_quality_bench.py.
+PLANTED_LM, PLANTED_S, PLANTED_SEQS, ALIGN_STEPS = 24, 25, 64, 300
+# Profiler names of the port's kernels K1-K9 (none should run in phase 12).
+OUR_KERNEL_KEYS = ("chunk_summaries", "outputs_kernel", "affine_", "deltas", "backtrace", "mxu_summary")
+
+
+def build_config4(HMMLayer, models, structured_forward=False):
+    """Config 4 with the port's default initializers drawn from a seeded
+    generator."""
+    gen = torch.Generator().manual_seed(SEED + 4)
+    return HMMLayer(
+        models.ProfileTransitions(PROFILE_LENGTHS, generator=gen, structured_forward=structured_forward),
+        models.ProfileEmissions(PROFILE_LENGTHS, input_dim=PROFILE_S),
+        use_prior=True,
+        num_seqs=1000,
+        parallel_factor="auto",
+    )
+
+
+def profile_inputs(seed, b, length, m, device):
+    """One-hot residues 0..24 over 26 channels, broadcast over the models."""
+    rng = np.random.default_rng(seed)
+    x = np.eye(PROFILE_S, dtype=np.float32)[rng.integers(0, 25, size=(b, length))]
+    return torch.from_numpy(x).to(device)[None].expand(m, b, length, PROFILE_S)
+
+
+def config4_serving(layer, plan7, counters, make_x):
+    """3 requests of log_likelihood and state_posterior_log_probs."""
+    q = layer.transitions.num_states
+    requests = [make_x(SEED + 120 + i) for i in range(N_REQUESTS)]
+    with torch.inference_mode():
+        layer.log_likelihood(requests[0])  # warm-up
+        reset_kernels(counters)
+        t_ll, t_post = [], []
+        for i, X in enumerate(requests):
+            ll, ms = synced_ms(lambda: layer.log_likelihood(X))
+            t_ll.append(ms)
+            lg, ms = synced_ms(lambda: layer.state_posterior_log_probs(X))
+            t_post.append(ms)
+            ll_s = plan7.structured_log_likelihood(layer.transitions, layer.emission_probs(X))
+            err, ok = within(ll, ll_s, 1e-5, 1e-4)
+            norm = max(float(torch.logsumexp(lg[k, ..., :qk], -1).abs().max()) for k, qk in enumerate(q))
+            bound = f32_log_bound(ll, PROFILE_L)
+            log(f"phase 12 config 4 request {i}: loglik {float(ll.mean()):.2f} mean, vs "
+                f"structured_log_likelihood max abs {err:.3e} (rtol 1e-5, atol 1e-4); log gamma "
+                f"normalisation over each model's real states max |logsumexp| {norm:.3e} (float32 bound "
+                f"{bound:.3e})")
+            if not ok or norm > bound or not bool(torch.isfinite(ll).all()):
+                raise AssertionError(f"config 4 request {i}: loglik or posterior wrong")
+        launches = kernel_counts(counters)
+    log(f"phase 12 config 4 launches over {N_REQUESTS} loglik + posterior requests: {launches}")
+    no_kernels("config 4 serving", counters)
+    profile_request("phase 12 config 4 posterior", lambda: layer.state_posterior_log_probs(requests[0]),
+                    "K1-K9", OUR_KERNEL_KEYS)
+    return {"config4_loglik_ms": statistics.median(t_ll), "config4_posterior_ms": statistics.median(t_post)}
+
+
+def config4_training(layer, counters, X):
+    """5 MAP steps of a Trainer with Adam(0.05)."""
+    import functools
+
+    from hmm_layer_torch import Trainer
+
+    before = {n: p.detach().clone() for n, p in layer.named_parameters()}
+    trainer = Trainer(layer, optimizer=functools.partial(torch.optim.Adam, lr=PROFILE_LR))
+    trainer.init_from_params()
+    losses, step_ms = [], []
+    for i in range(PROFILE_STEPS):
+        reset_kernels(counters)
+        loss, ms = synced_ms(lambda: trainer.fit([X]))
+        losses.append(float(loss))
+        step_ms.append(ms)
+        log(f"phase 12 config 4 MAP step {i + 1}: loss {losses[-1]:.4f}, {ms:.3f} ms, launches "
+            f"{kernel_counts(counters)}")
+        no_kernels(f"config 4 MAP step {i + 1}", counters)
+    moved = {n: not torch.equal(p.detach(), before[n]) for n, p in layer.named_parameters()}
+    wrong = [n for n, p in layer.named_parameters() if moved[n] != p.requires_grad]
+    frozen = sorted({n.rsplit(".", 1)[0] for n, p in layer.named_parameters() if not p.requires_grad})
+    med = statistics.median(step_ms[1:])
+    log(f"phase 12 config 4 MAP training: {med:.3f} ms/step median of steps 2-{PROFILE_STEPS} "
+        f"{[round(t, 3) for t in step_ms]}, {PROFILE_B / (med / 1e3):.1f} seqs/s; loss "
+        f"{[round(v, 4) for v in losses]}; {sum(moved.values())} of {len(moved)} parameters moved, "
+        f"the frozen ({frozen}) did not: {not wrong}")
+    if not all(math.isfinite(v) for v in losses) or losses[-1] >= losses[0] or wrong:
+        raise AssertionError(f"config 4 training: losses {losses}, wrong movement {wrong}")
+    opt = trainer.optimizer
+
+    def step():
+        opt.zero_grad()
+        layer.loss(X).backward()
+        opt.step()
+
+    profile_request("phase 12 config 4 MAP step", step, "K1-K9", OUR_KERNEL_KEYS, inference=False)
+    return {"config4_map_step_ms": med}
+
+
+def config4_structured(HMMLayer, models, layer, X):
+    """The structured route against the dense route on the same (initial)
+    params. Run before training: the route's rank-one match-skip factors
+    exp(MD - csDD) and exp(csDD + DM) leave the float32 range at Lm = 76
+    once training sharpens the delete chain (the JAX package's factors
+    overflow the same way)."""
+    structured = build_config4(HMMLayer, models, structured_forward=True)
+    structured.load_state_dict(layer.state_dict())
+    out, vals, grads = {}, [], []
+    for tag, lay in (("structured", structured), ("dense", layer)):
+        pars = [p for p in lay.parameters() if p.requires_grad]
+
+        def loss_and_grads():
+            loss = lay.loss(X)
+            return loss, torch.autograd.grad(loss, pars)
+
+        loss_and_grads()  # warm-up
+        (v, g), ms = synced_ms(loss_and_grads)
+        vals.append(v.item())
+        grads.append(g)
+        out[f"config4_{tag}_step_ms"] = ms
+    rel_v = abs(vals[0] - vals[1]) / abs(vals[1])
+    worst = max(float(((a - b).abs() - (1e-5 + 2e-3 * b.abs())).max()) for a, b in zip(*grads))
+    log(f"phase 12 config 4 structured route: loss {vals[0]:.6f} vs dense {vals[1]:.6f} (rel {rel_v:.3e}, "
+        f"limit 1e-5); gradients within rtol 2e-3, atol 1e-5: {worst <= 0} (worst excess {worst:.3e}); "
+        f"loss + gradient {out['config4_structured_step_ms']:.3f} ms structured, "
+        f"{out['config4_dense_step_ms']:.3f} ms dense")
+    if rel_v > 1e-5 or worst > 0:
+        raise AssertionError("config 4: the structured route disagrees with the dense route")
+    return out
+
+
+def config4_float64(HMMLayer, layer, recursion, make_x):
+    """Gradients of the log-likelihood (the analytic sequential VJP)
+    against float64 autograd through the sequential engine, cut to m = 2,
+    b = 4, L = 100; scale-normalised limit 5e-4."""
+    from hmm_layer_torch.training import select_models
+
+    small = HMMLayer(select_models(layer.transitions, [0, 1]), [select_models(layer.emissions[0], [0, 1])],
+                     use_prior=False, parallel_factor="auto")
+    X = make_x(SEED + 130)[:2, :4, :100]
+    names = [n for n, p in small.named_parameters() if p.requires_grad]
+    pars = [p for p in small.parameters() if p.requires_grad]
+    g32 = torch.autograd.grad(-small.log_likelihood(X).mean(), pars)
+    init, A = small.transitions.matrices()
+    E = small.emission_probs(X)
+    ll64 = recursion.log_likelihood(init.double(), A.double(), E.double(), 1, analytic_vjp=False)
+    g64 = torch.autograd.grad(-ll64.mean(), pars)
+    rel = [float((a - r).abs().max() / r.abs().max().clamp_min(1e-30)) for a, r in zip(g32, g64)]
+    log(f"phase 12 config 4 gradients (m=2, b=4, L=100) vs float64 sequential autograd: max |diff| / "
+        f"max |f64| over {len(names)} parameters {max(rel):.3e} (worst {names[rel.index(max(rel))]}; "
+        f"limit 5e-4)")
+    if max(rel) > 5e-4:
+        raise AssertionError("config 4 gradients are off the float64 oracle")
+
+
+def config4_precision(layer, recursion, X):
+    with torch.inference_mode():
+        ref = layer.log_likelihood(X)
+        prev = recursion.set_dp_precision("high")
+        try:
+            high = layer.log_likelihood(X)
+        finally:
+            recursion.set_dp_precision(prev)
+    same = torch.equal(ref, high)
+    log(f"phase 12 set_dp_precision('high'): log-likelihood bit-equal to 'highest': {same}")
+    if not same:
+        raise AssertionError("dp precision 'high' changed the log-likelihood")
+
+
+def config4_viterbi(HMMLayer, layer, counters, X):
+    """The q = 155 model (select_models) decodes b=64, L=400: no kernel;
+    valid paths, float64 scores equal to the same decode on a CPU copy."""
+    import copy
+
+    from hmm_layer_torch.training import select_models
+
+    sel = HMMLayer(select_models(layer.transitions, [4]), [select_models(layer.emissions[0], [4])],
+                   use_prior=False, parallel_factor="auto")
+    x1 = X[4:5]
+    with torch.inference_mode():
+        sel.viterbi(x1)  # warm-up
+        reset_kernels(counters)
+        paths, ms = synced_ms(lambda: sel.viterbi(x1))
+        no_kernels("config 4 decode", counters)
+        init, A = sel.transitions.matrices()
+        E = sel.emission_probs(x1)
+        cpu = copy.deepcopy(sel).to("cpu")
+        paths_cpu = cpu.viterbi(x1.cpu())
+        s, used = path_score64(init, A, E, paths)
+        s_cpu, _ = path_score64(init, A, E, paths_cpu.to(paths.device))
+    q = sel.transitions.num_states[0]
+    err, ok = within(s, s_cpu, 1e-5, 0.0)
+    log(f"phase 12 config 4 decode (q={q}, b={PROFILE_B}, L={PROFILE_L}, sequential max-plus scan, "
+        f"launches {kernel_counts(counters)}): valid {bool(used.all())}; float64 path scores vs the CPU "
+        f"copy's decode max abs {err:.3e} (rtol 1e-5), positions differing {int((paths.cpu() != paths_cpu).sum())}; "
+        f"{ms:.3f} ms/batch")
+    if not ok or not bool(used.all()):
+        raise AssertionError("config 4 decode invalid or off the CPU decode")
+    return {"config4_viterbi_ms": ms}
+
+
+def sample_hmm_sequences(init, A, B, rng, num_seqs, max_len, terminal_state):
+    """Generative rollout of one HMM (a copy of the JAX package's
+    ``models/simulate.py`` function): ``num_seqs`` (path, symbols) pairs,
+    stopping before the terminal state."""
+    init, A, B = (np.asarray(x, np.float64) for x in (init, A, B))
+    q = A.shape[0]
+    init = init / init.sum()
+    rows = A / np.maximum(A.sum(-1, keepdims=True), 1e-30)
+    emit = B / np.maximum(B.sum(-1, keepdims=True), 1e-30)
+    out = []
+    for _ in range(num_seqs):
+        path, symbols = [], []
+        s = rng.choice(q, p=init)
+        for _ in range(max_len):
+            if s == terminal_state:
+                break
+            path.append(s)
+            symbols.append(rng.choice(emit.shape[-1], p=emit[s]))
+            s = rng.choice(q, p=rows[s])
+        out.append((np.asarray(path, np.int64), np.asarray(symbols, np.int64)))
+    return out
+
+
+def planted_family(models, rng):
+    """The planted profile of ``tests/test_quality.py`` (one dominant
+    residue per column, strong match advance, light flanks) and a sample of
+    its sequences with their true alignment rows."""
+    from hmm_layer_torch.models import initializers as inits
+
+    Lm, S = PLANTED_LM, PLANTED_S
+    motif = rng.integers(0, 20, Lm)
+    logits = np.zeros((Lm, S), np.float32)
+    logits[np.arange(Lm), motif] = 6.0
+    b2m = np.full(Lm, -4.0)
+    b2m[0] = 4.0
+    const = {
+        "begin_to_match": b2m, "match_to_match": 3.0, "match_to_insert": -3.0, "match_to_delete": -5.0,
+        "match_to_end": -5.0, "insert_to_match": 3.0, "insert_to_insert": -2.0, "delete_to_match": 3.0,
+        "delete_to_delete": -2.0, "left_flank_loop": -1.0, "left_flank_exit": 2.0, "right_flank_loop": -1.0,
+        "right_flank_exit": 2.0, "end_to_terminal": 4.0, "end_to_right_flank": 0.0,
+        "end_to_unannotated_segment": -4.0, "unannotated_segment_loop": -1.0, "unannotated_segment_exit": 2.0,
+    }
+    trans = models.ProfileTransitions([Lm], transition_init={k: inits.constant_init(v) for k, v in const.items()},
+                                      flank_init=inits.constant_init(0.0))
+    emit = models.ProfileEmissions([Lm], emission_init=[inits.constant_init(logits)], input_dim=S + 1)
+    with torch.no_grad():
+        init, A = (t[0].numpy() for t in trans.matrices())
+        B_ = emit.make_B()[0].numpy()
+    q = 2 * Lm + 3
+    seqs = sample_hmm_sequences(init, A, B_, rng, PLANTED_SEQS, 4 * Lm, q - 1)
+    lens = np.array([len(p) for p, _ in seqs])
+    paths = np.full((len(seqs), lens.max() + 1), q - 1, np.int64)
+    res = np.full(paths.shape, S, np.int64)
+    for i, (p, s) in enumerate(seqs):
+        paths[i, : len(p)] = p
+        res[i, : len(s)] = s
+    true_rows = models.paths_to_msa(paths, res, model_length=Lm, seq_lengths=lens)
+    return ["".join(models.AMINO_ALPHABET[c] for c in s) for _, s in seqs], true_rows
+
+
+def run_align(args, counters, recursion, tmp, tag):
+    """``python -m hmm_layer_torch align`` in-process, the decode's inputs
+    and paths captured; returns (rows, captured, launches, seconds)."""
+    from hmm_layer_torch import cli, data
+
+    captured = []
+    original = recursion.viterbi
+
+    def capture(init, A, E, parallel_factor=1):
+        paths = original(init, A, E, parallel_factor)
+        captured.append((init, A, E, paths))
+        return paths
+
+    out = f"{tmp}/{tag}.fa"
+    recursion.viterbi = capture
+    reset_kernels(counters)
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(["align", *args, "-o", out])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        recursion.viterbi = original
+    launches = kernel_counts(counters)
+    if rc != 0 or len(captured) != 1:
+        raise AssertionError(f"align {tag}: rc {rc}, {len(captured)} decodes")
+    return [row for _, row in data.read_fasta(out)], captured[0], launches, wall
+
+
+def check_rows(tag, rows, seqs):
+    same_width = len({len(r) for r in rows}) == 1
+    reproduce = all(r.replace("-", "").replace(".", "").upper() == s for r, s in zip(rows, seqs))
+    if not (same_width and reproduce and len(rows) == len(seqs)):
+        raise AssertionError(f"align {tag}: rows do not reproduce the input sequences")
+
+
+def planted_align(models, recursion, cuda_viterbi, counters, tmp):
+    """align on the planted family: K7b and K8b once each for the final
+    decode, bit-equal to the glue on the plain versions; pairs F1 >= 0.9.
+    Then 2 adaptation rounds from length 18."""
+    seqs, true_rows = planted_family(models, np.random.default_rng(SEED))
+    fasta = f"{tmp}/planted.fa"
+    with open(fasta, "w") as fh:
+        for i, s in enumerate(seqs):
+            fh.write(f">p{i}\n{s}\n")
+    log(f"phase 12 planted family: Lm={PLANTED_LM}, {len(seqs)} sequences of "
+        f"{min(map(len, seqs))}-{max(map(len, seqs))} residues (at most {4 * PLANTED_LM})")
+    base = ["-i", fasta, "--models", "3", "--steps", str(ALIGN_STEPS), "--batch", str(PLANTED_SEQS)]
+    rows, (init, A, E, paths), launches, wall = run_align(base + ["--model-length", str(PLANTED_LM)],
+                                                          counters, recursion, tmp, "align")
+    q = A.shape[-1]
+    log(f"phase 12 align launches (training {ALIGN_STEPS} steps, scoring, one decode at q={q}): {launches}")
+    expect(launches, **{k: 1 for k in BLOCKED_KEYS})
+    with torch.inference_mode(), plain_decode_wrappers(cuda_viterbi):
+        plain = recursion._viterbi_seq_kernels(init, A, E)
+    same = torch.equal(paths, plain)
+    check_rows("planted", rows, seqs)
+    mets = models.evaluate_msa(rows, true_rows)
+    f1 = mets["pairs"]["f1"]
+    log(f"phase 12 align: decode paths {'identical to' if same else 'DIFFER FROM'} the glue on the plain "
+        f"versions; every row reproduces its input; pairs F1 {f1:.4f} (limit 0.9), column score "
+        f"{mets['column_score']:.4f}; {wall:.3f} s wall, {ALIGN_STEPS / wall:.2f} steps/s (with scoring, "
+        f"decode and output)")
+    if not same or f1 < 0.9:
+        raise AssertionError("align on the planted family: decode or F1 wrong")
+
+    rows2, _, launches2, wall2 = run_align(
+        ["-i", fasta, "--models", "3", "--steps", str(ALIGN_STEPS), "--batch", str(PLANTED_SEQS),
+         "--model-length", "18", "--adapt-rounds", "2"], counters, recursion, tmp, "adapt")
+    check_rows("adapt", rows2, seqs)
+    mets2 = models.evaluate_msa(rows2, true_rows)
+    log(f"phase 12 align --adapt-rounds 2 --model-length 18: launches {launches2}; every row reproduces "
+        f"its input; pairs F1 {mets2['pairs']['f1']:.4f}, column score {mets2['column_score']:.4f}; "
+        f"{wall2:.3f} s wall")
+    return {"align_s": wall, "align_steps_per_s": ALIGN_STEPS / wall, "align_adapt_s": wall2}
+
+
+def profile_phase(HMMLayer, models, recursion, cuda_viterbi, counters, smi):
+    """Phase 12: config 4 serving, training, the structured route, the
+    float64 gradients, the precision API and the q = 155 decode; then
+    align on a planted family."""
+    from hmm_layer_torch.ops import plan7
+
+    t0 = time.perf_counter()
+    layer = build_config4(HMMLayer, models)
+    q = layer.transitions.num_states
+    device = layer.device
+    make_x = lambda seed: profile_inputs(seed, PROFILE_B, PROFILE_L, len(PROFILE_LENGTHS), device)  # noqa: E731
+    log(f"phase 12 config 4: lengths {PROFILE_LENGTHS} (q {q}), b={PROFILE_B}, L={PROFILE_L}, parallel "
+        f"factor {recursion.recommended_parallel_factor(PROFILE_L, max(q), len(q))}, use_prior, num_seqs 1000")
+    times = config4_serving(layer, plan7, counters, make_x)
+    X = make_x(SEED + 125)
+    config4_precision(layer, recursion, X)
+    times.update(config4_structured(HMMLayer, models, layer, X))
+    times.update(config4_training(layer, counters, X))
+    config4_float64(HMMLayer, layer, recursion, make_x)
+    times.update(config4_viterbi(HMMLayer, layer, counters, X))
+    del layer
+    with tempfile.TemporaryDirectory() as tmp:
+        times.update(planted_align(models, recursion, cuda_viterbi, counters, tmp))
+    log(f"phase 12 summary on {smi}: " + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device",
@@ -2503,7 +2892,11 @@ def main() -> int:
     options_phase(HMMLayer, models, make, recursion, (cuda_forward, cuda_adjoint, cuda_mxu), smi)
 
     # 11. The sparse edge-list engine
-    sparse_phase(HMMLayer, models, make, recursion, (cuda_forward, cuda_adjoint, cuda_viterbi, cuda_mxu), smi)
+    counters = (cuda_forward, cuda_adjoint, cuda_viterbi, cuda_mxu)
+    sparse_phase(HMMLayer, models, make, recursion, counters, smi)
+
+    # 12. The profile-HMM family and align
+    profile_phase(HMMLayer, models, recursion, cuda_viterbi, counters, smi)
 
     launches.update({k: v for k, v in decode_launches.items() if k in DECODE_Q16})
     launches.update({k: train_launches[k] for k in cuda_adjoint.LAUNCHES})

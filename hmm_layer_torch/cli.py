@@ -2,6 +2,9 @@
 <command>``, with the JAX package's arguments and defaults
 (``python -m hmm_layer_tpu <command>``).
 
+* ``align`` — train profile HMMs on a protein FASTA, keep the best model,
+  Viterbi-align every sequence and write an aligned FASTA (learnMSA's
+  ``-i/-o`` usage), with optional length-adaptation rounds.
 * ``predict`` — Viterbi-decode DNA contigs through the 15-state gene-pred
   HMM (optionally with upstream class probabilities and trained
   parameters) and write a GFF3 annotation.
@@ -13,12 +16,11 @@
 * ``evaluate`` — nucleotide/exon/gene precision, recall and F1 of one GFF3
   against another.
 
-``predict`` and ``train`` run on the GPU unless ``--cpu`` is given, and
-raise where there is no GPU. Checkpoints are the ``.npz`` files that both
-packages write (:mod:`~hmm_layer_torch.utils.checkpoint`). The ``align``
-command is not ported yet (ROADMAP Queue 1 items 10, 12). Heavy imports
-happen inside the commands, so ``import hmm_layer_torch.cli`` initialises
-no CUDA.
+``align``, ``predict`` and ``train`` run on the GPU unless ``--cpu`` is
+given, and raise where there is no GPU. Checkpoints are the ``.npz`` files
+that both packages write (:mod:`~hmm_layer_torch.utils.checkpoint`). Heavy
+imports happen inside the commands, so ``import hmm_layer_torch.cli``
+initialises no CUDA.
 """
 
 from __future__ import annotations
@@ -42,6 +44,38 @@ def build_parser() -> argparse.ArgumentParser:
         description="PyTorch/CUDA port of the differentiable HMM toolkit",
     )
     sub = ap.add_subparsers(dest="command", required=True)
+
+    al = sub.add_parser(
+        "align", help="train profile HMMs on a protein FASTA and align it"
+    )
+    al.add_argument("-i", "--input", required=True, help="protein FASTA")
+    al.add_argument("-o", "--output", required=True, help="aligned FASTA out")
+    al.add_argument("--models", type=int, default=3,
+                    help="candidate model count trained jointly")
+    al.add_argument("--steps", type=int, default=100, help="training steps")
+    al.add_argument("--batch", type=int, default=32)
+    al.add_argument("--lr", type=float, default=0.05)
+    al.add_argument("--model-length", type=int, default=None,
+                    help="match-state count (default: from sequence lengths)")
+    al.add_argument("--adapt-rounds", type=int, default=0,
+                    help="learnMSA-style length-adaptation rounds: after "
+                         "each round, low-occupancy match columns are "
+                         "discarded and overloaded insertion sites become "
+                         "new columns (param-preserving resize), then "
+                         "training continues")
+    al.add_argument("--expand-threshold", type=float, default=None,
+                    help="insert load (residues/seq) above which an "
+                         "insertion site grows new match columns during "
+                         "adaptation. Default: auto — 1.0 for short "
+                         "models, 0.35 for model length >= 64")
+    al.add_argument("--precision", choices=("high", "highest"),
+                    default="high",
+                    help="DP precision mode (set_dp_precision); on the GPU "
+                         "both compute in IEEE float32")
+    al.add_argument("--seed", type=int, default=0)
+    al.add_argument("--cpu", action="store_true",
+                    help="run on the CPU (default: the GPU)")
+
     pr = sub.add_parser(
         "predict", help="annotate DNA contigs with the gene-prediction HMM"
     )
@@ -101,6 +135,137 @@ def build_parser() -> argparse.ArgumentParser:
     ev.add_argument("--pred", required=True, help="predicted GFF3")
     ev.add_argument("--truth", required=True, help="reference GFF3")
     return ap
+
+
+# ---------------------------------------------------------------- align
+
+
+def _model_lengths(seq_lengths, n_models: int, override):
+    """learnMSA-style candidate lengths around ~0.8 x the median residue
+    count."""
+    if override is not None:
+        base = int(override)
+    else:
+        base = int(round(0.8 * float(sorted(seq_lengths)[len(seq_lengths) // 2])))
+    base = max(base, 2)
+    half = (n_models - 1) // 2
+    return [max(2, base - half + i) for i in range(n_models)]
+
+
+def _align(args) -> int:
+    import functools
+
+    import numpy as np
+    import torch
+
+    from . import data
+    from .layer import HMMLayer
+    from .models import (
+        ProfileEmissions,
+        ProfileTransitions,
+        adapt_profile_layer,
+        paths_to_msa,
+        write_msa,
+    )
+    from .ops.recursion import set_dp_precision
+    from .training import Trainer
+
+    records = list(data.read_fasta(args.input))
+    if not records:
+        print(f"error: no sequences in {args.input}", file=sys.stderr)
+        return 2
+    set_dp_precision(args.precision)
+    names = [name for name, _ in records]
+    encoded = [data.encode_protein(seq) for _, seq in records]  # L+1 rows
+    seq_lens = [e.shape[0] - 1 for e in encoded]
+
+    m = max(1, args.models)
+    lengths = _model_lengths(seq_lens, m, args.model_length)
+    input_dim = encoded[0].shape[-1]
+    layer = HMMLayer(
+        ProfileTransitions(lengths, generator=torch.Generator().manual_seed(args.seed)),
+        ProfileEmissions(lengths, input_dim=input_dim),
+        use_prior=True,
+        num_seqs=len(records),
+        device="cpu" if args.cpu else None,
+    )
+    device = layer.device
+    optimizer = functools.partial(torch.optim.Adam, lr=args.lr)
+    trainer = Trainer(layer, optimizer=optimizer)
+    padded = [torch.from_numpy(b).to(device) for b, _ in data.pad_batches(encoded, args.batch)]
+
+    def batches(n_steps, n_models=None):
+        """Cycle the padded batches, broadcast over the model axis."""
+        n_models = m if n_models is None else n_models
+        step = 0
+        while step < n_steps:
+            for batch in padded:
+                if step >= n_steps:
+                    return
+                yield batch[None].expand((n_models,) + tuple(batch.shape))
+                step += 1
+
+    # One padded batch holding every sequence: the adaptation posteriors
+    # and the final decode (alignment columns are global).
+    L_max = max(e.shape[0] for e in encoded)
+    full = np.zeros((len(encoded), L_max, input_dim), np.float32)
+    full[:, :, -1] = 1.0  # terminal padding
+    for i, e in enumerate(encoded):
+        full[i, : e.shape[0]] = e
+    full_t = torch.from_numpy(full).to(device)
+
+    print(
+        f"aligning {len(records)} sequences: training {m} profile "
+        f"models (lengths {lengths}) for {args.steps} steps ..."
+    )
+    final_steps = args.steps
+    # At most steps-1 rounds, so that adaptation never exceeds the step
+    # budget; the final phase gets the exact remainder.
+    adapt_rounds = min(args.adapt_rounds, max(0, args.steps - 1))
+    if adapt_rounds > 0:
+        phase = max(1, args.steps // (adapt_rounds + 1))
+        final_steps = args.steps - adapt_rounds * phase
+        for r in range(adapt_rounds):
+            trainer.fit(batches(phase))
+            expand = args.expand_threshold
+            if expand is None:
+                expand = 0.35 if max(layer.transitions.lengths) >= 64 else 1.0
+            layer, info = adapt_profile_layer(
+                layer,
+                full_t[None].expand((m,) + tuple(full_t.shape)),
+                torch.Generator().manual_seed(args.seed + 1 + r),
+                expand_threshold=expand,
+            )
+            lengths = layer.transitions.lengths
+            print(
+                f"adaptation round {r + 1}: lengths "
+                f"{[d['old_length'] for d in info]} -> {lengths}"
+            )
+            trainer = Trainer(layer, optimizer=optimizer)
+
+    result = trainer.fit_select(
+        batches(final_steps),
+        score_batches=batches(max(1, len(records) // args.batch + 1)),
+        keep=1,
+    )
+    best = int(result.ranking[0])
+    print(
+        "per-model held-out loglik:",
+        np.round(np.asarray(result.scores), 3),
+        f"-> selected model {best} (length {lengths[best]})",
+    )
+
+    paths = result.layer.viterbi(full_t[None])[0].cpu().numpy()
+    residues = np.argmax(full, axis=-1)
+    rows = paths_to_msa(
+        paths, residues, model_length=lengths[best], seq_lengths=np.asarray(seq_lens)
+    )
+    write_msa(args.output, names, rows)
+    print(f"wrote {len(rows)} aligned rows ({len(rows[0])} columns) to {args.output}")
+    return 0
+
+
+# -------------------------------------------------------- gene-pred shared
 
 
 def _gene_pred_layer(parallel_factor: int, device=None):
@@ -355,6 +520,8 @@ def _evaluate(args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.command == "align":
+        return _align(args)
     if args.command == "predict":
         return _predict(args)
     if args.command == "train":

@@ -1,24 +1,28 @@
-"""Input pipeline: FASTA reading, DNA encoding, windowed batching (port of
-``hmm_layer_tpu/data.py``, DNA side, pure Python).
+"""Input pipeline: FASTA reading, DNA and protein encoding, batching (port
+of ``hmm_layer_tpu/data.py``, pure Python).
 
 * :func:`read_fasta` — streaming parser (plain or gzip).
 * :func:`encode_dna` — (L, 5) one-hot over ACGTN with IUPAC ambiguity
   codes spread uniformly (the gene-pred emitters' nucleotide channels).
+* :func:`encode_protein` — (L+1, 26) one-hot over :data:`PROTEIN_ALPHABET`
+  plus the profile HMM's terminal symbol.
 * :func:`revcomp` / :func:`revcomp_onehot` — reverse complement of a
   string or of its encoding.
 * :func:`read_fasta_encoded` — ``(name, encoding)`` pairs from a file.
 * :func:`window_batches` — fixed-shape sliding windows over long contigs,
   batched to ``(batch, window, channels)`` with their start positions.
+* :func:`pad_batches` — ragged protein sequences batched with terminal
+  padding.
 
-Everything returns NumPy. The JAX package's native C++ FASTA scanner and
-the protein encodings are not ported yet (ROADMAP Queue 1 items 10, 12):
-this module always takes the Python path, which yields the same records.
+Everything returns NumPy. The JAX package's native C++ FASTA scanner is
+not ported yet (ROADMAP Queue 1 item 12): this module always takes the
+Python path, which yields the same records.
 """
 
 from __future__ import annotations
 
 import gzip
-from typing import Iterator
+from typing import Iterable, Iterator
 
 import numpy as np
 
@@ -28,8 +32,14 @@ __all__ = [
     "revcomp",
     "revcomp_onehot",
     "encode_dna",
+    "encode_protein",
     "window_batches",
+    "pad_batches",
+    "PROTEIN_ALPHABET",
 ]
+
+# learnMSA's amino-acid order: the 20 canonical residues, then B Z X U O.
+PROTEIN_ALPHABET = "ARNDCQEGHILKMFPSTWYVBZXUO"
 
 _DNA = "ACGT"
 # IUPAC ambiguity codes -> the set of bases they may stand for.
@@ -118,12 +128,53 @@ def encode_dna(seq: str, dtype=np.float32) -> np.ndarray:
     return _DNA_LUT[idx].astype(dtype, copy=False)
 
 
-def read_fasta_encoded(path) -> Iterator[tuple[str, np.ndarray]]:
-    """Yield ``(name, encode_dna(sequence))`` pairs from a FASTA file (the
-    JAX function with ``kind="dna"``; the protein encoding comes with the
-    profile-HMM family, ROADMAP Queue 1 item 10)."""
+def _protein_lut(alphabet: str) -> np.ndarray:
+    s = len(alphabet) + 1
+    lut = np.zeros((256, s), np.float32)
+    # Unknown letters spread uniformly over the canonical channels (the
+    # first min(20, len(alphabet)) entries of the given alphabet).
+    n_canon = min(20, len(alphabet))
+    lut[:, :n_canon] = 1.0 / n_canon
+    for j, ch in enumerate(alphabet):
+        for c in (ch.upper(), ch.lower()):
+            lut[ord(c)] = 0.0
+            lut[ord(c), j] = 1.0
+    return lut
+
+
+_PROTEIN_LUT = _protein_lut(PROTEIN_ALPHABET)
+
+
+def encode_protein(
+    seq: str, alphabet: str = PROTEIN_ALPHABET, add_terminal: bool = True, dtype=np.float32
+) -> np.ndarray:
+    """(L[+1], len(alphabet)+1) one-hot; unknown letters spread uniformly
+    over the alphabet's canonical channels; the terminal symbol (last
+    channel) is appended when ``add_terminal`` (profile-HMM convention)."""
+    lut = _PROTEIN_LUT if alphabet == PROTEIN_ALPHABET else _protein_lut(alphabet)
+    idx = np.frombuffer(seq.encode("ascii", errors="replace"), np.uint8)
+    out = lut[idx].astype(dtype, copy=False)
+    if add_terminal:
+        term = np.zeros((1, out.shape[-1]), dtype)
+        term[0, -1] = 1.0
+        out = np.concatenate([out, term], axis=0)
+    return out
+
+
+def read_fasta_encoded(
+    path, kind: str = "dna", alphabet: str = PROTEIN_ALPHABET, add_terminal: bool = True
+) -> Iterator[tuple[str, np.ndarray]]:
+    """Yield ``(name, encoded)`` pairs from a FASTA file. ``kind`` is
+    ``"dna"`` (``(L, 5)`` ACGTN channels) or ``"protein"`` (``(L+1,
+    len(alphabet)+1)`` with the terminal row appended when
+    ``add_terminal``)."""
+    if kind not in ("dna", "protein"):
+        raise ValueError(f"kind must be 'dna' or 'protein', got {kind!r}")
     for name, seq in read_fasta(path):
-        yield name, encode_dna(seq)
+        if kind == "dna":
+            yield name, encode_dna(seq)
+        else:
+            yield name, encode_protein(seq, alphabet, add_terminal)
 
 
 def window_batches(
@@ -163,3 +214,39 @@ def window_batches(
             buf.append(np.full((window, s), pad_value, encoded.dtype))
             pos.append(-1)
         yield np.stack(buf), np.asarray(pos)
+
+
+def pad_batches(
+    encoded: Iterable[np.ndarray], batch_size: int, terminal_channel: int = -1
+) -> Iterator[tuple[np.ndarray, np.ndarray]]:
+    """Batch ragged sequences, padding with the terminal symbol.
+
+    Yields ``(batch (batch_size, L_max, s), lengths (batch_size,))``; short
+    sequences continue emitting the terminal symbol (the profile HMM's
+    absorbing terminal state makes the padded loglik equal the unpadded
+    one, learnMSA's convention). The final partial group is filled with
+    all-terminal rows (``length == 0``), so the leading dimension is always
+    ``batch_size``.
+    """
+    group = []
+    for e in encoded:
+        group.append(e)
+        if len(group) == batch_size:
+            yield _pad_group(group, batch_size, terminal_channel)
+            group = []
+    if group:
+        yield _pad_group(group, batch_size, terminal_channel)
+
+
+def _pad_group(group, batch_size, terminal_channel):
+    s = group[0].shape[-1]
+    L_max = max(g.shape[0] for g in group)
+    batch = np.zeros((batch_size, L_max, s), group[0].dtype)
+    batch[:, :, terminal_channel] = 1.0  # batch-fill rows stay all-terminal
+    lengths = np.zeros((batch_size,), np.int32)
+    for i, g in enumerate(group):
+        batch[i] = 0.0
+        batch[i, : g.shape[0]] = g
+        batch[i, g.shape[0] :, terminal_channel] = 1.0
+        lengths[i] = g.shape[0]
+    return batch, lengths

@@ -27,9 +27,14 @@ sparse edge-list engine (:mod:`.ops.sparse`) over the transitions'
 ``forward_recursion`` and ``backward_recursion`` keep the dense engine, as
 in the JAX layer.
 
-Not ported yet: the profile family's ``structured_forward``
-log-likelihood and ``resize`` (item 10), and the ``mesh``/``partition``
-routes (item 13), with the sparse engine's edge-sharded ``state`` route.
+Profile-family transitions built with ``structured_forward=True`` route
+the sequential :meth:`~HMMLayer.log_likelihood` (so :meth:`~HMMLayer.loss`)
+through the structured O(L) Plan7 matvec (:mod:`.ops.plan7`).
+:meth:`HMMLayer.resize` re-targets a profile layer to new model lengths,
+carrying the trained parameters over (learnMSA's length adaptation).
+
+Not ported yet: the ``mesh``/``partition`` routes (ROADMAP Queue 1 item
+13), with the sparse engine's edge-sharded ``state`` route.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .ops import recursion, sampling
+from .ops import plan7, recursion, sampling
 from .ops import sparse as sparse_ops
 
 __all__ = ["HMMLayer"]
@@ -181,7 +186,19 @@ class HMMLayer(nn.Module):
         return (lg, *self._prior_and_aux()) if return_prior else lg
 
     def log_likelihood(self, inputs, end_hints=None, training=False):
-        """Per-model per-sequence loglik; (m, b)."""
+        """Per-model per-sequence loglik; (m, b).
+
+        Profile-family transitions built with ``structured_forward=True``
+        take the structured O(L) Plan7 matvec (:mod:`.ops.plan7`) where the
+        parallel factor is 1, and the dense engine otherwise, as in the JAX
+        layer; the implicit A is then never built.
+        """
+        if getattr(self.transitions, "structured_forward", False):
+            E = self.emission_probs(inputs, end_hints, training)
+            P = self._pf(E)
+            if P == 1:
+                return plan7.structured_log_likelihood(self.transitions, E)
+            return recursion.log_likelihood(*self.transitions.matrices(), E, P)
         if self._sparse_route():
             return sparse_ops.sparse_log_likelihood(*self._sparse_ingredients(inputs, end_hints, training))
         init, A, E = self._ingredients(inputs, end_hints, training)
@@ -215,6 +232,39 @@ class HMMLayer(nn.Module):
             return sparse_ops.sparse_sample_paths(init, indices, probs, E, generator, num_samples)
         init, A, E = self._ingredients(inputs, end_hints, False)
         return sampling.sample_posterior(init, A, E, generator, num_samples, self._pf(E))
+
+    # -- model surgery -----------------------------------------------------------
+
+    def resize(self, new_lengths, keep=None, generator: torch.Generator | None = None):
+        """Param-preserving profile length adaptation at the layer level.
+
+        Every component (transitions and all emitters) must have a
+        ``resize`` (the profile family:
+        :meth:`~hmm_layer_torch.models.ProfileTransitions.resize`); the
+        surviving parameters carry over and new columns draw from
+        ``generator``. Returns a new :class:`HMMLayer` with this layer's
+        settings on its device; build a fresh optimizer for it
+        (``Trainer.init_from_params``).
+        """
+        for comp in [self.transitions, *self.emissions]:
+            if not hasattr(comp, "resize"):
+                raise NotImplementedError(
+                    f"{type(comp).__name__} does not support resize — "
+                    "length adaptation is a profile-family capability "
+                    "(ProfileTransitions/ProfileEmissions); gene-pred "
+                    "components have fixed grammar-defined state counts"
+                )
+        transitions = self.transitions.resize(new_lengths, keep, generator)
+        emissions = [em.resize(new_lengths, keep, generator) for em in self.emissions]
+        return HMMLayer(
+            transitions,
+            emissions,
+            num_seqs=self.num_seqs,
+            use_prior=self.use_prior,
+            sequence_weights=self.sequence_weights,
+            parallel_factor=self.parallel_factor,
+            device=self.device,
+        )
 
     # -- priors / weights / losses ------------------------------------------------
 

@@ -55,7 +55,45 @@ __all__ = [
     "viterbi",
     "recommended_parallel_factor",
     "ForwardResult",
+    "set_dp_precision",
+    "dp_precision",
 ]
+
+# The JAX package's DP-einsum precision modes ("high": 3-pass bf16 on a
+# TPU, "highest": 6-pass float32). Here every mode computes in IEEE
+# float32: the recursions run no TF32 (``torch.set_float32_matmul_precision
+# ("highest")`` at import), and a reduced mode is mapped only once an H100
+# log-likelihood error measurement backs it. The mode is recorded and
+# returned, so callers written for the JAX API (``align --precision``) run.
+_DP_MODES = ("highest", "high", "default")
+_dp_mode = "highest"
+
+
+def set_dp_precision(mode: str) -> str:
+    """Set the DP precision mode ('highest' | 'high' | 'default'); returns
+    the previous mode's name. Every mode computes exactly what 'highest'
+    computes (IEEE float32, no TF32)."""
+    global _dp_mode
+    mode = mode.lower()
+    if mode not in _DP_MODES:
+        raise KeyError(mode)
+    prev, _dp_mode = _dp_mode, mode
+    return prev
+
+
+class dp_precision:
+    """Context manager form of :func:`set_dp_precision`."""
+
+    def __init__(self, mode: str):
+        self.mode = mode
+
+    def __enter__(self):
+        self._prev = set_dp_precision(self.mode)
+        return self
+
+    def __exit__(self, *exc):
+        set_dp_precision(self._prev)
+        return False
 
 
 class ForwardResult(NamedTuple):

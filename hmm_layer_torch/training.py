@@ -21,6 +21,7 @@ are not ported (ROADMAP Queue 1 item 13): passing ``mesh`` raises.
 
 from __future__ import annotations
 
+import inspect
 from typing import Callable, Iterable, NamedTuple
 
 import numpy as np
@@ -64,10 +65,17 @@ def _grads(loss, params):
 
 def select_models(component, indices):
     """A copy of a transition or emission component holding only the
-    models ``indices``: rebuilt from its config with the new
+    models ``indices``.
+
+    A component whose ``duplicate`` takes ``model_indices`` (the profile
+    family, whose per-model parameters differ in length) does the surgery
+    itself. Any other is rebuilt from its config with the new
     ``num_models``, each parameter whose leading axis carries the model
-    count sliced to ``indices`` (parameters without a model axis, e.g.
-    the shared gene-pred transition kernel, are copied)."""
+    count sliced to ``indices`` (parameters without a model axis, e.g. the
+    shared gene-pred transition kernel, are copied)."""
+    duplicate = getattr(component, "duplicate", None)
+    if duplicate is not None and "model_indices" in inspect.signature(duplicate).parameters:
+        return duplicate(model_indices=list(indices))
     n = getattr(component, "num_models", 1)
     config = component.get_config()
     if "num_models" in config:

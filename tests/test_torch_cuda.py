@@ -831,3 +831,75 @@ def test_sparse_refuses_cuda_indices_and_is_deterministic(cuda):
     with torch.no_grad():
         first = t.make_A_sparse()[1]
         assert all(torch.equal(t.make_A_sparse()[1], first) for _ in range(10))
+
+
+def _profile_layer(lengths, device, seed=0):
+    from hmm_layer_torch.models import ProfileEmissions, ProfileTransitions
+
+    return HMMLayer(
+        ProfileTransitions(lengths, generator=torch.Generator().manual_seed(seed)),
+        ProfileEmissions(lengths),
+        num_seqs=1000,
+        parallel_factor="auto",
+        device=device,
+    )
+
+
+def _protein_inputs(seed, m, b, L):
+    rng = np.random.default_rng(seed)
+    x = np.eye(26, dtype=np.float32)[rng.integers(0, 25, size=(b, L))]
+    return torch.from_numpy(np.ascontiguousarray(np.broadcast_to(x, (m, b, L, 26))))
+
+
+def test_profile_config4_loglik_and_gradients_match_cpu(cuda):
+    """Config 4's widths (5 models, q up to 155) at b = 4, L = 100: the
+    log-likelihood and its gradients on the card equal those of a CPU copy
+    (scale-normalised 1e-4), the MAP loss's within 5e-3; no kernel launches
+    (the sequential engine at q > 16). The prior's hit term,
+    ``(1e9 - 1) log(p_rf + p_t)``, has a gradient with respect to the end
+    kernels proportional to ``1 - p_rf - p_t`` ~ 5e-5, which float32 gives
+    to ~1e-3 on either device."""
+    lengths = [60, 64, 68, 72, 76]
+    layer = _profile_layer(lengths, cuda)
+    cpu = _profile_layer(lengths, "cpu")
+    cpu.load_state_dict(layer.state_dict())
+    X = _protein_inputs(1, 5, 4, 100)
+    for module in (cuda_forward, cuda_adjoint, cuda_viterbi, cuda_mxu):
+        module.reset_launches()
+    with torch.no_grad():
+        ll = layer.log_likelihood(X.to(cuda))
+    torch.testing.assert_close(ll.cpu(), cpu.log_likelihood(X), rtol=1e-5, atol=1e-4)
+    for objective, atol in ((lambda lay, x: -lay.log_likelihood(x).mean(), 1e-4), (HMMLayer.loss, 5e-3)):
+        grads = []
+        for lay, x in ((layer, X.to(cuda)), (cpu, X)):
+            pars = [p for p in lay.parameters() if p.requires_grad]
+            grads.append(torch.autograd.grad(objective(lay, x), pars))
+        for a, b in zip(*grads):
+            scale = float(b.abs().max()) or 1.0
+            np.testing.assert_allclose(a.cpu().numpy() / scale, b.numpy() / scale, atol=atol)
+    for module in (cuda_forward, cuda_adjoint, cuda_viterbi, cuda_mxu):
+        assert not any(module.LAUNCHES.values())
+
+
+def test_profile_decode_takes_blocked_kernels(cuda, monkeypatch):
+    """The q = 51 decode of align (one model, Lm = 24) runs K7b + K8b once
+    each; its paths equal the same glue on the plain versions on the card
+    and the sequential decode's score."""
+    layer = _profile_layer([24], cuda)
+    X = _protein_inputs(2, 1, 16, 90).to(cuda)
+    with torch.inference_mode():
+        cuda_viterbi.reset_launches()
+        paths = layer.viterbi(X)
+        assert cuda_viterbi.LAUNCHES["maxplus_deltas_blocked"] == 1
+        assert cuda_viterbi.LAUNCHES["maxplus_backtrace_blocked"] == 1
+        init, A = layer.transitions.matrices()
+        E = layer.emission_probs(X)
+        seq = recursion._viterbi_seq(init, A, E)
+        monkeypatch.setattr(cuda_viterbi, "maxplus_deltas_seq", cuda_viterbi.maxplus_deltas_seq_plain)
+        monkeypatch.setattr(cuda_viterbi, "maxplus_backtrace_seq", cuda_viterbi.maxplus_backtrace_seq_plain)
+        plain = recursion._viterbi_seq_kernels(init, A, E)
+    assert torch.equal(paths, plain)
+    s_k, used_k = _path_score64(init, A, E, paths)
+    s_s, _ = _path_score64(init, A, E, seq)
+    assert used_k.all()
+    torch.testing.assert_close(s_k, s_s, rtol=1e-6, atol=0)
