@@ -120,6 +120,29 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    and no other kernel, the paths equal to the glue on the plain versions,
    every row its input, pairs F1 >= 0.9 against the planted truth; and
    ``align --adapt-rounds 2 --model-length 18`` (rows, F1).
+13. The host side and the dense multi-device routes
+   (``hmm_layer_torch.parallel`` on ``torch.distributed``). Predict's time
+   split between reading phase 7's FASTA and the rest, the native C++
+   reader against the Python one in paired runs (native, Python, Python,
+   native; records equal), and a ``simulate_genome`` contig through
+   ``predict`` scored by ``evaluate_annotation`` against its planted genes.
+   The flagship's data route (``partition={"batch": "data"}``) at world 1
+   under NCCL in this process and at world 2 on the shared card (gloo,
+   spawned ranks with a hard time limit): 3 posteriors, a log-likelihood,
+   3 decodes, a CE gradient and 2 SGD CE steps, each rank launching K1–K8
+   (counted per rank), its results against the unsharded layer. The
+   sequence and state routes, and the sparse layer's data route, at world
+   1 under NCCL on a small input. The sequence route at world 3 (3,333
+   positions a rank, local parallel factor 11): posteriors and decodes on
+   plain ops, each CE backward launching K4 and K5 on every rank. Config
+   5's state route (q = 505 padded to 506, b=8) at world 2 against the
+   dense twin: posterior and log-likelihood on the chunked engine (P=40)
+   at L=10,000, on the sequential engine cut to L=500, the decode cut to
+   L=2,000. A probe of the collectives gloo takes on CUDA tensors (values
+   checked). The sequence route is held to the unsharded layer on its
+   plain route (K1–K8 off), whose arithmetic its primal shares.
+   ``python3 -c "import chip_smoke; chip_smoke.develop_phase13()"`` runs
+   phases 1, 2, 7 and 13 alone for development, and prints no result.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -2769,6 +2792,680 @@ def profile_phase(HMMLayer, models, recursion, cuda_viterbi, counters, smi):
     log(f"phase 12 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# 13. The host side and the dense multi-device routes
+# ---------------------------------------------------------------------------
+
+DATA_WORLD, SEQ_WORLD, STATE_WORLD = 2, 3, 2  # ranks sharing the one card (gloo)
+WORLD_TIMEOUT_S = 300  # every collective of a spawned world, and the world's whole run
+ROUTE_LR = 1e-3  # SGD for the route runs' two CE steps: parameters follow gradients linearly
+# Config 5's state route: the chunked (border-split) engine at an explicit
+# parallel factor over the whole L = 10,000; the layer's "auto" factor (1 at
+# q > 64, tuned on a TPU) runs the sequential engine, whose two all-reduces
+# a step through gloo take ~1.2 ms, so it and the decode (three a step) are
+# cut in length (the time limit).
+STATE_PF, STATE_SEQ_L, STATE_VIT_L = 40, 500, 2_000
+SIM_GENES = 40
+# Launches on each rank of the flagship data route: 3 posteriors + one
+# log-likelihood (K1–K3, K1), 3 decodes (K6–K8), one CE gradient and 2 CE
+# steps (K1–K5 each).
+DATA_ROUTE_LAUNCHES = {
+    "sum_chunk_summaries": 7, "sum_fwd_outputs": 6, "beta_bwd_outputs": 6,
+    "affine_chunk_composites": 3, "affine_reverse_outputs": 3,
+    "maxplus_chunk_summaries": 3, "maxplus_deltas": 3, "maxplus_backtrace": 3,
+}
+# ... of the sequence route (plain primal and decode, as in the JAX
+# package): K4 and K5 once in each of its 3 CE backwards, nothing else.
+SEQ_ROUTE_LAUNCHES = {"affine_chunk_composites": 3, "affine_reverse_outputs": 3}
+
+
+def route_counters():
+    from hmm_layer_torch.ops import cuda_adjoint, cuda_forward, cuda_mxu, cuda_viterbi
+
+    return (cuda_forward, cuda_adjoint, cuda_viterbi, cuda_mxu)
+
+
+def check_launches(tag, got, expected):
+    want = {k: expected.get(k, 0) for k in got}
+    if got != want:
+        raise AssertionError(f"{tag}: launches {got}, expected {want}")
+
+
+def gloo_cuda_probe():
+    """Rank body: which collectives the installed torch's gloo takes on
+    CUDA tensors (each call made by every rank, in the same order)."""
+    import torch.distributed as dist
+
+    n, rank = dist.get_world_size(), dist.get_rank()
+    x = torch.full((4,), float(rank + 1), device="cuda")
+    gathered = torch.arange(1, n + 1, device="cuda", dtype=x.dtype).repeat_interleave(4)
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return bool((y == n * (n + 1) / 2).all())
+
+    def broadcast():
+        y = x.clone()
+        dist.broadcast(y, src=0)
+        return bool((y == 1).all())
+
+    def all_gather():
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x)
+        return bool((torch.cat(parts) == gathered).all())
+
+    def all_gather_into_tensor():
+        y = torch.empty(n * 4, device="cuda")
+        dist.all_gather_into_tensor(y, x)
+        return bool((y == gathered).all())
+
+    # Point-to-point send/recv of a CUDA tensor under gloo aborts the
+    # sending process (gloo::IoException "writev: Bad address", torch 2.11):
+    # the collectives helper shifts through all-gathers and never sends.
+    out = {}
+    for op in (all_reduce, broadcast, all_gather, all_gather_into_tensor):
+        try:
+            out[op.__name__] = "ok" if op() else "WRONG VALUES"
+        except Exception as exc:  # noqa: BLE001 — the probe records any refusal
+            out[op.__name__] = f"{type(exc).__name__}: {str(exc).splitlines()[0][:120]}"
+    return out
+
+
+def route_result(layer, X, labels, mask, requests, decodes):
+    """The timed calls of one rank on one route: posterior requests, one
+    log-likelihood, decodes, one CE gradient and two SGD CE steps; its
+    launches between them and the results (rank 0) as CPU tensors."""
+    import functools
+
+    import torch.distributed as dist
+    from hmm_layer_torch.training import Trainer
+
+    counters = route_counters()
+    with torch.inference_mode():  # warm-up, not counted
+        layer.state_posterior_log_probs(X)
+        layer.viterbi(X)
+    warm = torch.zeros(1, device=X.device, requires_grad=True)
+    warm.grad = torch.zeros_like(warm)
+    torch.optim.SGD([warm], lr=ROUTE_LR).step()  # the first optimizer step's one-off set-up
+    torch.cuda.synchronize()
+    reset_kernels(counters)
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    with torch.inference_mode():
+        times = []
+        for _ in range(requests):
+            lg, ms = synced_ms(lambda: layer.state_posterior_log_probs(X))
+            times.append(ms)
+        out["post_ms"] = times
+        ll, out["ll_ms"] = synced_ms(lambda: layer.log_likelihood(X))
+        times = []
+        for _ in range(decodes):
+            path, ms = synced_ms(lambda: layer.viterbi(X))
+            times.append(ms)
+        out["decode_ms"] = times
+    (loss, grads), out["grad_ms"] = synced_ms(lambda: param_grads(layer, "ce", X, labels, mask))
+    trainer = Trainer(layer, optimizer=functools.partial(torch.optim.SGD, lr=ROUTE_LR),
+                      loss_fn=lambda x, _: layer.posterior_cross_entropy(x, labels, label_mask=mask))
+    steps = []
+    for _ in range(2):
+        step_loss, ms = synced_ms(lambda: trainer.fit([X], log_every=100))
+        steps.append((float(step_loss), ms))
+    out["steps"] = steps
+    out["launches"] = kernel_counts(counters)
+    if out["rank"] == 0:
+        out.update(lg=lg.cpu(), ll=ll.cpu(), path=path.cpu(), loss=float(loss),
+                   grads=[g.cpu() for g in grads],
+                   params={k: v.detach().cpu() for k, v in layer.state_dict().items()})
+    return out
+
+
+def data_route_rank():
+    """Rank body of the flagship's data route ({"batch": "data"})."""
+    import torch.distributed as dist
+    from hmm_layer_torch import HMMLayer, models
+    from hmm_layer_torch.parallel import make_mesh
+
+    X = make_inputs(SEED, B, L, torch.device("cuda"))
+    dense = build_layer(HMMLayer, models)
+    labels, mask = ce_targets(dense, X)
+    del dense
+    mesh = make_mesh({"data": dist.get_world_size()})
+    layer = seeded_layer(HMMLayer, models.GenePredTransitions(), models.GenePredEmissions(**CODONS), SEED,
+                         use_prior=False, mesh=mesh, partition={"batch": "data"})
+    return route_result(layer, X, labels, mask, N_REQUESTS, N_REQUESTS)
+
+
+def seq_route_rank(problem):
+    """Rank body of the flagship's sequence route ({"seq": "seq"}): the
+    layer's timed calls, then the route's functions on the caller's
+    ``problem`` (its init, A, E, labels and mask) in float32 (K4/K5 in the
+    CE backward, not counted) and in float64 (plain solves: the kernels
+    are float32)."""
+    import torch.distributed as dist
+    from hmm_layer_torch import HMMLayer, models
+    from hmm_layer_torch.ops import recursion
+    from hmm_layer_torch.parallel import make_mesh
+    from hmm_layer_torch.parallel import sharding as S
+
+    X = make_inputs(SEED, B, L, torch.device("cuda"))
+    dense = build_layer(HMMLayer, models)
+    labels, mask = ce_targets(dense, X)
+    del dense
+    mesh = make_mesh({"seq": dist.get_world_size()})
+    layer = seeded_layer(HMMLayer, models.GenePredTransitions(), models.GenePredEmissions(**CODONS), SEED,
+                         use_prior=False, mesh=mesh, partition={"seq": "seq"})
+    P_local = recursion.recommended_parallel_factor(L // mesh.shape["seq"], NUM_CLASSES, 1)
+    out = route_result(layer, X, labels, mask, 2, 2)
+    fns = (lambda i, a, e: S.seq_sharded_posterior(i, a, e, mesh, "seq", local_parallel_factor=P_local),
+           lambda i, a, e: S.seq_sharded_log_likelihood(i, a, e, mesh, "seq", local_parallel_factor=P_local))
+    args = [problem[k].cuda() for k in ("init", "A", "E", "labels", "mask")]
+    out["f32"] = route_objectives(*fns, *args)
+    with plain_route(recursion):
+        out["f64"] = route_objectives(*fns, *[t.double() for t in args[:3]], *args[3:])
+    if out["rank"] != 0:
+        del out["f32"], out["f64"]
+    return out
+
+
+def route_objectives(post, loglik, init, A, E, labels, mask):
+    """The masked posterior CE and the summed log-likelihood of (init, A,
+    E) through ``post`` and ``loglik``, with their gradients with respect
+    to init, A and E; everything as float64 on the CPU."""
+    xs = [t.detach().clone().requires_grad_() for t in (init, A, E)]
+    lg, _ = post(*xs)
+    ce = -(torch.gather(lg, -1, labels[None, ..., None])[..., 0] * mask).sum() / mask.sum()
+    g_ce = torch.autograd.grad(ce, xs)
+    ll = loglik(*xs)
+    g_ll = torch.autograd.grad(ll.sum(), xs)
+    cpu = lambda t: t.detach().double().cpu()  # noqa: E731
+    return {"ce": float(ce.detach()), "ll": cpu(ll), "lg": cpu(lg),
+            "g_ce": [cpu(g) for g in g_ce], "g_ll": [cpu(g) for g in g_ll]}
+
+
+def objective_errors(got, ref):
+    """Errors of :func:`route_objectives` results against a reference:
+    loglik max rel, log gamma max abs where gamma >= 1e-3, CE rel, and
+    each objective's gradients max abs over the largest (the worst of
+    init, A, E)."""
+    rel = lambda g, r: float((g - r).abs().max() / r.abs().max().clamp_min(1e-300))  # noqa: E731
+    big = ref["lg"].exp() >= 1e-3
+    return {
+        "ll": float(((got["ll"] - ref["ll"]).abs() / ref["ll"].abs()).max()),
+        "lg": float((got["lg"] - ref["lg"]).abs()[big].max()),
+        "ce": abs(got["ce"] - ref["ce"]) / abs(ref["ce"]),
+        "g_ce": max(rel(g, r) for g, r in zip(got["g_ce"], ref["g_ce"])),
+        "g_ll": max(rel(g, r) for g, r in zip(got["g_ll"], ref["g_ll"])),
+    }
+
+
+# The sequence route in float64 against the unsharded plain engine in
+# float64: the same sums up to their order, so they agree to float64
+# rounding (1e-12 relative at b=4, L=1200 on the CPU); a wrong VJP or a
+# boundary shift shows here at any size.
+SEQ_F64_LIMITS = {"ll": 1e-10, "lg": 1e-6, "ce": 1e-9, "g_ce": 1e-7, "g_ll": 1e-7}
+# In float32 every ordering of these sums drifts at this length (|loglik|
+# ~1.1e5, 303 steps a chunk): the sequence route is held, per quantity, to
+# within this multiple of the unsharded engine's own float32 drift (the
+# larger of its kernel and plain routes' errors against float64).
+F32_NOISE_FACTOR = 4.0
+
+
+def layer_truth(layer, X, labels, mask, recursion):
+    """The layer's CE loss and parameter gradients anchored in float64: the
+    unsharded plain engine's float64 CE and its gradients with respect to
+    init, A and E (:func:`route_objectives`) pulled back through the
+    layer's own matrices and emissions (float32, whose rounding is ~1e-7),
+    with the emissions in training mode as ``posterior_cross_entropy``
+    takes them."""
+    pars = [p for p in layer.parameters() if p.requires_grad]
+    init, A = layer.transitions.matrices()
+    E = layer.emission_probs(X, training=True)
+    with plain_route(recursion):
+        obj64 = route_objectives(lambda i, a, e: recursion.posterior(i, a, e, PF),
+                                 lambda i, a, e: recursion.log_likelihood(i, a, e, PF),
+                                 init.double(), A.double(), E.double(), labels, mask)
+    outs = [init, A, E]
+    cts = [g.to(E.device, E.dtype) for g in obj64["g_ce"]]
+    aux = layer.aux_loss()
+    if torch.is_tensor(aux) and aux.requires_grad:
+        outs.append(aux)
+        cts.append(torch.ones_like(aux))
+    grads = torch.autograd.grad(outs, pars, grad_outputs=cts, allow_unused=True)
+    return {"loss": obj64["ce"] + float(aux.detach() if torch.is_tensor(aux) else aux),
+            "grads": [torch.zeros_like(p) if g is None else g for g, p in zip(grads, pars)]}
+
+
+def layer_drift(r, truth):
+    """A layer's float32 CE loss (rel) and parameter gradients (max abs over
+    the largest, the worst parameter) against :func:`layer_truth`."""
+    dev = truth["grads"][0].device
+    return {"loss": abs(float(r["loss"]) - truth["loss"]) / abs(truth["loss"]),
+            "grads": max(float((g.to(dev) - t).abs().max() / t.abs().max().clamp_min(1e-12))
+                         for g, t in zip(r["grads"], truth["grads"]))}
+
+
+def state_route_rank(b, length, pf, seq_length, vit_length):
+    """Rank body of config 5's state route ({"state": "state"}; q = 505 is
+    padded to a multiple of the axis): posterior and log-likelihood on the
+    chunked engine (parallel factor ``pf``) over ``length`` and on the
+    sequential engine over ``seq_length``, the decode over ``vit_length``;
+    none of K1–K9 may launch."""
+    import torch.distributed as dist
+    from hmm_layer_torch import HMMLayer, models
+    from hmm_layer_torch.parallel import make_mesh
+
+    counters = route_counters()
+    mesh = make_mesh({"state": dist.get_world_size()})
+    layer = build_config5(HMMLayer, models, sparse_forward=False)
+    layer.mesh, layer.partition = mesh, {"state": "state"}
+    X = make_inputs(SEED + 137, b, length, torch.device("cuda"))
+    reset_kernels(counters)
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    with torch.inference_mode():
+        for P, n in ((pf, length), (1, seq_length)):
+            layer.parallel_factor = P
+            (out[f"lg_{P}"], out[f"ll_{P}"]), out[f"post_ms_{P}"] = synced_ms(
+                lambda: (layer.state_posterior_log_probs(X[:, :, :n]), layer.log_likelihood(X[:, :, :n])))
+        out["path"], out["decode_ms"] = synced_ms(lambda: layer.viterbi(X[:, :, :vit_length]))
+    out["launches"] = kernel_counts(counters)
+    for key in ("lg_1", f"lg_{pf}", "ll_1", f"ll_{pf}", "path"):
+        out[key] = out[key].cpu() if out["rank"] == 0 else None
+    return out
+
+
+def route_reference(layer, X, labels, mask, rows=None):
+    """The unsharded layer's results on the same inputs and weights: the
+    posterior, log-likelihood and decode, one CE gradient and two SGD CE
+    steps."""
+    import functools
+
+    from hmm_layer_torch.training import Trainer
+
+    with torch.inference_mode():
+        ref = {"lg": layer.state_posterior_log_probs(X), "ll": layer.log_likelihood(X),
+               "path": layer.viterbi(X)}
+    ref["loss"], ref["grads"] = param_grads(layer, "ce", X, labels, mask)
+    trainer = Trainer(layer, optimizer=functools.partial(torch.optim.SGD, lr=ROUTE_LR),
+                      loss_fn=lambda x, _: layer.posterior_cross_entropy(x, labels, label_mask=mask))
+    ref["steps"] = [float(trainer.fit([X], log_every=100)) for _ in range(2)]
+    ref["params"] = {k: v.detach().clone() for k, v in layer.state_dict().items()}
+    return ref
+
+
+def compare_route(tag, got, ref, init, A, E, lg_tol, grad_tol, loss_tol):
+    """Hold one route's rank-0 results to the unsharded layer's: loglik
+    (rtol 1e-4), log gamma where gamma >= 1e-3 (max abs ``lg_tol``; gamma's
+    own max abs is printed), decode (valid, float64 scores rel 1e-6), the
+    CE loss (rel ``loss_tol``) and its gradients (max abs over the
+    largest, ``grad_tol``), the parameters after two SGD steps (within
+    twice the step times the gradient limit) and the steps' losses (rel
+    ``loss_tol``, plus the first-order change that parameters apart by
+    that limit can make: the gradients' L1 norm times it)."""
+    dev = ref["lg"].device
+    lg, ll, path = got["lg"].to(dev), got["ll"].to(dev), got["path"].to(dev)
+    ll_err, ll_ok = within(ll, ref["ll"], 1e-4, 0.0)
+    lg_err, lg_ok = within(lg, ref["lg"], 0.0, lg_tol, mask=ref["lg"].exp() >= 1e-3)
+    g_err = float((lg.exp() - ref["lg"].exp()).abs().max())
+    score, used = path_score64(init, A, E, path)
+    score_ref, used_ref = path_score64(init, A, E, ref["path"])
+    valid = bool((used | ~used_ref).all())
+    s_err, s_ok = within(score, score_ref, 1e-6, 0.0)
+    same = float((path == ref["path"]).float().mean())
+    loss_err = abs(got["loss"] - float(ref["loss"])) / abs(float(ref["loss"]))
+    grad_err = max(float((g.to(dev) - r).abs().max() / r.abs().max().clamp_min(1e-12))
+                   for g, r in zip(got["grads"], ref["grads"]))
+    step_err = max(abs(a - b) / abs(b) for (a, _), b in zip(got["steps"], ref["steps"]))
+    par_err = max(float((got["params"][k].to(dev) - v).abs().max()) for k, v in ref["params"].items())
+    par_tol = 2 * ROUTE_LR * grad_tol * max(float(r.abs().max()) for r in ref["grads"])
+    step_tol = loss_tol + sum(float(r.abs().sum()) for r in ref["grads"]) * par_tol / min(map(abs, ref["steps"]))
+    log(f"phase 13 {tag} vs the unsharded layer: loglik max abs {ll_err:.3e} (rtol 1e-4); log gamma where "
+        f"gamma >= 1e-3 max abs {lg_err:.3e} (limit {lg_tol:.3g}), gamma max abs {g_err:.3e}; decode valid "
+        f"{valid}, float64 scores max abs {s_err:.3e} (rtol 1e-6), paths equal at {100 * same:.3f}% of "
+        f"positions; CE loss rel {loss_err:.2e} (limit {loss_tol}), gradients max abs / max {grad_err:.3e} "
+        f"(limit {grad_tol}); SGD steps' losses rel {step_err:.2e} (limit {step_tol:.3e}), parameters max "
+        f"abs {par_err:.3e} (limit {par_tol:.3e})")
+    if not (ll_ok and lg_ok and valid and s_ok and loss_err <= loss_tol and grad_err <= grad_tol
+            and step_err <= step_tol and par_err <= par_tol):
+        raise AssertionError(f"{tag}: the route disagrees with the unsharded layer")
+    return {"ll_err": ll_err, "lg_err": lg_err, "gamma_err": g_err, "grad_err": grad_err, "paths_equal": same}
+
+
+def rank_times(tag, results):
+    for r in results:
+        med = statistics.median
+        log(f"phase 13 {tag} rank {r['rank']} ({r['backend']}): launches {r['launches']}; posterior "
+            f"{med(r['post_ms']):.3f} ms/batch median {[round(t, 3) for t in r['post_ms']]}, loglik "
+            f"{r['ll_ms']:.3f}, decode {med(r['decode_ms']):.3f} median {[round(t, 3) for t in r['decode_ms']]}, "
+            f"CE gradient {r['grad_ms']:.3f}, SGD CE steps {[round(ms, 3) for _, ms in r['steps']]} ms")
+
+
+def routes_phase(HMMLayer, models, make, smi):
+    """Phase 13 (a)–(c): the data, sequence and state routes."""
+    import torch.distributed as dist
+    from hmm_layer_torch.ops import recursion
+    from hmm_layer_torch.parallel import init_distributed, launch, make_mesh
+
+    t0 = time.perf_counter()
+    X = make(SEED, B, L)
+    dense = build_layer(HMMLayer, models)
+    labels, mask = ce_targets(dense, X)
+    with torch.inference_mode():
+        init, A = dense.transitions.matrices()
+        E = dense.emission_probs(X)
+    ref = route_reference(dense, X, labels, mask)
+    del dense
+    summary = {}
+
+    # (a) data route, world 1 under NCCL in this process
+    init_distributed("nccl", init_method=f"tcp://localhost:{launch.free_port()}", world_size=1, rank=0,
+                     timeout_s=WORLD_TIMEOUT_S)
+    try:
+        got = data_route_rank()
+        rank_times("data route world 1", [got])
+        check_launches("data route world 1", got["launches"], DATA_ROUTE_LAUNCHES)
+        # The same kernels on the same rows: equal to the unsharded layer.
+        summary["data_w1"] = compare_route("data route world 1 (NCCL)", got, ref, init, A, E, 0.0, 0.0, 0.0)
+
+        # The sequence and state routes at world 1 under NCCL, small inputs.
+        mesh = make_mesh({"seq": 1, "state": 1})
+        small = make(SEED + 139, 4, 1200)
+        for part in ({"seq": "seq"}, {"state": "state"}):
+            routed = seeded_layer(HMMLayer, models.GenePredTransitions(), models.GenePredEmissions(**CODONS),
+                                  SEED, use_prior=False, mesh=mesh, partition=part)
+            plain = build_layer(HMMLayer, models)
+            with torch.inference_mode():
+                lg_r, ll_r = routed.state_posterior_log_probs(small), routed.log_likelihood(small)
+                lg_p, ll_p = plain.state_posterior_log_probs(small), plain.log_likelihood(small)
+                path_r, path_p = routed.viterbi(small), plain.viterbi(small)
+                si, sA = plain.transitions.matrices()
+                sE = plain.emission_probs(small)
+            ll_err, ll_ok = within(ll_r, ll_p, 1e-4, 0.0)
+            bound = 2 * f32_log_bound(ll_p, 1200)
+            lg_err, lg_ok = within(lg_r, lg_p, 0.0, bound, mask=lg_p.exp() >= 1e-3)
+            s_err, s_ok = within(path_score64(si, sA, sE, path_r)[0], path_score64(si, sA, sE, path_p)[0], 1e-6, 0.0)
+            log(f"phase 13 {list(part)[0]} route world 1 (NCCL; b=4, L=1200): loglik max abs {ll_err:.3e} "
+                f"(rtol 1e-4), log gamma where gamma >= 1e-3 max abs {lg_err:.3e} (bound {bound:.3f}), gamma "
+                f"max abs {float((lg_r.exp() - lg_p.exp()).abs().max()):.3e}, decode float64 scores max abs "
+                f"{s_err:.3e} (rtol 1e-6)")
+            if not (ll_ok and lg_ok and s_ok):
+                raise AssertionError(f"{part}: world-1 route disagrees with the dense layer")
+
+        # The sparse layer's data route: the edge-list engine on the rank's rows.
+        sparse = [seeded_layer(HMMLayer, models.GenePredTransitions(sparse_forward=True),
+                               models.GenePredEmissions(**CODONS), SEED, use_prior=False, **kw)
+                  for kw in ({"mesh": make_mesh({"data": 1}), "partition": {"batch": "data"}}, {})]
+        with torch.inference_mode():
+            outs = [(lay.state_posterior_log_probs(small), lay.viterbi(small)) for lay in sparse]
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        log(f"phase 13 sparse layer data route world 1 (NCCL; b=4, L=1200): posterior and decode "
+            f"{'equal to' if same else 'DIFFER FROM'} the sparse layer without a mesh")
+        if not same:
+            raise AssertionError("the sparse layer's data route differs from its single-device route")
+    finally:
+        dist.destroy_process_group()
+
+    # Which collectives gloo takes on CUDA tensors: the shared-card worlds need all_reduce and all_gather.
+    try:
+        probe = launch.run_world(gloo_cuda_probe, 2, backend="gloo", timeout_s=60)[0]
+    except (RuntimeError, TimeoutError) as exc:
+        probe = f"the probe world failed: {str(exc)[-300:]}"
+    log(f"phase 13 gloo on CUDA tensors (torch {torch.__version__}; values checked): {probe}")
+    if not isinstance(probe, dict) or probe["all_reduce"] != "ok" or probe["all_gather"] != "ok":
+        raise AssertionError("gloo refuses a collective the shared-card worlds use on CUDA tensors")
+
+    # (a) data route, world 2 on the shared card
+    results = launch.run_world(data_route_rank, DATA_WORLD, backend="gloo", timeout_s=WORLD_TIMEOUT_S)
+    rank_times(f"data route world {DATA_WORLD}", results)
+    for r in results:
+        check_launches(f"data route rank {r['rank']}", r["launches"], DATA_ROUTE_LAUNCHES)
+    bound = 2 * f32_log_bound(ref["ll"], L // PF)
+    summary["data_w2"] = compare_route(f"data route world {DATA_WORLD} (gloo, shared card)", results[0], ref,
+                                       init, A, E, bound, 1e-4, 1e-5)
+    summary["data_w2_post_ms"] = statistics.median(results[0]["post_ms"])
+    summary["data_w2_decode_ms"] = statistics.median(results[0]["decode_ms"])
+    summary["data_w2_step_ms"] = results[0]["steps"][1][1]
+
+    # (b) sequence route, world 3: 3,333 positions a rank. Its primal runs
+    # the plain ops (as in JAX), and its CE backward K4/K5 (bit-equal to the
+    # plain solves, phase 3). In float64 it is held to the unsharded plain
+    # engine at float64 rounding; in float32 to F32_NOISE_FACTOR times the
+    # float32 drift from float64 that the unsharded engine itself shows
+    # here, for the functions and for the layer.
+    problem = {"init": init.cpu(), "A": A.cpu(), "E": E.cpu(), "labels": labels.cpu(), "mask": mask.cpu()}
+    dense_fns = (lambda i, a, e: recursion.posterior(i, a, e, PF),
+                 lambda i, a, e: recursion.log_likelihood(i, a, e, PF))
+    obj_kernel = route_objectives(*dense_fns, init, A, E, labels, mask)
+    with plain_route(recursion):
+        obj_plain = route_objectives(*dense_fns, init, A, E, labels, mask)
+        obj64 = route_objectives(*dense_fns, init.double(), A.double(), E.double(), labels, mask)
+        ref_plain = route_reference(build_layer(HMMLayer, models), X, labels, mask)
+    truth = layer_truth(build_layer(HMMLayer, models), X, labels, mask, recursion)
+    noise = {k: max(v, objective_errors(obj_plain, obj64)[k])
+             for k, v in objective_errors(obj_kernel, obj64).items()}
+    results = launch.run_world(seq_route_rank, SEQ_WORLD, problem, backend="gloo", timeout_s=WORLD_TIMEOUT_S)
+    rank_times(f"seq route world {SEQ_WORLD}", results)
+    for r in results:
+        check_launches(f"seq route rank {r['rank']}", r["launches"], SEQ_ROUTE_LAUNCHES)
+    got = results[0]
+    err64 = objective_errors(got["f64"], obj64)
+    err32 = objective_errors(got["f32"], obj64)
+    fmt = lambda d: ", ".join(f"{k} {v:.3e}" for k, v in d.items())  # noqa: E731
+    log(f"phase 13 seq route world {SEQ_WORLD} functions in float64 vs the unsharded plain engine in float64 "
+        f"(loglik max rel, log gamma max abs where gamma >= 1e-3, CE rel, gradients max abs / max): "
+        f"{fmt(err64)} (limits {fmt(SEQ_F64_LIMITS)})")
+    log(f"phase 13 seq route world {SEQ_WORLD} functions in float32 vs float64: {fmt(err32)}; the unsharded "
+        f"engine's own float32 drift (the larger of its kernel and plain routes): {fmt(noise)} (limits "
+        f"{F32_NOISE_FACTOR:g}x)")
+    if any(err64[k] > lim for k, lim in SEQ_F64_LIMITS.items()):
+        raise AssertionError("the seq route in float64 disagrees with the unsharded engine")
+    if any(err32[k] > F32_NOISE_FACTOR * noise[k] for k in noise):
+        raise AssertionError("the seq route in float32 drifts more than the unsharded engine")
+    summary["seq_w3_f64"], summary["seq_w3_f32"], summary["f32_noise"] = err64, err32, noise
+    # The layer in float32 against its float64-anchored CE loss and
+    # parameter gradients: the seq route's drift, held to F32_NOISE_FACTOR
+    # times the larger of the unsharded layer's two routes' drift.
+    drift = {name: layer_drift(r, truth) for name, r in (("kernel", ref), ("plain", ref_plain), ("seq", got))}
+    layer_noise = {k: max(drift["kernel"][k], drift["plain"][k]) for k in ("loss", "grads")}
+    log(f"phase 13 the layers' CE loss (rel) and parameter gradients (max abs / max) in float32 against "
+        f"their float64-anchored values: " + "; ".join(f"{n} {fmt(d)}" for n, d in drift.items())
+        + f" (seq limits {F32_NOISE_FACTOR:g}x the larger of kernel and plain)")
+    if any(drift["seq"][k] > F32_NOISE_FACTOR * layer_noise[k] for k in layer_noise):
+        raise AssertionError("the seq route's layer drifts more in float32 than the unsharded layer")
+    summary["seq_w3_layer_drift"] = drift
+    summary["seq_w3"] = compare_route(f"seq route world {SEQ_WORLD} (gloo, shared card; {L // SEQ_WORLD} "
+                                      f"positions a rank) vs the plain route", got, ref_plain, init, A, E, bound,
+                                      F32_NOISE_FACTOR * layer_noise["grads"], F32_NOISE_FACTOR * layer_noise["loss"])
+    summary["seq_w3_post_ms"] = statistics.median(results[0]["post_ms"])
+    summary["seq_w3_decode_ms"] = statistics.median(results[0]["decode_ms"])
+    summary["seq_w3_step_ms"] = results[0]["steps"][1][1]
+    del X, E, ref, ref_plain, obj_kernel, obj_plain, obj64, truth
+
+    # (c) state route at config 5, world 2
+    twin = build_config5(HMMLayer, models, sparse_forward=False)
+    Xc = make(SEED + 137, SPARSE_B, SPARSE_L)
+
+    with torch.inference_mode():
+        (lg_d, ll_d), dense_ms = synced_ms(lambda: (twin.state_posterior_log_probs(Xc), twin.log_likelihood(Xc)))
+        # The chunked route's reference is the dense chunked engine at the
+        # same factor (as in the JAX suite): chunked and sequential engines
+        # differ by the clamps of this sparse grammar's operators. At
+        # L = 10,000 neither engine's gamma is normalised (the EPS clamps,
+        # in float64 as in float32 and in the JAX engines alike:
+        # tests/test_torch_config5_posterior.py), so the full-length check
+        # is agreement with the reference engine, not a valid posterior.
+        ti, tA = twin.transitions.matrices()
+        lg_c, ll_c = recursion.posterior(ti, tA, twin.emission_probs(Xc), STATE_PF)
+        short = Xc[:, :, :STATE_SEQ_L]
+        lg_s, ll_s = twin.state_posterior_log_probs(short), twin.log_likelihood(short)
+        path_d = twin.viterbi(Xc[:, :, :STATE_VIT_L])
+        ci, cA = twin.transitions.matrices()
+        cE = twin.emission_probs(Xc[:, :, :STATE_VIT_L])
+    results = launch.run_world(state_route_rank, STATE_WORLD, SPARSE_B, SPARSE_L, STATE_PF, STATE_SEQ_L,
+                               STATE_VIT_L, backend="gloo", timeout_s=WORLD_TIMEOUT_S)
+    for r in results:
+        check_launches(f"state route rank {r['rank']}", r["launches"], {})
+        log(f"phase 13 state route rank {r['rank']} ({r['backend']}): launches none; chunked (P={STATE_PF}) "
+            f"posterior + loglik {r[f'post_ms_{STATE_PF}']:.3f} ms (b={SPARSE_B}, L={SPARSE_L}); sequential "
+            f"(P=1) {r['post_ms_1']:.3f} ms (L={STATE_SEQ_L}); decode {r['decode_ms']:.3f} ms (L={STATE_VIT_L})")
+    got = results[0]
+    checks = []
+    ll_seq_err, ll_seq_ok = within(got[f"ll_{STATE_PF}"].cuda(), ll_d, 1e-4, 0.0)
+    checks.append(ll_seq_ok)
+    seq_gap = float((got[f"lg_{STATE_PF}"].cuda().exp() - lg_d.exp()).abs().max())
+    for P, n, lg_ref, ll_ref, ref_name in ((STATE_PF, SPARSE_L, lg_c, ll_c, f"dense chunked engine (P={STATE_PF})"),
+                                           (1, STATE_SEQ_L, lg_s, ll_s, "dense sequential twin")):
+        bound = f32_log_bound(ll_ref, n)
+        ll_err, ll_ok = within(got[f"ll_{P}"].cuda(), ll_ref, 1e-4, 0.0)
+        lg_err, lg_ok = within(got[f"lg_{P}"].cuda(), lg_ref, 0.0, 2 * bound, mask=lg_ref.exp() >= 1e-3)
+        checks += [ll_ok, lg_ok]
+        norm = float(torch.logsumexp(lg_ref, -1).abs().max())
+        log(f"phase 13 state route world {STATE_WORLD} (gloo, shared card; config 5, q=505 padded to "
+            f"{-(-505 // STATE_WORLD) * STATE_WORLD}), P={P}, L={n}, vs the {ref_name}: loglik max "
+            f"abs {ll_err:.3e} (rtol 1e-4), log gamma where gamma >= 1e-3 max abs {lg_err:.3e} (bound "
+            f"{2 * bound:.3g}); the reference's own |logsumexp(log gamma)| max {norm:.3e}, gamma max "
+            f"{float(lg_ref.exp().max()):.3e}")
+    log(f"phase 13 state route P={STATE_PF} vs the dense sequential twin: loglik max abs {ll_seq_err:.3e} (rtol "
+        f"1e-4), gamma max abs {seq_gap:.3e} (the chunked/sequential engine gap, not a limit)")
+    score, used = path_score64(ci, cA, cE, got["path"].cuda())
+    score_d, used_d = path_score64(ci, cA, cE, path_d)
+    s_err, s_ok = within(score, score_d, 1e-6, 0.0)
+    valid = bool((used | ~used_d).all())
+    log(f"phase 13 state route decode (L={STATE_VIT_L}): valid {valid}, float64 scores vs the twin's max abs "
+        f"{s_err:.3e} (rtol 1e-6); the twin's posterior + loglik {dense_ms:.3f} ms (L={SPARSE_L}, one process)")
+    if not (all(checks) and s_ok and valid):
+        raise AssertionError("config 5 state route disagrees with the dense twin")
+    summary["state_w2_chunked_ms"] = got[f"post_ms_{STATE_PF}"]
+    summary["state_w2_seq_ms"] = got["post_ms_1"]
+    summary["state_w2_decode_ms"] = got["decode_ms"]
+    summary["state_dense_ms"] = dense_ms
+    log(f"phase 13 routes took {time.perf_counter() - t0:.1f} s")
+    return summary
+
+
+def native_reader_phase(fasta, npz, tmp, smi):
+    """Phase 13 (d): predict's split between reading the FASTA and the
+    rest, native reader against the Python one in paired runs (native,
+    Python, Python, native), with equal records; then a simulated contig
+    through predict, scored against its planted genes."""
+    from hmm_layer_torch import cli, data
+    from hmm_layer_torch.models import evaluate_annotation, read_gff3, simulate_genome
+
+    def read_all(native):
+        data._use_native_io = native
+        try:
+            return [(n, e.tobytes()) for n, e in data.read_fasta_encoded(fasta)]
+        finally:
+            data._use_native_io = True
+
+    if read_all(True) != read_all(False):
+        raise AssertionError("native and Python readers disagree")
+
+    reader = data.read_fasta_encoded
+    spent = []
+
+    def timed_reader(*args, **kwargs):
+        gen = reader(*args, **kwargs)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                item = next(gen)
+            except StopIteration:
+                spent.append(time.perf_counter() - t0)
+                return
+            spent.append(time.perf_counter() - t0)
+            yield item
+
+    argv = ["predict", "-i", fasta, "-o", f"{tmp}/native.gff3", "--class-probs", npz, "--params",
+            f"{tmp}/params.npz", "--window", str(L), "--batch", str(B), "--parallel-factor", str(PF),
+            "--both-strands"]
+    runs = {True: [], False: []}
+    data.read_fasta_encoded = timed_reader
+    try:
+        for native in (None, True, False, False, True):  # a warm-up run first, not counted
+            data._use_native_io = native is not False
+            spent.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cli.main(argv) != 0:
+                raise AssertionError("predict returned non-zero")
+            torch.cuda.synchronize()
+            if native is not None:
+                runs[native].append((time.perf_counter() - t0, sum(spent)))
+    finally:
+        data.read_fasta_encoded = reader
+        data._use_native_io = True
+    bp = sum(PREDICT_CONTIGS)
+    out = {}
+    for native, name in ((True, "native"), (False, "python")):
+        wall = statistics.mean(w for w, _ in runs[native])
+        read = statistics.mean(r for _, r in runs[native])
+        out[f"{name}_read_s"], out[f"{name}_wall_s"] = read, wall
+        log(f"phase 13 predict with the {name} reader: {[(round(w, 4), round(r, 4)) for w, r in runs[native]]} "
+            f"(wall s, reading s) -> reading {read:.4f} s of {wall:.4f} s ({100 * read / wall:.2f}%), "
+            f"the rest {wall - read:.4f} s; {bp / wall:,.0f} bp/s")
+    log(f"phase 13 native reader: records equal to the Python reader's; predict {out['python_wall_s'] / out['native_wall_s']:.3f}x "
+        f"faster end to end, reading {out['python_read_s'] / out['native_read_s']:.1f}x faster, on {smi}")
+
+    sim = simulate_genome(np.random.default_rng(SEED + 131), num_genes=SIM_GENES)
+    sim_fa, sim_npz, sim_gff = f"{tmp}/sim.fa", f"{tmp}/sim.npz", f"{tmp}/sim.gff3"
+    with open(sim_fa, "w") as fh:
+        fh.write(">sim\n" + "".join(sim.seq[i : i + 80] + "\n" for i in range(0, sim.length, 80)))
+    np.savez(sim_npz, sim=sim.class_probs, sim__rc=sim.class_probs_rc)
+    if cli.main(["predict", "-i", sim_fa, "-o", sim_gff, "--class-probs", sim_npz, "--window", str(L),
+                 "--batch", str(B), "--parallel-factor", str(PF), "--both-strands"]) != 0:
+        raise AssertionError("predict on the simulated contig returned non-zero")
+    scores = evaluate_annotation(read_gff3(sim_gff), {"sim": sim.genes})
+    f1 = {level: round(scores[level]["f1"], 4) for level in ("nucleotide", "exon", "gene")}
+    log(f"phase 13 simulate_genome contig ({sim.length} bp, {len(sim.genes)} planted genes on both strands) "
+        f"through predict (the initial 15-class layer): F1 {f1} (nucleotide limit 0.85)")
+    if f1["nucleotide"] < 0.85:
+        raise AssertionError("predict's annotation of the simulated contig is below its limit")
+    return out
+
+
+def device_and_build(_cuda_build):
+    """Phases 1 and 2: the card and its peaks, then every kernel built
+    (one nvcc per source, all started together). Returns (kind, smi,
+    peak_bytes, peak_flops)."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    kind = torch.cuda.get_device_name(0)
+    part, (peak_bytes, peak_flops) = peaks_for(kind)
+    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("float32 matmuls must run in full precision (no TF32)")
+    log(f"phase 1 device: {kind} ({smi}); torch {torch.__version__} CUDA {torch.version.cuda}; "
+        f"peaks ({part} data sheet) {peak_bytes / 1e12:.2f} TB/s, {peak_flops / 1e12:.0f} TFLOP/s fp32; "
+        f"float32 matmul precision highest, TF32 off")
+
+    t0 = time.perf_counter()
+    built = _cuda_build.build_all()
+    for name in built:
+        _cuda_build.load(name)
+    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
+        f"({', '.join(path.name for path in built.values())})")
+    return kind, smi, peak_bytes, peak_flops
+
+
+def develop_phase13():
+    """Phases 1, 2, 7 and 13 alone, for development on the card:
+    ``python3 -c "import chip_smoke; chip_smoke.develop_phase13()"``. It
+    checks no kernel against its plain version and prints neither the
+    kernel record nor the result line: only ``main`` does."""
+    from hmm_layer_torch import HMMLayer, models
+    from hmm_layer_torch.ops import _cuda_build, cuda_viterbi, recursion
+
+    _, smi, _, _ = device_and_build(_cuda_build)
+    make = lambda seed, b, length: make_inputs(seed, b, length, torch.device("cuda"))  # noqa: E731
+    with tempfile.TemporaryDirectory() as tmp:
+        fasta, npz, _ = predict_phase(build_layer(HMMLayer, models), recursion, cuda_viterbi, tmp)
+        native_reader_phase(fasta, npz, tmp, smi)
+    routes_phase(HMMLayer, models, make, smi)
+    log("phase 13 development run passed (phases 1, 2, 7 and 13 only; not a smoke result)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device",
@@ -2788,27 +3485,8 @@ def main() -> int:
         print(f"chip_smoke: run from the repository root ({exc})", file=sys.stderr)
         return 1
 
-    # 1. Device
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
-    log(smi)
-    kind = torch.cuda.get_device_name(0)
-    part, (peak_bytes, peak_flops) = peaks_for(kind)
-    if torch.get_float32_matmul_precision() != "highest" or torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("float32 matmuls must run in full precision (no TF32)")
-    log(f"phase 1 device: {kind} ({smi}); torch {torch.__version__} CUDA {torch.version.cuda}; "
-        f"peaks ({part} data sheet) {peak_bytes / 1e12:.2f} TB/s, {peak_flops / 1e12:.0f} TFLOP/s fp32; "
-        f"float32 matmul precision highest, TF32 off")
-
-    # 2. Build: one nvcc per source, all started together
-    t0 = time.perf_counter()
-    built = _cuda_build.build_all()
-    for name in built:
-        _cuda_build.load(name)
-    log(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(path.name for path in built.values())})")
+    # 1. Device; 2. Build
+    kind, smi, peak_bytes, peak_flops = device_and_build(_cuda_build)
 
     device = torch.device("cuda")
     make = lambda seed, b, length: make_inputs(seed, b, length, device)  # noqa: E731
@@ -2838,27 +3516,28 @@ def main() -> int:
         f"{max(decode_ms):.3f}], {B / (med / 1e3):.1f} seqs/sec (b={B}, L={L}, P={P}) on {smi}")
     decode_stage_phase(layer, X, recursion, cuda_viterbi)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        # 7. Predict
-        fasta, npz, gff = predict_phase(layer, recursion, cuda_viterbi, tmp)
+    tmpdir = tempfile.TemporaryDirectory()  # phase 7's files, read again in phases 8 and 13
+    tmp = tmpdir.name
+    # 7. Predict
+    fasta, npz, gff = predict_phase(layer, recursion, cuda_viterbi, tmp)
 
-        # 8. Training
-        t0 = time.perf_counter()
-        train_launches, Xt, labels, mask = training_phase(
-            layer, make, recursion, cuda_forward, cuda_adjoint, smi)
-        gradient_checks(layer, Xt, labels, mask, make, recursion)
-        backward_stage_split(layer, Xt, labels, mask, recursion)
-        trainer_step = torch.optim.Adam([p for p in layer.parameters() if p.requires_grad], lr=1e-2)
+    # 8. Training
+    t0 = time.perf_counter()
+    train_launches, Xt, labels, mask = training_phase(
+        layer, make, recursion, cuda_forward, cuda_adjoint, smi)
+    gradient_checks(layer, Xt, labels, mask, make, recursion)
+    backward_stage_split(layer, Xt, labels, mask, recursion)
+    trainer_step = torch.optim.Adam([p for p in layer.parameters() if p.requires_grad], lr=1e-2)
 
-        def ce_step():
-            trainer_step.zero_grad()
-            layer.posterior_cross_entropy(Xt, labels, label_mask=mask).backward()
-            trainer_step.step()
+    def ce_step():
+        trainer_step.zero_grad()
+        layer.posterior_cross_entropy(Xt, labels, label_mask=mask).backward()
+        trainer_step.step()
 
-        profile_request("phase 8", ce_step, "K1-K5",
-                        ("outputs_kernel", "chunk_summaries_rows_kernel", "affine_"), inference=False)
-        train_cli_phase(fasta, npz, gff, cuda_forward, cuda_adjoint, tmp)
-        log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
+    profile_request("phase 8", ce_step, "K1-K5",
+                    ("outputs_kernel", "chunk_summaries_rows_kernel", "affine_"), inference=False)
+    train_cli_phase(fasta, npz, gff, cuda_forward, cuda_adjoint, tmp)
+    log(f"phase 8 took {time.perf_counter() - t0:.1f} s")
 
     # 9. Multi-copy gene prediction: k = 2 (q = 29) serving; k = 4 and 9
     # for the kernels' other shapes
@@ -2897,6 +3576,17 @@ def main() -> int:
 
     # 12. The profile-HMM family and align
     profile_phase(HMMLayer, models, recursion, cuda_viterbi, counters, smi)
+
+    # 13. The host side and the dense multi-device routes
+    t0 = time.perf_counter()
+    del layer, mc
+    torch.cuda.empty_cache()
+    times = native_reader_phase(fasta, npz, tmp, smi)
+    tmpdir.cleanup()
+    times.update(routes_phase(HMMLayer, models, make, smi))
+    log(f"phase 13 summary on {smi}: " + ", ".join(
+        f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in times.items()))
+    log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
 
     launches.update({k: v for k, v in decode_launches.items() if k in DECODE_Q16})
     launches.update({k: train_launches[k] for k in cuda_adjoint.LAUNCHES})

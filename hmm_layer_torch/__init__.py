@@ -43,7 +43,7 @@ _EXPORTS = {
     "rnn_scan": ".ops.scan",
     "bidirectional_scan": ".ops.scan",
 }
-_MODULES = ("models", "ops", "streaming", "utils")
+_MODULES = ("data", "models", "native", "ops", "parallel", "streaming", "utils")
 
 __all__ = sorted(_EXPORTS) + list(_MODULES)
 

@@ -14,14 +14,20 @@ of ``hmm_layer_tpu/data.py``, pure Python).
 * :func:`pad_batches` — ragged protein sequences batched with terminal
   padding.
 
-Everything returns NumPy. The JAX package's native C++ FASTA scanner is
-not ported yet (ROADMAP Queue 1 item 12): this module always takes the
-Python path, which yields the same records.
+Plain files are read by the native C++ scanner (:mod:`hmm_layer_torch.native`:
+one mmap pass for the record boundaries, whitespace-stripped extraction and
+the fused byte-to-one-hot encoding at memcpy speed); ``.gz`` files take the
+Python parser, since gzip cannot be mmapped, and ``HMM_NATIVE_IO=0`` opts
+out of the scanner. Both paths yield the same records and encodings. A
+failed native build raises: there is no silent fallback.
+
+Everything returns NumPy.
 """
 
 from __future__ import annotations
 
 import gzip
+import os
 from typing import Iterable, Iterator
 
 import numpy as np
@@ -38,6 +44,21 @@ __all__ = [
     "PROTEIN_ALPHABET",
 ]
 
+# HMM_NATIVE_IO=0 opts out of the C++ scanner (the JAX package's switch).
+_use_native_io = os.environ.get("HMM_NATIVE_IO", "1") != "0"
+
+
+def _native_index(path):
+    """A native :class:`~hmm_layer_torch.native.FastaIndex` for ``path``,
+    or None for gzip input and where ``HMM_NATIVE_IO=0``. A failed build
+    or load raises."""
+    if not _use_native_io or str(path).endswith(".gz"):
+        return None
+    from . import native
+
+    return native.FastaIndex(path)
+
+
 # learnMSA's amino-acid order: the 20 canonical residues, then B Z X U O.
 PROTEIN_ALPHABET = "ARNDCQEGHILKMFPSTWYVBZXUO"
 
@@ -52,7 +73,19 @@ _IUPAC = {
 def read_fasta(path) -> Iterator[tuple[str, str]]:
     """Yield ``(name, sequence)`` pairs; ``.gz`` files are read through
     gzip. The name is the header's first word; whitespace inside sequence
-    lines is dropped."""
+    lines is dropped. Plain files go through the native scanner."""
+    idx = _native_index(path)
+    if idx is not None:
+        return _read_fasta_native(idx)
+    return _read_fasta_py(path)
+
+
+def _read_fasta_native(idx) -> Iterator[tuple[str, str]]:
+    with idx:
+        yield from idx
+
+
+def _read_fasta_py(path) -> Iterator[tuple[str, str]]:
     opener = gzip.open if str(path).endswith(".gz") else open
     name, parts = None, []
     with opener(path, "rt") as fh:
@@ -167,14 +200,31 @@ def read_fasta_encoded(
     """Yield ``(name, encoded)`` pairs from a FASTA file. ``kind`` is
     ``"dna"`` (``(L, 5)`` ACGTN channels) or ``"protein"`` (``(L+1,
     len(alphabet)+1)`` with the terminal row appended when
-    ``add_terminal``)."""
+    ``add_terminal``). Plain files take the native scanner's fused
+    encoding (:meth:`~hmm_layer_torch.native.FastaIndex.onehot`), equal to
+    the encoders' output."""
     if kind not in ("dna", "protein"):
         raise ValueError(f"kind must be 'dna' or 'protein', got {kind!r}")
-    for name, seq in read_fasta(path):
-        if kind == "dna":
-            yield name, encode_dna(seq)
-        else:
-            yield name, encode_protein(seq, alphabet, add_terminal)
+    idx = _native_index(path)
+    if idx is None:
+        for name, seq in _read_fasta_py(path):
+            if kind == "dna":
+                yield name, encode_dna(seq)
+            else:
+                yield name, encode_protein(seq, alphabet, add_terminal)
+        return
+    if kind == "dna":
+        lut = _DNA_LUT
+    else:
+        lut = _PROTEIN_LUT if alphabet == PROTEIN_ALPHABET else _protein_lut(alphabet)
+    with idx:
+        for i, name in enumerate(idx.names):
+            out = idx.onehot(i, lut)  # fused: file bytes to channels, no string
+            if kind == "protein" and add_terminal:
+                term = np.zeros((1, out.shape[-1]), out.dtype)
+                term[0, -1] = 1.0
+                out = np.concatenate([out, term], axis=0)
+            yield name, out
 
 
 def window_batches(

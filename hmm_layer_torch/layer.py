@@ -33,8 +33,17 @@ through the structured O(L) Plan7 matvec (:mod:`.ops.plan7`).
 :meth:`HMMLayer.resize` re-targets a profile layer to new model lengths,
 carrying the trained parameters over (learnMSA's length adaptation).
 
-Not ported yet: the ``mesh``/``partition`` routes (ROADMAP Queue 1 item
-13), with the sparse engine's edge-sharded ``state`` route.
+Multi-device routes: with ``mesh`` (a :class:`hmm_layer_torch.parallel.Mesh`
+over the ranks of ``torch.distributed``) and ``partition`` the layer
+sends :meth:`~HMMLayer.loss`, :meth:`~HMMLayer.log_likelihood`,
+:meth:`~HMMLayer.state_posterior_log_probs` (so the cross-entropy) and
+:meth:`~HMMLayer.viterbi` through :mod:`hmm_layer_torch.parallel.sharding`.
+Every rank is given the whole batch and returns the whole result; under
+``{"batch": axis}`` each rank runs the layer's own engine (on CUDA its
+kernels) on its rows. The parameters are replicated and their gradients
+are those of the whole batch on every rank. The sparse engine takes the
+``batch`` route; its edge-sharded ``state`` route is ROADMAP Queue 1 item
+13 (rest).
 """
 
 from __future__ import annotations
@@ -75,10 +84,22 @@ class HMMLayer(nn.Module):
         parallel_factor: chunked-parallel factor along the sequence axis
             (must divide the sequence length), or ``"auto"`` for
             :func:`~hmm_layer_torch.ops.recursion.recommended_parallel_factor`
-            of each input's shape.
+            of each input's shape. Under sequence sharding it is the
+            rank-local factor (applied to ``L / mesh.shape[seq_axis]``).
         device: where the layer and its computation live; ``None`` means
             the GPU and raises when there is none.
+        mesh: optional :class:`~hmm_layer_torch.parallel.Mesh`; with
+            ``partition`` it routes the layer through the distributed
+            engine.
+        partition: logical axes to mesh axis names, e.g. ``{"batch":
+            "data"}`` (data parallel), ``{"batch": "data", "seq": "seq"}``
+            (``L`` divisible by the seq-axis size) or ``{"batch": "data",
+            "state": "state"}`` (``q`` is padded to a multiple of the
+            state-axis size). ``"seq"`` and ``"state"`` exclude each
+            other. Sparse-forward transitions take ``"batch"`` only.
     """
+
+    _LOGICAL_AXES = ("batch", "seq", "state")
 
     def __init__(
         self,
@@ -89,6 +110,8 @@ class HMMLayer(nn.Module):
         sequence_weights=None,
         parallel_factor: int | str = 1,
         device=None,
+        mesh=None,
+        partition: dict | None = None,
     ):
         super().__init__()
         if parallel_factor != "auto" and not (
@@ -110,17 +133,149 @@ class HMMLayer(nn.Module):
             persistent=False,
         )
         self.parallel_factor = parallel_factor
+        self.mesh = mesh
+        self.partition = dict(partition) if partition else {}
+        self._check_partition()
         self.to(_resolve_device(device))
+
+    def _check_partition(self):
+        if self.partition and self.mesh is None:
+            raise ValueError("`partition` given without a `mesh`")
+        unknown = set(self.partition) - set(self._LOGICAL_AXES)
+        if unknown:
+            raise ValueError(f"unknown partition axes {sorted(unknown)}; valid: {self._LOGICAL_AXES}")
+        if "seq" in self.partition and "state" in self.partition:
+            raise NotImplementedError(
+                "combined sequence+state sharding is deliberately unsupported: "
+                "seq sharding's q*q chunk summaries cost O(q^3) and lose above "
+                "q~16, exactly where state sharding starts to pay. Use state "
+                "(+batch) sharding for big-q long-L models; either axis combines "
+                "with 'batch'."
+            )
+        if self.mesh is not None:
+            for logical, name in self.partition.items():
+                if name not in self.mesh.shape:
+                    raise ValueError(
+                        f"partition {logical!r} -> {name!r} is not an axis of the "
+                        f"mesh (axes: {dict(self.mesh.shape)})"
+                    )
 
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
     def _pf(self, E, for_viterbi: bool = False) -> int:
+        m, _, L, q = E.shape
+        if self._route() == "seq":
+            L = L // self.mesh.shape[self.partition["seq"]]  # rank-local under seq sharding
         if self.parallel_factor == "auto":
-            m, _, L, q = E.shape
             return recursion.recommended_parallel_factor(L, q, m, for_viterbi)
         return self.parallel_factor
+
+    # -- distributed routing ----------------------------------------------------
+
+    def _route(self) -> str:
+        if self.mesh is None:
+            return "dense"
+        if "state" in self.partition:
+            return "state"
+        if "seq" in self.partition:
+            return "seq"
+        if "batch" in self.partition:
+            return "data"
+        return "dense"
+
+    def _require_dense(self, what: str):
+        if self._route() in ("seq", "state"):
+            raise NotImplementedError(
+                f"{what} has no sequence/state-sharded implementation; construct "
+                "a dense HMMLayer (mesh=None or batch-only partition) for it, or "
+                "call the functions in hmm_layer_torch.parallel.sharding directly"
+            )
+
+    def _on_rows(self, fn, replicated, E, *extra):
+        """``fn(*replicated, E_rows, *extra_rows)`` on this rank's rows of the
+        batch (dim 1 of E and of each extra: labels and masks), through
+        :func:`~hmm_layer_torch.parallel.sharding.data_parallel_fn`: the
+        ``replicated`` tensors shared, tensor results gathered along dim 1,
+        0-d results averaged over the ranks by their rows."""
+        from .parallel.sharding import data_parallel_fn
+
+        run = data_parallel_fn(lambda shared, rows: fn(*shared, *rows), self.mesh, self.partition["batch"])
+        return run(tuple(replicated), (E, *extra))
+
+    def _pad_state(self, init, A, E):
+        """Pad q up to a multiple of the state-axis size. Pad states have
+        zero init, all-zero A rows/columns and zero emissions: the EPS
+        clamps give them per-step mass ~1e-32 (invisible in float32 against
+        real normalisers) and max-plus scores ~-74 a step below any real
+        path, so they never change a result. Returns the original q too."""
+        n = self.mesh.shape[self.partition["state"]]
+        q = E.shape[-1]
+        dp = -(-q // n) * n - q
+        if dp == 0:
+            return init, A, E, q
+        pad = torch.nn.functional.pad
+        return pad(init, (0, dp)), pad(A, (0, dp, 0, dp)), pad(E, (0, dp)), q
+
+    def _axes(self, route):
+        return {
+            "mesh": self.mesh,
+            f"{route}_axis": self.partition[route],
+            "data_axis": self.partition.get("batch"),
+        }
+
+    def _dispatch_log_likelihood(self, init, A, E):
+        route = self._route()
+        if route == "dense":
+            return recursion.log_likelihood(init, A, E, self._pf(E))
+        if route == "data":
+            return self._on_rows(lambda i, a, e: recursion.log_likelihood(i, a, e, self._pf(e)), (init, A), E)
+        from .parallel import sharding
+
+        if route == "state":
+            pf = self._pf(E)
+            init, A, E, _ = self._pad_state(init, A, E)
+            return sharding.state_sharded_log_likelihood(init, A, E, **self._axes("state"), parallel_factor=pf)
+        return sharding.seq_sharded_log_likelihood(init, A, E, **self._axes("seq"), local_parallel_factor=self._pf(E))
+
+    def _dispatch_posterior(self, init, A, E, no_loglik):
+        route = self._route()
+        if route == "dense":
+            return recursion.posterior(init, A, E, self._pf(E), no_loglik=no_loglik)
+        if route == "data":
+            return self._on_rows(
+                lambda i, a, e: recursion.posterior(i, a, e, self._pf(e), no_loglik=no_loglik), (init, A), E
+            )
+        from .parallel import sharding
+
+        if route == "state":
+            pf = self._pf(E)
+            init, A, E, q = self._pad_state(init, A, E)
+            lg, ll = sharding.state_sharded_posterior(
+                init, A, E, **self._axes("state"), no_loglik=no_loglik, parallel_factor=pf
+            )
+            return lg[..., :q], ll
+        return sharding.seq_sharded_posterior(
+            init, A, E, **self._axes("seq"), local_parallel_factor=self._pf(E), no_loglik=no_loglik
+        )
+
+    def _dispatch_viterbi(self, init, A, E):
+        route = self._route()
+        if route == "dense":
+            return recursion.viterbi(init, A, E, self._pf(E, for_viterbi=True))
+        if route == "data":
+            return self._on_rows(
+                lambda i, a, e: recursion.viterbi(i, a, e, self._pf(e, for_viterbi=True)), (init, A), E
+            )
+        from .parallel import sharding
+
+        if route == "state":
+            init, A, E, _ = self._pad_state(init, A, E)
+            return sharding.state_sharded_viterbi(init, A, E, **self._axes("state"))
+        return sharding.seq_sharded_viterbi(
+            init, A, E, **self._axes("seq"), local_parallel_factor=self._pf(E, for_viterbi=True)
+        )
 
     def _tensor(self, x):
         if x is None:
@@ -144,9 +299,33 @@ class HMMLayer(nn.Module):
     # -- inference -------------------------------------------------------------
 
     def _sparse_route(self) -> bool:
-        """Whether the transitions ask for the sparse edge-list engine (the
-        port has no mesh, so no other route exists)."""
-        return bool(getattr(self.transitions, "sparse_forward", False))
+        """Whether the transitions ask for the sparse edge-list engine
+        (single device, or data parallel under ``{"batch": ...}``)."""
+        if not getattr(self.transitions, "sparse_forward", False):
+            return False
+        route = self._route()
+        if route == "seq":
+            raise NotImplementedError(
+                "sparse_forward does not compose with sequence sharding: the "
+                "cross-device boundary combine carries dense (q, q) chunk "
+                "summaries — O(q^2) memory/work per chunk, exactly what the "
+                "sparse engine exists to avoid at large q. Use state (+batch) "
+                "sharding for big-q models (partition={'state': ..., 'batch': ...})."
+            )
+        if route == "state":
+            raise NotImplementedError(
+                "the sparse engine's edge-sharded state route "
+                "(parallel/sparse_sharding.py) is not ported yet: ROADMAP Queue 1 "
+                "item 13 (rest). Use partition={'batch': ...} or the dense engine."
+            )
+        return True
+
+    def _sparse_call(self, fn, init, indices, probs, E, *extra):
+        """A sparse engine function on the whole batch, or on this rank's
+        rows under the data route."""
+        if self._route() == "data":
+            return self._on_rows(lambda i, p, e, *x: fn(i, indices, p, e, *x), (init, probs), E, *extra)
+        return fn(init, indices, probs, E, *extra)
 
     def _sparse_ingredients(self, inputs, end_hints, training):
         """(init (m, q), host edge indices, edge probs (m, n), E)."""
@@ -160,12 +339,14 @@ class HMMLayer(nn.Module):
 
     def forward_recursion(self, inputs, end_hints=None, return_prior=False, training=False):
         """(log_forward (m, b, L, q), loglik (m, b)[, prior, aux_loss])."""
+        self._require_dense("forward_recursion")
         init, A, E = self._ingredients(inputs, end_hints, training)
         la, ll = recursion.forward(init, A, E, self._pf(E))
         return (la, ll, *self._prior_and_aux()) if return_prior else (la, ll)
 
     def backward_recursion(self, inputs, end_hints=None, return_prior=False, training=False):
         """log_backward (m, b, L, q)[, prior, aux_loss]."""
+        self._require_dense("backward_recursion")
         init, A, E = self._ingredients(inputs, end_hints, training)
         lb = recursion.backward(init, A, E, self._pf(E))
         return (lb, *self._prior_and_aux()) if return_prior else lb
@@ -177,12 +358,13 @@ class HMMLayer(nn.Module):
         skips the loglik normalisation. With ``return_prior`` the unscaled
         prior (m,) and the auxiliary loss follow, as in the JAX layer."""
         if self._sparse_route():
-            lg, _ = sparse_ops.sparse_posterior(
-                *self._sparse_ingredients(inputs, end_hints, training), no_loglik=no_loglik
+            lg, _ = self._sparse_call(
+                lambda *a: sparse_ops.sparse_posterior(*a, no_loglik=no_loglik),
+                *self._sparse_ingredients(inputs, end_hints, training),
             )
         else:
             init, A, E = self._ingredients(inputs, end_hints, training)
-            lg, _ = recursion.posterior(init, A, E, self._pf(E), no_loglik=no_loglik)
+            lg, _ = self._dispatch_posterior(init, A, E, no_loglik)
         return (lg, *self._prior_and_aux()) if return_prior else lg
 
     def log_likelihood(self, inputs, end_hints=None, training=False):
@@ -193,16 +375,18 @@ class HMMLayer(nn.Module):
         parallel factor is 1, and the dense engine otherwise, as in the JAX
         layer; the implicit A is then never built.
         """
-        if getattr(self.transitions, "structured_forward", False):
+        if getattr(self.transitions, "structured_forward", False) and self._route() == "dense":
             E = self.emission_probs(inputs, end_hints, training)
             P = self._pf(E)
             if P == 1:
                 return plan7.structured_log_likelihood(self.transitions, E)
             return recursion.log_likelihood(*self.transitions.matrices(), E, P)
         if self._sparse_route():
-            return sparse_ops.sparse_log_likelihood(*self._sparse_ingredients(inputs, end_hints, training))
+            return self._sparse_call(
+                sparse_ops.sparse_log_likelihood, *self._sparse_ingredients(inputs, end_hints, training)
+            )
         init, A, E = self._ingredients(inputs, end_hints, training)
-        return recursion.log_likelihood(init, A, E, self._pf(E))
+        return self._dispatch_log_likelihood(init, A, E)
 
     def viterbi(self, inputs, end_hints=None):
         """Most likely state paths; (m, b, L) int32.
@@ -211,9 +395,9 @@ class HMMLayer(nn.Module):
         :meth:`state_posterior_log_probs` (hint-constrained MAP decoding).
         """
         if self._sparse_route():
-            return sparse_ops.sparse_viterbi(*self._sparse_ingredients(inputs, end_hints, False))
+            return self._sparse_call(sparse_ops.sparse_viterbi, *self._sparse_ingredients(inputs, end_hints, False))
         init, A, E = self._ingredients(inputs, end_hints, False)
-        return recursion.viterbi(init, A, E, self._pf(E, for_viterbi=True))
+        return self._dispatch_viterbi(init, A, E)
 
     @torch.no_grad()
     def sample_paths(self, inputs, num_samples: int = 1, end_hints=None, generator=None):
@@ -225,11 +409,13 @@ class HMMLayer(nn.Module):
         state ``init > 0``. Sparse-forward transitions take the edge-list
         FFBS (:func:`~hmm_layer_torch.ops.sparse.sparse_sample_paths`,
         sequential; ``parallel_factor`` is ignored), whose samples stay on
-        the edge support.
+        the edge support. Under the data route every rank samples the
+        whole batch.
         """
         if self._sparse_route():
             init, indices, probs, E = self._sparse_ingredients(inputs, end_hints, False)
             return sparse_ops.sparse_sample_paths(init, indices, probs, E, generator, num_samples)
+        self._require_dense("sample_paths")
         init, A, E = self._ingredients(inputs, end_hints, False)
         return sampling.sample_posterior(init, A, E, generator, num_samples, self._pf(E))
 
@@ -264,6 +450,8 @@ class HMMLayer(nn.Module):
             sequence_weights=self.sequence_weights,
             parallel_factor=self.parallel_factor,
             device=self.device,
+            mesh=self.mesh,
+            partition=self.partition or None,
         )
 
     # -- priors / weights / losses ------------------------------------------------
@@ -356,15 +544,37 @@ class HMMLayer(nn.Module):
           scalar loss: mean CE − scaled prior (if ``use_prior``) + aux.
         """
         if self._sparse_route():
-            init, indices, probs, E = self._sparse_ingredients(inputs, end_hints, training)
-            loss = sparse_ops.sparse_posterior_cross_entropy(
-                init, indices, probs, E, labels, label_mask=label_mask, no_loglik=no_loglik
-            )
+            loss = self._sparse_cross_entropy(inputs, labels, label_mask, end_hints, training, no_loglik)
         else:
             loss = self._dense_cross_entropy(inputs, labels, label_mask, end_hints, training, no_loglik)
         if self.use_prior:
             loss = loss - self.compute_prior().mean()
         return loss + self.aux_loss()
+
+    def _sparse_cross_entropy(self, inputs, labels, label_mask, end_hints, training, no_loglik):
+        init, indices, probs, E = self._sparse_ingredients(inputs, end_hints, training)
+        if self._route() != "data":
+            return sparse_ops.sparse_posterior_cross_entropy(
+                init, indices, probs, E, labels, label_mask=label_mask, no_loglik=no_loglik
+            )
+        # Data route: each rank's fused CE is a mean over its rows; its sum
+        # (mean times max(mask sum, 1), exact for any mask sum) is summed
+        # over the ranks and divided by the whole mask's sum.
+        labels = torch.as_tensor(labels, device=E.device)
+        if labels.dim() == 2:
+            labels = labels[None].expand(E.shape[:3])
+        mask = torch.ones(labels.shape, dtype=E.dtype, device=E.device) if label_mask is None else (
+            torch.as_tensor(label_mask, dtype=E.dtype, device=E.device).expand(labels.shape)
+        )
+
+        def local_sum(i, p, e, lab, msk):
+            mean = sparse_ops.sparse_posterior_cross_entropy(
+                i, indices, p, e, lab, label_mask=msk, no_loglik=no_loglik
+            )
+            return mean * msk.sum().clamp_min(1.0) * (E.shape[1] / e.shape[1])
+
+        total = self._on_rows(local_sum, (init, probs), E, labels, mask)  # row-weighted mean of b/b_k * sum
+        return total / mask.sum().clamp_min(1.0)
 
     def _dense_cross_entropy(self, inputs, labels, label_mask, end_hints, training, no_loglik):
         lg = self.state_posterior_log_probs(
@@ -411,10 +621,11 @@ class HMMLayer(nn.Module):
         }
 
     @classmethod
-    def from_config(cls, config: dict, device=None):
+    def from_config(cls, config: dict, device=None, mesh=None, partition=None):
         """The layer :meth:`get_config` describes, its components built by
         class name from :mod:`hmm_layer_torch.models`, on ``device`` (the
-        GPU unless told otherwise)."""
+        GPU unless told otherwise); ``mesh``/``partition`` are runtime
+        objects and are supplied here, as in the JAX layer."""
         from . import models
 
         def build(spec):
@@ -434,4 +645,6 @@ class HMMLayer(nn.Module):
             sequence_weights=config.get("sequence_weights"),
             parallel_factor=config.get("parallel_factor", 1),
             device=device,
+            mesh=mesh,
+            partition=partition,
         )

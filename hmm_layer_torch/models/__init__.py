@@ -3,7 +3,8 @@ model, or ``k`` copies sharing the intergenic state) and emissions (with
 the MVN embedding densities of :mod:`.mvn`), their initial class kernel,
 and the annotation (GFF3) of decoded paths; the profile-HMM family
 (Plan7 transitions with silent-state elimination, amino-acid emissions,
-their Dirichlet priors, length adaptation) and the MSA of decoded paths."""
+their Dirichlet priors, length adaptation) and the MSA of decoded paths;
+and the simulators of planted ground truth (:mod:`.simulate`)."""
 
 from .annotation import (
     GeneFeature,
@@ -46,6 +47,12 @@ from .profile_transitions import (
     get_num_states,
     get_num_states_implicit,
 )
+from .simulate import (
+    SimulatedGenome,
+    sample_hmm_sequences,
+    simulate_embeddings,
+    simulate_genome,
+)
 from .transition_utils import (
     dense_from_edge_probs,
     gather_edge_probs,
@@ -68,6 +75,7 @@ __all__ = [
     "ProfileTransitions",
     "SimpleGenePredEmissions",
     "SimpleGenePredTransitions",
+    "SimulatedGenome",
     "adapt_profile_layer",
     "apply_end_hints",
     "assert_codons",
@@ -92,6 +100,9 @@ __all__ = [
     "paths_to_msa",
     "propose_keep",
     "read_gff3",
+    "sample_hmm_sequences",
+    "simulate_embeddings",
+    "simulate_genome",
     "sparse_edge_softmax",
     "write_gff3",
     "write_msa",

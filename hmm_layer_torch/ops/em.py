@@ -67,9 +67,14 @@ def expected_statistics(init, A, E, parallel_factor: int = 1):
     return gamma, A * _xi_sum(F, U), ll
 
 
-def _m_step_init(gamma, init, pseudocount):
-    counts = (gamma[:, :, 0].sum(1) + pseudocount) * (init > 0)
+def _m_step_init_from_counts(init_counts, init, pseudocount):
+    """Closed-form init update from (m, q) summed t = 0 posterior counts."""
+    counts = (init_counts + pseudocount) * (init > 0)
     return counts / torch.clamp_min(counts.sum(-1, keepdim=True), EPS)
+
+
+def _m_step_init(gamma, init, pseudocount):
+    return _m_step_init_from_counts(gamma[:, :, 0].sum(1), init, pseudocount)
 
 
 def _m_step_A(xi_sum, A, pseudocount):
@@ -104,7 +109,16 @@ def categorical_emission_m_step(gamma, x, pseudocount: float = 0.0):
     Returns:
         new_B: (m, q, s) row-stochastic emission table.
     """
-    counts = torch.einsum("mblq,mbls->mqs", gamma, x) + pseudocount
+    return _m_step_B_from_counts(_emission_counts(gamma, x), pseudocount)
+
+
+def _emission_counts(gamma, x):
+    """(m, q, s) expected symbol counts per state, summed over batch and time."""
+    return torch.einsum("mblq,mbls->mqs", gamma, x)
+
+
+def _m_step_B_from_counts(counts, pseudocount):
+    counts = counts + pseudocount
     return counts / torch.clamp_min(counts.sum(-1, keepdim=True), EPS)
 
 

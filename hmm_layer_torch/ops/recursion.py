@@ -158,19 +158,22 @@ def _split_chunks(E, parallel_factor):
     return E.reshape(m, b * parallel_factor, c, q), c
 
 
-def _chunk_summaries(A, E, parallel_factor):
+def _chunk_summaries(A, E, parallel_factor, first_chunk_identity=True):
     """Summary pass: per-chunk transfer operators, (P, m, b, q, q).
 
     The left border is the state at the chunk's first position for chunk 0
     (identity start) and the state at the last position of the previous
-    chunk otherwise (transition-applied start).
+    chunk otherwise (transition-applied start). ``first_chunk_identity=False``
+    gives chunk 0 the transition-applied start too: sequence-sharded callers
+    pass ``rank index == 0`` so that only the globally first block starts
+    from the identity.
     """
     m, b, L, q = E.shape
     P = parallel_factor
     Ec, c = _split_chunks(E, P)
     Et = Ec.movedim(2, 0)  # (c, m, bP, q)
     eye = torch.eye(q, dtype=E.dtype, device=E.device)
-    is_first = (torch.arange(P, device=E.device) == 0).to(E.dtype)
+    is_first = ((torch.arange(P, device=E.device) == 0) & bool(first_chunk_identity)).to(E.dtype)
     is_first = is_first[None, None, :, None, None]  # (1, 1, P, 1, 1)
     R0 = is_first * eye + (1.0 - is_first) * A[:, None, None]  # (m, 1, P, q, q)
     R0 = R0.expand(m, b, P, q, q).reshape(m, b * P, q, q)
@@ -248,25 +251,30 @@ def _boundary_values(init, C):
     return T, S, torch.logsumexp(T[-1], dim=-1)
 
 
-def _forward_boundary_starts(init, A, T):
+def _forward_boundary_starts(init, A, T, first_start_log=None):
     """Per-chunk pre-emission start vectors in log space, (m, bP, q):
-    ``log(init)`` for chunk 0, ``T[p-1]`` propagated through ``A`` after."""
+    ``log(init)`` for chunk 0 (or ``first_start_log`` (m, b, q) —
+    sequence-sharded callers pass the boundary value entering their block
+    propagated through ``A``), ``T[p-1]`` propagated through ``A`` after."""
     P, m, b, q = T.shape
     r_later = logmatmul(
         T[:-1][..., None, :], torch.log(_clamped(A))[None, :, None]
     )[..., 0, :]
-    first = torch.log(_clamped(init))[:, None, :].expand(m, b, q)
-    R0_log = torch.cat([first[None], r_later], dim=0)  # (P, m, b, q)
+    if first_start_log is None:
+        first_start_log = torch.log(_clamped(init))[:, None, :].expand(m, b, q)
+    R0_log = torch.cat([first_start_log[None], r_later], dim=0)  # (P, m, b, q)
     return R0_log.movedim(0, 2).reshape(m, b * P, q)
 
 
-def _forward_outputs(init, A, E, T, parallel_factor):
-    """Output pass: exact log-forward at every position from boundary values."""
+def _forward_outputs(init, A, E, T, parallel_factor, first_start_log=None):
+    """Output pass: exact log-forward at every position from boundary values
+    (chunk 0 from ``first_start_log`` when given, see
+    :func:`_forward_boundary_starts`)."""
     m, b, L, q = E.shape
     Ec, c = _split_chunks(E, parallel_factor)
     Et = Ec.movedim(2, 0)  # (c, m, bP, q)
 
-    R0_log = _forward_boundary_starts(init, A, T)
+    R0_log = _forward_boundary_starts(init, A, T, first_start_log)
     ll = torch.logsumexp(R0_log, dim=-1)  # (m, bP)
     r0 = torch.exp(R0_log - ll[..., None])
 
@@ -932,20 +940,23 @@ def _viterbi_seq(init, A, E):
     return torch.stack(path[::-1], dim=-1).to(torch.int32)
 
 
-def _viterbi_chunk_summaries(log_A, Et, P):
+def _viterbi_chunk_summaries(log_A, Et, P, first_chunk_identity=True):
     """Plain max-plus chunk transfer operators in the TRANSPOSED convention
     ``C_T[p, m, b, j, i] = C_p[i, j]``, as (P, m, b, q, q).
 
     ``Et`` (c, m, bP, q) log emissions. The first step is the identity
     (0 / ``_NEG``) for chunk 0 of a sequence and log A's rows otherwise; no
     rescaling: each step is exact up to one rounded add per term.
+    ``first_chunk_identity=False`` gives chunk 0 log A's rows too
+    (sequence-sharded callers: only the globally first block starts from
+    the identity).
     """
     c, m, R, q = Et.shape
     b = R // P
     log_A_T = log_A.transpose(-1, -2)
     eye = torch.full((q, q), _NEG, dtype=Et.dtype, device=Et.device)
     eye.fill_diagonal_(0.0)
-    is_first = (torch.arange(R, device=Et.device) % P == 0)[None, :, None, None]
+    is_first = ((torch.arange(R, device=Et.device) % P == 0) & bool(first_chunk_identity))[None, :, None, None]
     M_T = torch.where(is_first, eye, log_A_T[:, None]) + Et[0][..., None]
     for t in range(1, c):
         M_T = maxmatmul(log_A_T[:, None], M_T) + Et[t][..., None]

@@ -1,0 +1,38 @@
+"""Multi-device sharding over ``torch.distributed``: data, sequence and
+state parallelism on a mesh of ranks (port of ``hmm_layer_tpu/parallel``,
+its dense routes; the edge-sharded sparse routes are ROADMAP Queue 1 item
+13 (rest))."""
+
+from .collectives import Mesh
+from .sharding import (
+    data_parallel_em_step,
+    data_parallel_em_step_categorical,
+    data_parallel_fn,
+    init_distributed,
+    make_mesh,
+    replicate,
+    seq_sharded_log_likelihood,
+    seq_sharded_posterior,
+    seq_sharded_viterbi,
+    shard_batch,
+    state_sharded_log_likelihood,
+    state_sharded_posterior,
+    state_sharded_viterbi,
+)
+
+__all__ = [
+    "Mesh",
+    "init_distributed",
+    "make_mesh",
+    "shard_batch",
+    "replicate",
+    "data_parallel_fn",
+    "data_parallel_em_step",
+    "data_parallel_em_step_categorical",
+    "state_sharded_log_likelihood",
+    "state_sharded_posterior",
+    "state_sharded_viterbi",
+    "seq_sharded_log_likelihood",
+    "seq_sharded_posterior",
+    "seq_sharded_viterbi",
+]

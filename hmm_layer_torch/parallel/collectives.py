@@ -1,0 +1,418 @@
+"""The mesh and its collectives over ``torch.distributed``.
+
+The JAX package runs its sharded functions as ``shard_map`` bodies over a
+device mesh; here each rank is one process (SPMD) that runs the body's
+code on its own block, and the ``lax`` collectives become calls on the
+process group of a mesh axis:
+
+=========================  ====================================
+``lax.psum/pmax/pmin``     :func:`psum`, :func:`pmax`, :func:`pmin`
+                           (``dist.all_reduce``)
+``lax.all_gather``         :func:`all_gather`
+``lax.ppermute`` shifts    :func:`shift_from_next`, :func:`shift_from_prev`
+                           (one all-gather of the tiny edge values: gloo's
+                           send of a CUDA tensor aborts the process)
+``lax.axis_index``         :meth:`Mesh.index`
+=========================  ====================================
+
+The autograd-aware forms keep the JAX gradients of the global program
+(each sharded function takes the global tensors on every rank and returns
+the global result on every rank, so the cotangent of a result is the same
+on every rank):
+
+* :func:`replicated` — identity; its backward sums the ranks' partial
+  gradients over the given axes (a tensor every rank holds whole, read
+  by each rank's own block of work);
+* :func:`scatter` — this rank's block along a dim; backward all-gathers;
+* :func:`gather` — all-gathers the blocks; backward keeps this rank's
+  block of the (replicated) cotangent (both also take ragged row blocks,
+  :func:`row_sizes`, for the data route; every other split must divide);
+* :func:`psum_ad` and :func:`all_gather_ad` — an all-reduce and an
+  all-gather inside a rank's recursion, whose backwards sum the ranks'
+  cotangents (and keep this rank's block);
+* :func:`replicated_out` and :func:`mean_out` — a result every rank
+  computes whole (its cotangent goes to the first rank of the axes only),
+  and the row-weighted mean of the ranks' values.
+
+Inside a sharded function each rank's cotangents are its own part of the
+whole (the ``gather`` backward gives each rank its block), so the
+gradients of every rank's inputs sum, through :func:`replicated`, to the
+gradient of the global program.
+
+Under NCCL the all-gather is ``all_gather_into_tensor``; under gloo it is
+the list form, which takes CPU and CUDA tensors alike (several ranks
+sharing one GPU run gloo: NCCL refuses two ranks on one device).
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+
+import torch
+import torch.distributed as dist
+
+__all__ = [
+    "Mesh",
+    "make_mesh",
+    "psum",
+    "pmax",
+    "pmin",
+    "all_gather",
+    "row_sizes",
+    "block",
+    "gather_rows",
+    "shift_from_next",
+    "shift_from_prev",
+    "replicated",
+    "scatter",
+    "gather",
+    "psum_ad",
+    "all_gather_ad",
+    "replicated_out",
+    "mean_out",
+]
+
+
+class Mesh:
+    """Named mesh axes over the ranks of the initialised process group.
+
+    Ranks ``0 .. n-1`` are laid out row-major over the axes in the order
+    given (the JAX ``make_mesh`` reshapes its device list the same way);
+    each axis has one process group per line of ranks along it.
+    ``shape`` maps axis names to sizes, as ``jax.sharding.Mesh.shape``.
+    Without an initialised process group the mesh holds one rank and
+    every collective is the identity.
+    """
+
+    def __init__(self, axis_sizes: dict[str, int]):
+        self.shape = dict(axis_sizes)
+        self.axis_names = tuple(self.shape)
+        self.size = math.prod(self.shape.values())
+        self.distributed = dist.is_available() and dist.is_initialized()
+        world = dist.get_world_size() if self.distributed else 1
+        if world < self.size:
+            raise ValueError(f"mesh {self.shape} needs {self.size} devices, have {world}")
+        self.rank = dist.get_rank() if self.distributed else 0
+        sizes = tuple(self.shape.values())
+        self.coords = (
+            dict(zip(self.axis_names, _unravel(self.rank, sizes))) if self.rank < self.size else None
+        )
+        self._groups = {}
+        if self.distributed:
+            # Every rank creates every group, in the same order (new_group
+            # is collective over the whole world).
+            for a, name in enumerate(self.axis_names):
+                others = [range(n) for i, n in enumerate(sizes) if i != a]
+                for rest in itertools.product(*others):
+                    ranks = []
+                    for k in range(sizes[a]):
+                        coord = list(rest)
+                        coord.insert(a, k)
+                        ranks.append(_ravel(coord, sizes))
+                    group = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._groups[name] = group
+
+    def __repr__(self):
+        return f"Mesh({self.shape}, rank={self.rank})"
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis`` (``lax.axis_index``)."""
+        if self.coords is None:
+            raise RuntimeError(f"rank {self.rank} is outside the mesh {self.shape}")
+        return self.coords[axis]
+
+    def group(self, axis: str):
+        return self._groups.get(axis)
+
+    def active(self, axis: str | None) -> bool:
+        """Whether ``axis`` needs collectives: named, and a process group
+        exists (at world size 1 under a process group too, so the backend
+        runs)."""
+        return axis is not None and self.distributed
+
+
+def _unravel(rank, sizes):
+    out = []
+    for n in reversed(sizes):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def _ravel(coord, sizes):
+    r = 0
+    for c, n in zip(coord, sizes):
+        r = r * n + c
+    return r
+
+
+def make_mesh(axis_sizes: dict[str, int]) -> Mesh:
+    """A mesh from ``{"data": 2, "state": 2, ...}`` over the ranks of the
+    initialised process group (:func:`~hmm_layer_torch.parallel.init_distributed`);
+    raises ``ValueError`` when the world has fewer ranks than the mesh."""
+    return Mesh(axis_sizes)
+
+
+def _axes(axes):
+    if axes is None:
+        return ()
+    return (axes,) if isinstance(axes, str) else tuple(a for a in axes if a is not None)
+
+
+def _all_reduce(x, mesh, axes, op):
+    x = x.contiguous().clone()
+    for axis in _axes(axes):
+        if mesh.active(axis):
+            dist.all_reduce(x, op=op, group=mesh.group(axis))
+    return x
+
+
+def psum(x, mesh: Mesh, axes):
+    """Sum of ``x`` over the ranks of ``axes`` (one name or several)."""
+    return _all_reduce(x, mesh, axes, dist.ReduceOp.SUM)
+
+
+def pmax(x, mesh: Mesh, axes):
+    return _all_reduce(x, mesh, axes, dist.ReduceOp.MAX)
+
+
+def pmin(x, mesh: Mesh, axes):
+    return _all_reduce(x, mesh, axes, dist.ReduceOp.MIN)
+
+
+def all_gather(x, mesh: Mesh, axis: str | None, dim: int | None = None):
+    """The ``axis`` ranks' ``x``: stacked on a new leading dim
+    (``dim=None``), or concatenated along ``dim`` (``tiled=True`` in
+    ``lax.all_gather``)."""
+    if not mesh.active(axis):
+        return x[None] if dim is None else x
+    group = mesh.group(axis)
+    n = dist.get_world_size(group)
+    x = x.contiguous()
+    if dist.get_backend(group) == "gloo":
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x, group=group)
+        out = torch.stack(parts)
+    else:
+        out = torch.empty((n, *x.shape), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(out, x, group=group)
+    if dim is None:
+        return out
+    dim = dim % x.dim()
+    return torch.cat(out.unbind(0), dim=dim)
+
+
+def shift_from_next(x, mesh: Mesh, axis: str):
+    """Each rank receives ``x`` of the next rank along ``axis``; the last
+    one receives zeros (``lax.ppermute`` with pairs ``(d, d - 1)``)."""
+    xs = all_gather(x, mesh, axis)
+    idx, n = mesh.index(axis), mesh.shape[axis]
+    return xs[idx + 1] if idx < n - 1 else torch.zeros_like(x)
+
+
+def shift_from_prev(x, mesh: Mesh, axis: str):
+    """Each rank receives ``x`` of the previous rank along ``axis``; rank 0
+    receives zeros."""
+    xs = all_gather(x, mesh, axis)
+    idx = mesh.index(axis)
+    return xs[idx - 1] if idx > 0 else torch.zeros_like(x)
+
+
+def row_sizes(size: int, n: int) -> list[int]:
+    """Block sizes of ``size`` rows over ``n`` ranks: the first
+    ``size % n`` blocks hold one row more (``torch.tensor_split``'s rule)."""
+    if size < n:
+        raise ValueError(f"{size} rows cannot be split over {n} ranks (fewer rows than ranks)")
+    return [size // n + (k < size % n) for k in range(n)]
+
+
+def block(x, mesh: Mesh, axis: str | None, dim: int, ragged: bool = False):
+    """This rank's block of ``x`` along ``dim``; the whole of ``x`` for
+    ``axis=None``. ``dim``'s size must divide by the axis size (a
+    ``ValueError`` otherwise, as ``shard_map`` raises), unless ``ragged``:
+    then the blocks differ by at most one row (:func:`row_sizes`)."""
+    if axis is None:
+        return x
+    n, size = mesh.shape[axis], x.shape[dim]
+    if not ragged and size % n:
+        raise ValueError(f"dim {dim} of size {size} not divisible by {axis!r} axis size {n}")
+    sizes = row_sizes(size, n)
+    idx = mesh.index(axis)
+    return x.narrow(dim, sum(sizes[:idx]), sizes[idx])
+
+
+def gather_rows(x, mesh: Mesh, axis: str | None, dim: int, total: int):
+    """The ranks' ragged blocks of ``x`` (:func:`row_sizes` of ``total``)
+    concatenated along ``dim``: each block is padded to the largest one
+    for the all-gather and cut back after it."""
+    if not mesh.active(axis):
+        return x
+    sizes = row_sizes(total, mesh.shape[axis])
+    dim = dim % x.dim()
+    if len(set(sizes)) == 1:
+        return all_gather(x, mesh, axis, dim)
+    pad = [0, 0] * (x.dim() - 1 - dim) + [0, sizes[0] - x.shape[dim]]
+    parts = all_gather(torch.nn.functional.pad(x, pad), mesh, axis).unbind(0)
+    return torch.cat([p.narrow(dim, 0, k) for p, k in zip(parts, sizes)], dim=dim)
+
+
+# ---------------------------------------------------------------------------
+# Autograd-aware forms
+# ---------------------------------------------------------------------------
+
+
+class _Replicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return psum(ct, ctx.mesh, ctx.axes), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, ragged):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.total = mesh, axis, dim, x.shape[dim]
+        return block(x, mesh, axis, dim, ragged).contiguous()
+
+    @staticmethod
+    def backward(ctx, ct):
+        return gather_rows(ct, ctx.mesh, ctx.axis, ctx.dim, ctx.total), None, None, None, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim, total):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return gather_rows(x, mesh, axis, dim, total)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return block(ct, ctx.mesh, ctx.axis, ctx.dim, ragged=True).contiguous(), None, None, None, None
+
+
+class _PsumAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return psum(ct, ctx.mesh, ctx.axes), None, None
+
+
+def _live(axes, mesh):
+    return any(mesh.active(a) for a in _axes(axes))
+
+
+def replicated(x, mesh: Mesh, axes):
+    """``x`` as it is; its gradient is summed over the ranks of ``axes``."""
+    if not (_live(axes, mesh) and torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _Replicated.apply(x, mesh, axes)
+
+
+def scatter(x, mesh: Mesh, axis: str | None, dim: int, ragged: bool = False):
+    """This rank's block of ``x`` along ``dim`` (:func:`block`); its
+    gradient is gathered."""
+    if axis is None:
+        return x
+    if not (mesh.active(axis) and torch.is_grad_enabled() and x.requires_grad):
+        return block(x, mesh, axis, dim, ragged)
+    return _Scatter.apply(x, mesh, axis, dim, ragged)
+
+
+def gather(x, mesh: Mesh, axis: str | None, dim: int, total: int | None = None):
+    """The ranks' blocks of ``x`` concatenated along ``dim`` (ragged blocks
+    of ``total`` rows where it is given, :func:`gather_rows`); the gradient
+    is this rank's block of the result's (replicated) cotangent."""
+    if axis is None:
+        return x
+    if total is None:
+        total = x.shape[dim] * mesh.shape[axis]
+    if not (mesh.active(axis) and torch.is_grad_enabled() and x.requires_grad):
+        return gather_rows(x, mesh, axis, dim, total)
+    return _Gather.apply(x, mesh, axis, dim, total)
+
+
+def psum_ad(x, mesh: Mesh, axes):
+    """:func:`psum` whose backward sums the cotangents over the same ranks."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return psum(x, mesh, axes)
+    return _PsumAD.apply(x, mesh, axes)
+
+
+class _AllGatherAD(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, ct):
+        total = psum(ct, ctx.mesh, ctx.axis)
+        return block(total, ctx.mesh, ctx.axis, ctx.dim).contiguous(), None, None, None
+
+
+class _ReplicatedOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.first = all(mesh.index(a) == 0 for a in _axes(axes))
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (ct if ctx.first else torch.zeros_like(ct)), None, None
+
+
+class _MeanOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, share):
+        ctx.share = share
+        return _weighted_sum(x, mesh, axis, share)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct * ctx.share, None, None, None
+
+
+def _weighted_sum(x, mesh, axis, share):
+    n = mesh.shape[axis]
+    if share == 1 / n:
+        return psum(x, mesh, axis) / n
+    return psum(x * share, mesh, axis)
+
+
+def all_gather_ad(x, mesh: Mesh, axis: str, dim: int):
+    """:func:`all_gather` along ``dim`` whose backward sums the cotangents
+    over the ranks and keeps this rank's block."""
+    if not (mesh.active(axis) and torch.is_grad_enabled() and x.requires_grad):
+        return all_gather(x, mesh, axis, dim)
+    return _AllGatherAD.apply(x, mesh, axis, dim)
+
+
+def replicated_out(x, mesh: Mesh, axes):
+    """A result that every rank of ``axes`` computes whole: as it is, its
+    cotangent passed on by the first rank of the axes only."""
+    if not (_live(axes, mesh) and torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _ReplicatedOut.apply(x, mesh, axes)
+
+
+def mean_out(x, mesh: Mesh, axis: str | None, share: float | None = None):
+    """The mean over the ranks of ``axis`` of ``x``, each rank weighted by
+    its ``share`` (its fraction of the rows; ``1/n`` by default), and each
+    rank's part of the cotangent ``share`` of it."""
+    if not mesh.active(axis):
+        return x
+    if share is None:
+        share = 1 / mesh.shape[axis]
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return _weighted_sum(x, mesh, axis, share)
+    return _MeanOut.apply(x, mesh, axis, share)

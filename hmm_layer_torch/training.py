@@ -15,8 +15,15 @@
 
 The layer owns its parameters, so where the JAX trainer threads
 ``(params, opt_state)`` through its calls, this one updates the layer in
-place and keeps the optimizer. The data-parallel and sharded mesh routes
-are not ported (ROADMAP Queue 1 item 13): passing ``mesh`` raises.
+place and keeps the optimizer.
+
+Multi-device training: a layer built with ``mesh``/``partition`` trains
+through its sharded routes as it is (every rank gets the whole batch and
+the whole-batch gradient); ``Trainer(mesh=..., data_axis=...)`` gives a
+layer without a partition the data-parallel route ``{"batch": data_axis}``
+on that mesh. Either way every rank starts from rank 0's parameters and
+takes the same optimizer step; rank 0 alone writes metrics and
+checkpoints.
 """
 
 from __future__ import annotations
@@ -167,7 +174,10 @@ class Trainer:
             trainable parameters, e.g. ``functools.partial(torch.optim.SGD,
             lr=0.1)``; default Adam(1e-2), the JAX default
             ``optax.adam(1e-2)``.
-        mesh: not ported (ROADMAP Queue 1 item 13); raises when given.
+        mesh / data_axis: data-parallel training of a layer that has no
+            partition: the layer takes ``partition={"batch": data_axis}``
+            on ``mesh`` (a :class:`hmm_layer_torch.parallel.Mesh`). A layer
+            with its own mesh and partition needs neither.
         checkpoint_dir: if set, checkpoints every ``checkpoint_every`` steps.
         metrics_path: JSON-lines file of the logged metrics.
         loss_fn: objective override ``loss_fn(batch, indices) -> scalar``;
@@ -184,6 +194,7 @@ class Trainer:
         layer: HMMLayer,
         optimizer: Callable | None = None,
         mesh=None,
+        data_axis: str = "data",
         checkpoint_dir: str | None = None,
         checkpoint_every: int = 100,
         metrics_path: str | None = None,
@@ -191,17 +202,28 @@ class Trainer:
         microbatch: int | None = None,
     ):
         if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...) needs the multi-device routes, not ported "
-                "yet (ROADMAP Queue 1 item 13); train on one device"
-            )
+            if layer.mesh is None:
+                if data_axis not in mesh.shape:
+                    raise ValueError(
+                        f"partition 'batch' -> {data_axis!r} is not an axis of the "
+                        f"mesh (axes: {dict(mesh.shape)})"
+                    )
+                layer.mesh, layer.partition = mesh, {"batch": data_axis}
+            elif layer.mesh is not mesh:
+                raise ValueError("the layer already has another mesh; pass mesh=None to train on the layer's")
+        self.mesh = layer.mesh
+        if self.mesh is not None:
+            from .parallel import replicate
+
+            replicate(layer, self.mesh)  # every rank starts from rank 0's parameters
+        self.writer = self.mesh is None or self.mesh.rank == 0
         self.layer = layer
         self.loss_fn = loss_fn
         self.make_optimizer = optimizer or _default_optimizer
-        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_dir = checkpoint_dir if self.writer else None
         self.checkpoint_every = checkpoint_every
         self.microbatch = microbatch
-        self.metrics = MetricsLogger(metrics_path)
+        self.metrics = MetricsLogger(metrics_path if self.writer else None)
         self.optimizer = None
 
     def init(self, seed: int | torch.Generator | None = None, input_dim: int | None = None):
@@ -349,5 +371,7 @@ class Trainer:
             sequence_weights=self.layer.sequence_weights,
             parallel_factor=self.layer.parallel_factor,
             device=self.layer.device,
+            mesh=self.layer.mesh,
+            partition=self.layer.partition or None,
         )
         return FitSelectResult(loss=loss, scores=scores, ranking=ranking, layer=layer)

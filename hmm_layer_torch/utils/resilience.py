@@ -1,6 +1,9 @@
 """Failure detection and recovery for long-running training (port of
-``hmm_layer_tpu/utils/resilience.py``, single-device part).
+``hmm_layer_tpu/utils/resilience.py``).
 
+* :func:`init_distributed_with_retries` — multi-process bring-up
+  retries: ``torch.distributed.init_process_group`` with exponential
+  backoff (ranks routinely race their rendezvous at start-up).
 * :class:`HangWatchdog` — detects a wedged device step: arm it around a
   blocking host sync; on timeout it dumps every Python thread's stack and
   sets a flag the caller checks (a hung CUDA call cannot be interrupted
@@ -8,9 +11,6 @@
 * :func:`latest_checkpoint` + :func:`hmm_layer_torch.utils.checkpoint.
   load_checkpoint` — recovery: restart the process, reload the newest
   step, continue.
-
-``init_distributed_with_retries`` waits for the multi-device port
-(ROADMAP Queue 1 item 13).
 """
 
 from __future__ import annotations
@@ -21,8 +21,34 @@ import os
 import re
 import sys
 import threading
+import time
 
-__all__ = ["HangWatchdog", "latest_checkpoint"]
+__all__ = ["init_distributed_with_retries", "HangWatchdog", "latest_checkpoint"]
+
+
+def init_distributed_with_retries(max_retries: int = 5, backoff_s: float = 5.0, **kwargs) -> None:
+    """:func:`hmm_layer_torch.parallel.init_distributed` (over
+    ``torch.distributed.init_process_group``) with exponential-backoff
+    retries; ``kwargs`` pass through (``backend``, ``init_method``,
+    ``world_size``, ``rank``, ``timeout``)."""
+    from ..parallel import init_distributed
+
+    delay = backoff_s
+    for attempt in range(max_retries + 1):
+        try:
+            init_distributed(**kwargs)
+            return
+        except Exception as e:  # noqa: BLE001 — any bring-up failure retries
+            if attempt == max_retries:
+                raise
+            print(
+                f"init_process_group failed (attempt {attempt + 1}/"
+                f"{max_retries + 1}): {e}; retrying in {delay:.0f}s",
+                file=sys.stderr,
+                flush=True,
+            )
+            time.sleep(delay)
+            delay *= 2
 
 
 class HangWatchdog:

@@ -903,3 +903,69 @@ def test_profile_decode_takes_blocked_kernels(cuda, monkeypatch):
     s_s, _ = _path_score64(init, A, E, seq)
     assert used_k.all()
     torch.testing.assert_close(s_k, s_s, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# The multi-device routes on the card (one-rank meshes: no process group,
+# every collective the identity)
+# ---------------------------------------------------------------------------
+
+
+def test_seq_route_backward_takes_the_affine_kernels(cuda, monkeypatch):
+    """The sequence route's posterior VJP runs its two stacked affine
+    solves through K4 and K5 on CUDA at q <= 15 (as the JAX route reaches
+    the Pallas kernels), and its gradients equal the plain solves'."""
+    from hmm_layer_torch.parallel import make_mesh, seq_sharded_posterior
+
+    rng = np.random.default_rng(5)
+    init, A, E = (torch.as_tensor(x[None], device=cuda) for x in random_hmm(rng, Q, 120, b=3))
+    W = torch.as_tensor(rng.normal(size=E.shape), dtype=torch.float32, device=cuda)
+    mesh = make_mesh({"seq": 1})
+
+    def grads():
+        xs = [t.clone().requires_grad_() for t in (init, A, E)]
+        lg, ll = seq_sharded_posterior(*xs, mesh, local_parallel_factor=4)
+        return torch.autograd.grad((lg * W).sum() + ll.sum(), xs)
+
+    cuda_adjoint.reset_launches()
+    kern = grads()
+    assert cuda_adjoint.LAUNCHES == {"affine_chunk_composites": 1, "affine_reverse_outputs": 1}
+    monkeypatch.setattr(recursion, "_use_affine_kernels", lambda x: False)
+    plain = grads()
+    for a, b in zip(kern, plain):
+        scale = float(b.abs().max()) or 1.0
+        np.testing.assert_allclose(a.cpu().numpy() / scale, b.cpu().numpy() / scale, atol=1e-5)
+
+
+def test_data_route_runs_the_layer_kernels(cuda):
+    """``partition={"batch": "data"}`` runs the layer's own engine on the
+    rank's rows: K1–K3 for the posterior, K6–K8 for the decode, K4–K5 in
+    the CE backward; equal to the dense layer."""
+    from hmm_layer_torch.parallel import make_mesh
+
+    torch.manual_seed(0)
+    dense = HMMLayer(GenePredTransitions(), GenePredEmissions(**CODONS), parallel_factor=3)
+    routed = HMMLayer(GenePredTransitions(), GenePredEmissions(**CODONS), parallel_factor=3,
+                      mesh=make_mesh({"data": 1}), partition={"batch": "data"})
+    routed.load_state_dict(dense.state_dict())
+    rng = np.random.default_rng(6)
+    cls = rng.dirichlet(np.ones(15), size=(1, 4, 99))
+    nuc = np.eye(5)[rng.integers(0, 4, size=(1, 4, 99))]
+    X = torch.as_tensor(np.concatenate([cls, nuc], -1), dtype=torch.float32, device=cuda)
+    labels = torch.as_tensor(rng.integers(0, 15, size=(1, 4, 99)), device=cuda)
+    for module in (cuda_forward, cuda_adjoint, cuda_viterbi):
+        module.reset_launches()
+    with torch.inference_mode():
+        lg = routed.state_posterior_log_probs(X)
+        path = routed.viterbi(X)
+    loss = routed.posterior_cross_entropy(X, labels)
+    g = torch.autograd.grad(loss, list(routed.parameters()))
+    assert cuda_forward.LAUNCHES == {"sum_chunk_summaries": 2, "sum_fwd_outputs": 2, "beta_bwd_outputs": 2}
+    assert cuda_adjoint.LAUNCHES == {"affine_chunk_composites": 1, "affine_reverse_outputs": 1}
+    assert all(cuda_viterbi.LAUNCHES[k] == 1 for k in ("maxplus_chunk_summaries", "maxplus_deltas", "maxplus_backtrace"))
+    with torch.inference_mode():
+        assert torch.equal(lg, dense.state_posterior_log_probs(X))
+        assert torch.equal(path, dense.viterbi(X))
+    ref = torch.autograd.grad(dense.posterior_cross_entropy(X, labels), list(dense.parameters()))
+    for a, b in zip(g, ref):
+        assert torch.equal(a, b)

@@ -305,9 +305,25 @@ def test_restored_optimizer_continues_like_the_original(tmp_path):
 
 
 def test_mesh_is_not_ported():
+    """``Trainer(mesh=...)`` is ported now: a mesh without the data axis
+    raises as the JAX layer's partition check does, and on a one-rank mesh
+    (no process group) the data-parallel route takes the same SGD steps as
+    the single-device trainer."""
+    from hmm_layer_torch.parallel import make_mesh
+
     _, _, tl = _layers(4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
-        Trainer(tl, mesh=object())
+    with pytest.raises(ValueError, match="not an axis of the mesh"):
+        Trainer(tl, mesh=make_mesh({"seq": 1}))
+    X, _, _ = _inputs(12)
+    _, _, plain = _layers(4)
+    _, _, sharded = _layers(4)
+    sgd = functools.partial(torch.optim.SGD, lr=0.05)
+    Trainer(plain, optimizer=sgd).fit([X] * 2)
+    trainer = Trainer(sharded, optimizer=sgd, mesh=make_mesh({"data": 1}))
+    assert sharded.partition == {"batch": "data"}
+    trainer.fit([X] * 2)
+    for name, p in plain.state_dict().items():
+        torch.testing.assert_close(sharded.state_dict()[name], p, rtol=1e-6, atol=1e-6)
 
 
 def test_fit_select_keeps_the_best_model():
