@@ -120,7 +120,7 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    and no other kernel, the paths equal to the glue on the plain versions,
    every row its input, pairs F1 >= 0.9 against the planted truth; and
    ``align --adapt-rounds 2 --model-length 18`` (rows, F1).
-13. The host side and the dense multi-device routes
+13. The host side and the multi-device routes
    (``hmm_layer_torch.parallel`` on ``torch.distributed``). Predict's time
    split between reading phase 7's FASTA and the rest, the native C++
    reader against the Python one in paired runs (native, Python, Python,
@@ -140,7 +140,24 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    at L=10,000, on the sequential engine cut to L=500, the decode cut to
    L=2,000. A probe of the collectives gloo takes on CUDA tensors (values
    checked). The sequence route is held to the unsharded layer on its
-   plain route (K1–K8 off), whose arithmetic its primal shares.
+   plain route (K1–K8 off), whose arithmetic its primal shares. The
+   edge-sharded sparse routes (``parallel/sparse_sharding.py``, no kernel
+   of their own; every item checks that none of K1–K9 launched): the
+   sparse flagship layer's ``{"state": "state"}`` route at world 1 under
+   NCCL against the sparse engine (b=4, L=1200); config 5's sparse layer
+   (q = 505 padded to 506, b=8) under ``{"state": 2}`` at world 2 on the
+   shared card, L = 10,000 cut to 2,000 (the route's per-step
+   collectives): a posterior, a log-likelihood and a decode (log gamma
+   and loglik within the float32 bound of the sparse engine's, the decode
+   valid with float64 scores equal to ``sparse_viterbi``'s), one MAP
+   step's gradients and one taped CE gradient (cut to L = 1,000; each
+   anchored in float64, the route's drift within 4x the sparse engine's);
+   k = 1,000 (q = 14,001, b=2,
+   L=2,000) through ``edge_sharded_log_likelihood`` and
+   ``edge_sharded_posterior`` against ``sparse_log_likelihood`` /
+   ``sparse_posterior``. Each call per rank: its ms, its device busy
+   share (profiled on its first 200 positions) and peak device memory,
+   beside the sparse engine's in this process.
    ``python3 -c "import chip_smoke; chip_smoke.develop_phase13()"`` runs
    phases 1, 2, 7 and 13 alone for development, and prints no result.
 
@@ -2368,16 +2385,24 @@ def flagship_sparse(HMMLayer, models, make, recursion, counters):
     return out
 
 
+def wall_problem(models, device, length):
+    """Phase 11's k = 1,000 problem (q = 14,001, 22,001 edges, b = 2) at
+    ``length`` positions: (transitions, init, host indices, edge
+    probabilities, E)."""
+    t = models.GenePredMultiTransitions(k=WALL_K, generator=torch.Generator().manual_seed(SEED + WALL_K)).to(device)
+    rng = np.random.default_rng(SEED + WALL_K)
+    E = torch.from_numpy(rng.uniform(0.05, 1.0, (1, WALL_B, length, t.num_states)).astype(np.float32)).to(device)
+    with torch.no_grad():
+        indices, probs = t.make_A_sparse()
+        return t, t.make_initial_distribution(), indices, probs, E
+
+
 def dense_wall(models, recursion, sparse_ops, counters, device):
     """k = 1000 (q = 14,001, 22,001 edges), b = 2, L = 2000: the sparse
     log-likelihood against the dense sequential engine (A: 784 MB)."""
-    t = models.GenePredMultiTransitions(k=WALL_K, generator=torch.Generator().manual_seed(SEED + WALL_K)).to(device)
+    t, init, indices, probs, E = wall_problem(models, device, WALL_L)
     q = t.num_states
-    rng = np.random.default_rng(SEED + WALL_K)
-    E = torch.from_numpy(rng.uniform(0.05, 1.0, (1, WALL_B, WALL_L, q)).astype(np.float32)).to(device)
     with torch.inference_mode():
-        indices, probs = t.make_A_sparse()
-        init = t.make_initial_distribution()
         sparse_ops.sparse_log_likelihood(init, indices, probs, E[:, :, :8])  # plan on the card
         reset_kernels(counters)
         ll, ms = synced_ms(lambda: sparse_ops.sparse_log_likelihood(init, indices, probs, E))
@@ -2793,7 +2818,7 @@ def profile_phase(HMMLayer, models, recursion, cuda_viterbi, counters, smi):
 
 
 # ---------------------------------------------------------------------------
-# 13. The host side and the dense multi-device routes
+# 13. The host side and the multi-device routes
 # ---------------------------------------------------------------------------
 
 DATA_WORLD, SEQ_WORLD, STATE_WORLD = 2, 3, 2  # ranks sharing the one card (gloo)
@@ -3024,24 +3049,35 @@ def layer_truth(layer, X, labels, mask, recursion):
         obj64 = route_objectives(lambda i, a, e: recursion.posterior(i, a, e, PF),
                                  lambda i, a, e: recursion.log_likelihood(i, a, e, PF),
                                  init.double(), A.double(), E.double(), labels, mask)
-    outs = [init, A, E]
-    cts = [g.to(E.device, E.dtype) for g in obj64["g_ce"]]
+    aux, grads = pull_back(layer, pars, [init, A, E], obj64["g_ce"])
+    return {"loss": obj64["ce"] + aux, "grads": grads}
+
+
+def pull_back(layer, pars, outs, cts):
+    """(the auxiliary loss, the parameter gradients) of ``layer`` from the
+    cotangents ``cts`` of its ingredients ``outs`` (any dtype) plus its
+    auxiliary loss's own gradient, through the layer's float32 Jacobian."""
+    outs, cts = list(outs), [g.to(o.device, o.dtype) for g, o in zip(cts, outs)]
     aux = layer.aux_loss()
     if torch.is_tensor(aux) and aux.requires_grad:
         outs.append(aux)
         cts.append(torch.ones_like(aux))
     grads = torch.autograd.grad(outs, pars, grad_outputs=cts, allow_unused=True)
-    return {"loss": obj64["ce"] + float(aux.detach() if torch.is_tensor(aux) else aux),
-            "grads": [torch.zeros_like(p) if g is None else g for g, p in zip(grads, pars)]}
+    return (float(aux.detach() if torch.is_tensor(aux) else aux),
+            [torch.zeros_like(p) if g is None else g for g, p in zip(grads, pars)])
+
+
+def grad_drift(grads, truth):
+    """Gradients against a reference: max abs over the largest, the worst
+    parameter."""
+    return max(float((g.to(t.device) - t).abs().max() / t.abs().max().clamp_min(1e-12)) for g, t in zip(grads, truth))
 
 
 def layer_drift(r, truth):
-    """A layer's float32 CE loss (rel) and parameter gradients (max abs over
-    the largest, the worst parameter) against :func:`layer_truth`."""
-    dev = truth["grads"][0].device
+    """A layer's float32 CE loss (rel) and parameter gradients
+    (:func:`grad_drift`) against :func:`layer_truth`."""
     return {"loss": abs(float(r["loss"]) - truth["loss"]) / abs(truth["loss"]),
-            "grads": max(float((g.to(dev) - t).abs().max() / t.abs().max().clamp_min(1e-12))
-                         for g, t in zip(r["grads"], truth["grads"]))}
+            "grads": grad_drift(r["grads"], truth["grads"])}
 
 
 def state_route_rank(b, length, pf, seq_length, vit_length):
@@ -3201,6 +3237,7 @@ def routes_phase(HMMLayer, models, make, smi):
             f"{'equal to' if same else 'DIFFER FROM'} the sparse layer without a mesh")
         if not same:
             raise AssertionError("the sparse layer's data route differs from its single-device route")
+        edge_route_world1(HMMLayer, models, make_mesh, small, sparse[1])
     finally:
         dist.destroy_process_group()
 
@@ -3342,6 +3379,284 @@ def routes_phase(HMMLayer, models, make, smi):
     return summary
 
 
+# ---------------------------------------------------------------------------
+# Phase 13 (e): the edge-sharded sparse routes
+# ---------------------------------------------------------------------------
+
+# Config 5 under {"state": 2}: L = 10,000 cut to 2,000 for the time limit
+# (each step of the route makes two collectives forward and two backward,
+# ~1.4 ms each through gloo on the shared card; PERF.md §6), and to 1,000
+# for the taped CE gradient (57 s a rank at 2,000: eight collectives a
+# step, four of them in the autograd backward).
+EDGE_WORLD, EDGE_L, EDGE_CE_L = 2, 2_000, 1_000
+EDGE_TIMEOUT_S = 900  # the edge world's whole run (every collective as well)
+# Each call's device busy share is profiled on its first BUSY_L positions:
+# the work of a step does not depend on L, and the profiler's parse of the
+# 10^5 kernels of a full-length call takes longer than the call.
+BUSY_L = 200
+
+
+def edge_route_world1(HMMLayer, models, make_mesh, X, single):
+    """The sparse layer's state route at world 1 (NCCL, this process; one
+    bucket holding every edge): posterior, log-likelihood, decode and MAP
+    gradients against ``single``, the same weights on the sparse engine;
+    none of K1–K9 may launch."""
+    edge = seeded_layer(HMMLayer, models.GenePredTransitions(sparse_forward=True), models.GenePredEmissions(**CODONS),
+                        SEED, use_prior=False, mesh=make_mesh({"state": 1}), partition={"state": "state"})
+    counters = route_counters()
+    outs = []
+    for i, lay in enumerate((edge, single)):
+        reset_kernels(counters)
+        with torch.inference_mode():
+            got = [lay.state_posterior_log_probs(X), lay.log_likelihood(X), lay.viterbi(X)]
+        got += param_grads(lay, "map", X)[1]
+        if i == 0:
+            no_kernels("edge route world 1", counters)
+        outs.append(got)
+    bit = [torch.equal(a, b) for a, b in zip(*outs)]
+    lg_err, lg_ok = within(outs[0][0], outs[1][0], 1e-6, 1e-5)
+    ll_err, ll_ok = within(outs[0][1], outs[1][1], 1e-6, 0.0)
+    g_err = grad_drift(outs[0][3:], outs[1][3:])
+    log(f"phase 13 sparse layer state route world 1 (NCCL; edge-sharded functions; b={X.shape[1]}, L={X.shape[2]}) "
+        f"vs the sparse engine: log gamma max abs {lg_err:.3e}, loglik max abs {ll_err:.3e}, paths equal "
+        f"{bit[2]}, MAP gradients max abs / max {g_err:.3e} (limit 1e-5); bit-equal (posterior, loglik, decode, "
+        f"gradients): {bit[:3] + [all(bit[3:])]}; launches none")
+    if not (lg_ok and ll_ok and bit[2] and g_err <= 1e-5):
+        raise AssertionError("the edge-sharded state route at world 1 differs from the sparse engine")
+
+
+def measured_call(fn, inference=True):
+    """(result, record) of one synchronised call: host-clock ms and the
+    process's peak device memory during the call (absolute, and above what
+    was allocated at its start)."""
+    import contextlib
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.inference_mode() if inference else contextlib.nullcontext():
+        out, ms = synced_ms(fn)
+    peak = torch.cuda.max_memory_allocated()
+    return out, {"ms": ms, "peak_mib": peak / 2**20, "above_mib": (peak - base) / 2**20}
+
+
+def busy_share(fn, inference=True):
+    """Device busy ms over the wall ms of one synchronised call under
+    ``torch.profiler`` (device activity only), or None where the profiler
+    records no device time."""
+    import contextlib
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with torch.inference_mode() if inference else contextlib.nullcontext():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, ms = synced_ms(fn)
+    rows = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) for e in rows) / 1e3
+    return busy / ms if busy > 0 else None
+
+
+def measure_calls(calls):
+    """Each of ``calls`` (name -> (fn of a length, length, inference)) at
+    its length (:func:`measured_call`), and its busy share on BUSY_L
+    positions (:func:`busy_share`): (results, records)."""
+    results, records = {}, {}
+    for name, (fn, length, inference) in calls.items():
+        results[name], records[name] = measured_call(lambda: fn(length), inference)
+        records[name]["busy"] = busy_share(lambda: fn(BUSY_L), inference)
+    return results, records
+
+
+def call_text(name, rec):
+    busy = "busy not measured" if rec["busy"] is None else f"busy {100 * rec['busy']:.1f}%"
+    return (f"{name} {rec['ms']:.1f} ms, {busy}, peak {rec['peak_mib']:.1f} MiB "
+            f"({rec['above_mib']:.1f} above the call's start)")
+
+
+def grads_of(value, pars):
+    return value.detach(), torch.autograd.grad(value, pars)
+
+
+def edge_route_rank(lengths, labels, mask):
+    """Rank body of the edge-sharded routes ({"state": world}): config 5's
+    sparse layer (q = 505, b = 8, ``lengths["c5"]`` positions) serving a
+    posterior, a log-likelihood and a decode, one MAP step's gradients and
+    one taped CE gradient (``lengths["ce"]`` positions); then k = 1,000
+    (q = 14,001, b = 2, ``lengths["wall"]``) through
+    ``edge_sharded_log_likelihood`` and ``edge_sharded_posterior``.
+    Each call timed and its busy share profiled (:func:`measure_calls`);
+    none of K1–K9 may launch."""
+    import torch.distributed as dist
+    from hmm_layer_torch import HMMLayer, models
+    from hmm_layer_torch.parallel import edge_sharded_log_likelihood, edge_sharded_posterior, make_mesh
+
+    t0 = time.perf_counter()
+    counters = route_counters()
+    mesh = make_mesh({"state": dist.get_world_size()})
+    device = torch.device("cuda")
+    layer = build_config5(HMMLayer, models, sparse_forward=True)
+    layer.mesh, layer.partition = mesh, {"state": "state"}
+    X = make_inputs(SEED + 151, SPARSE_B, lengths["c5"], device)
+    labels, mask = labels.to(device), mask.to(device)
+    pars = [p for p in layer.parameters() if p.requires_grad]
+    _, wall_init, wall_idx, wall_probs, wall_E = wall_problem(models, device, lengths["wall"])
+    wall = lambda fn: lambda n: fn(wall_init, wall_idx, wall_probs, wall_E[:, :, :n], mesh)  # noqa: E731
+    calls = {
+        "posterior": (lambda n: layer.state_posterior_log_probs(X[:, :, :n]), lengths["c5"], True),
+        "loglik": (lambda n: layer.log_likelihood(X[:, :, :n]), lengths["c5"], True),
+        "decode": (lambda n: layer.viterbi(X[:, :, :n]), lengths["c5"], True),
+        "map": (lambda n: grads_of(layer.loss(X[:, :, :n]), pars), lengths["c5"], False),
+        "ce": (lambda n: grads_of(layer.posterior_cross_entropy(X[:, :, :n], labels[:, :n], label_mask=mask[:, :n]),
+                                  pars), lengths["ce"], False),
+        "wall_loglik": (wall(edge_sharded_log_likelihood), lengths["wall"], True),
+        "wall_posterior": (wall(edge_sharded_posterior), lengths["wall"], True),
+    }
+    reset_kernels(counters)
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend(), "setup_s": time.perf_counter() - t0}
+    results, out["calls"] = measure_calls(calls)
+    out["launches"] = kernel_counts(counters)
+    if out["rank"] == 0:
+        cpu = lambda x: x.cpu() if torch.is_tensor(x) else [cpu(t) for t in x]  # noqa: E731
+        out["results"] = {k: cpu(v) for k, v in results.items()}
+    return out
+
+
+def sparse_truth(layer, X, objective64):
+    """A sparse layer's objective and parameter gradients anchored in
+    float64: ``objective64(init, indices, probs, E)`` of the single-device
+    engine in float64 on the layer's own ingredients (training-mode
+    emissions), its gradients pulled back through the layer's float32
+    Jacobian (:func:`pull_back`), plus the auxiliary loss."""
+    pars = [p for p in layer.parameters() if p.requires_grad]
+    init, indices, probs, E = layer._sparse_ingredients(X, None, True)
+    xs = [t.detach().double().requires_grad_() for t in (init, probs, E)]
+    value = objective64(xs[0], indices, xs[1], xs[2])
+    aux, grads = pull_back(layer, pars, [init, probs, E], torch.autograd.grad(value, xs))
+    return float(value.detach()) + aux, grads
+
+
+def edge_routes_phase(HMMLayer, models, make, smi):
+    """Phase 13 (e): config 5's sparse layer under {"state": 2} at world 2
+    on the shared card (gloo, spawned ranks), and q = 14,001 through the
+    edge-sharded functions, each against the single-device sparse engine on
+    the card."""
+    from hmm_layer_torch.ops import sparse as sparse_ops
+    from hmm_layer_torch.parallel import launch
+
+    t0 = time.perf_counter()
+    counters = route_counters()
+    single = build_config5(HMMLayer, models, sparse_forward=True)
+    X = make(SEED + 151, SPARSE_B, EDGE_L)
+    pars = [p for p in single.parameters() if p.requires_grad]
+    with torch.inference_mode():
+        path0 = single.viterbi(X)
+    labels = path0[0].long()
+    mask = torch.ones(labels.shape, device=labels.device)
+    mask[::4, -EDGE_L // 4:] = 0.0
+
+    def taped_ce(i, idx, p, e):
+        n = e.shape[2]
+        return masked_ce(sparse_ops.sparse_posterior(i, idx, p, e, analytic_vjp=False)[0], labels[:, :n], mask[:, :n])
+
+    def taped_ce_layer(n):
+        init, idx, probs, E = single._sparse_ingredients(X[:, :, :n], None, True)
+        return grads_of(taped_ce(init, idx, probs, E) + single.aux_loss(), pars)
+
+    _, w_init, w_idx, w_probs, w_E = wall_problem(models, X.device, WALL_L)
+    ref_calls = {
+        "posterior": (lambda n: single.state_posterior_log_probs(X[:, :, :n]), EDGE_L, True),
+        "loglik": (lambda n: single.log_likelihood(X[:, :, :n]), EDGE_L, True),
+        "decode": (lambda n: single.viterbi(X[:, :, :n]), EDGE_L, True),
+        "map": (lambda n: grads_of(single.loss(X[:, :, :n]), pars), EDGE_L, False),
+        "ce": (taped_ce_layer, EDGE_CE_L, False),
+        "wall_loglik": (lambda n: sparse_ops.sparse_log_likelihood(w_init, w_idx, w_probs, w_E[:, :, :n]), WALL_L,
+                        True),
+        "wall_posterior": (lambda n: sparse_ops.sparse_posterior(w_init, w_idx, w_probs, w_E[:, :, :n]), WALL_L,
+                           True),
+    }
+    reset_kernels(counters)
+    ref, ref_rec = measure_calls(ref_calls)
+    no_kernels("the single-device sparse references", counters)
+    t1 = time.perf_counter()
+    truth = {"map": sparse_truth(single, X, lambda *a: -sparse_ops.sparse_log_likelihood(*a).mean()),
+             "ce": sparse_truth(single, X[:, :, :EDGE_CE_L], taped_ce)}
+    log(f"phase 13 edge routes: single-device references {t1 - t0:.1f} s, float64 anchors "
+        f"{time.perf_counter() - t1:.1f} s")
+    del w_E
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    lengths = {"c5": EDGE_L, "ce": EDGE_CE_L, "wall": WALL_L}
+    results = launch.run_world(edge_route_rank, EDGE_WORLD, lengths, labels.cpu(), mask.cpu(), backend="gloo",
+                               timeout_s=EDGE_TIMEOUT_S)
+    log(f"phase 13 edge world of {EDGE_WORLD} ranks: {time.perf_counter() - t1:.1f} s")
+    for r in results:
+        check_launches(f"edge route rank {r['rank']}", r["launches"], {})
+        log(f"phase 13 edge route rank {r['rank']} ({r['backend']}, world {EDGE_WORLD} on the shared card; "
+            f"launches none; set-up {r['setup_s']:.1f} s): "
+            + "; ".join(call_text(k, v) for k, v in r["calls"].items()))
+    log(f"phase 13 single-device sparse engine on the card (the references; launches none; busy shares on "
+        f"{BUSY_L} positions): "
+        + "; ".join(call_text(k, v) for k, v in ref_rec.items()))
+    got = {k: v for k, v in results[0]["results"].items()}
+    dev = X.device
+    checks = {}
+
+    # Config 5: log-likelihood, log gamma, decode.
+    lg, ll = got["posterior"].to(dev), got["loglik"].to(dev)
+    bound = f32_log_bound(ref["loglik"], EDGE_L)
+    ll_err, checks["c5 loglik"] = within(ll, ref["loglik"], 0.0, bound)
+    lg_err, checks["c5 log gamma"] = within(lg, ref["posterior"], 0.0, 2 * bound, mask=ref["posterior"].exp() >= 1e-3)
+    init, A = edge_support(single)
+    with torch.inference_mode():
+        E = single.emission_probs(X)
+    path = got["decode"].to(dev)
+    score, used = path_score64(init, A, E, path)
+    score_ref, used_ref = path_score64(init, A, E, ref["decode"])
+    s_err, s_ok = within(score, score_ref, 1e-6, 0.0)
+    checks["c5 decode"] = s_ok and bool(used.all())
+    same = float((path == ref["decode"]).float().mean())
+    q = single.transitions.num_states
+    log(f"phase 13 edge route config 5 (q={q} padded to {-(-q // EDGE_WORLD) * EDGE_WORLD}, "
+        f"{single.transitions.num_transitions} edges, b={SPARSE_B}, L={EDGE_L}, world {EDGE_WORLD}) vs the sparse "
+        f"engine: loglik max abs {ll_err:.3e} "
+        f"(bound {bound:.3g}), log gamma where gamma >= 1e-3 max abs {lg_err:.3e} (bound {2 * bound:.3g}); decode "
+        f"valid {bool(used.all())}, float64 scores max abs {s_err:.3e} (rtol 1e-6), paths equal at {100 * same:.3f}%")
+
+    # Config 5: MAP and taped CE gradients, each anchored in float64.
+    for name, what in (("map", f"MAP step (analytic Baum-Welch VJP; L={EDGE_L})"),
+                       ("ce", f"CE gradient (taped; L={EDGE_CE_L})")):
+        (val, grads), (ref_val, ref_grads), (val64, grads64) = got[name], ref[name], truth[name]
+        d_route, d_single = grad_drift(grads, grads64), grad_drift(ref_grads, grads64)
+        loss_err = abs(float(val) - float(ref_val))
+        apart = grad_drift(grads, ref_grads)
+        checks[f"c5 {name}"] = d_route <= F32_NOISE_FACTOR * d_single and loss_err <= 2 * bound
+        log(f"phase 13 edge route config 5 {what}: loss {float(val):.6f}, sparse engine {float(ref_val):.6f} (abs "
+            f"diff {loss_err:.3e}, bound {2 * bound:.3g}), float64 {val64:.6f}; gradients max abs / max against "
+            f"the float64 anchor {d_route:.3e}, the sparse engine's {d_single:.3e} (limit {F32_NOISE_FACTOR:g}x); "
+            f"route vs sparse engine {apart:.3e}")
+
+    # q = 14,001: log-likelihood and posterior.
+    wll, (wlg, wll2) = got["wall_loglik"].to(dev), [t.to(dev) for t in got["wall_posterior"]]
+    rlg, rll = ref["wall_posterior"]
+    wbound = f32_log_bound(ref["wall_loglik"], WALL_L)
+    w_ll_err, checks["wall loglik"] = within(wll, ref["wall_loglik"], 0.0, wbound)
+    w_ll2_err, checks["wall posterior loglik"] = within(wll2, rll, 0.0, wbound)
+    w_lg_err, checks["wall log gamma"] = within(wlg, rlg, 0.0, 2 * wbound, mask=rlg.exp() >= 1e-3)
+    log(f"phase 13 edge route past the dense wall (k={WALL_K}: q={w_init.shape[-1]} padded to "
+        f"{-(-w_init.shape[-1] // EDGE_WORLD) * EDGE_WORLD}, {len(w_idx)} edges, b={WALL_B}, L={WALL_L}, world "
+        f"{EDGE_WORLD}) vs sparse_log_likelihood / sparse_posterior: loglik max abs {w_ll_err:.3e} and {w_ll2_err:.3e} "
+        f"(bound {wbound:.3g}), log gamma where gamma >= 1e-3 max abs {w_lg_err:.3e} (bound {2 * wbound:.3g})")
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"edge-sharded routes disagree with the sparse engine: {failed}")
+    log(f"phase 13 edge routes took {time.perf_counter() - t0:.1f} s (on {smi})")
+    summary = {f"edge_w{EDGE_WORLD}_{k}_ms": v["ms"] for k, v in results[0]["calls"].items()}
+    summary.update({f"edge_single_{k}_ms": v["ms"] for k, v in ref_rec.items()})
+    return summary
+
+
 def native_reader_phase(fasta, npz, tmp, smi):
     """Phase 13 (d): predict's split between reading the FASTA and the
     rest, native reader against the Python one in paired runs (native,
@@ -3463,6 +3778,7 @@ def develop_phase13():
         fasta, npz, _ = predict_phase(build_layer(HMMLayer, models), recursion, cuda_viterbi, tmp)
         native_reader_phase(fasta, npz, tmp, smi)
     routes_phase(HMMLayer, models, make, smi)
+    edge_routes_phase(HMMLayer, models, make, smi)
     log("phase 13 development run passed (phases 1, 2, 7 and 13 only; not a smoke result)")
 
 
@@ -3577,13 +3893,14 @@ def main() -> int:
     # 12. The profile-HMM family and align
     profile_phase(HMMLayer, models, recursion, cuda_viterbi, counters, smi)
 
-    # 13. The host side and the dense multi-device routes
+    # 13. The host side and the multi-device routes
     t0 = time.perf_counter()
     del layer, mc
     torch.cuda.empty_cache()
     times = native_reader_phase(fasta, npz, tmp, smi)
     tmpdir.cleanup()
     times.update(routes_phase(HMMLayer, models, make, smi))
+    times.update(edge_routes_phase(HMMLayer, models, make, smi))
     log(f"phase 13 summary on {smi}: " + ", ".join(
         f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in times.items()))
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s")

@@ -23,9 +23,12 @@ Transitions built with ``sparse_forward=True`` route
 :meth:`~HMMLayer.sample_paths` (sequential; ``parallel_factor`` ignored) and
 :meth:`~HMMLayer.posterior_cross_entropy` (the fused objective) through the
 sparse edge-list engine (:mod:`.ops.sparse`) over the transitions'
-``make_A_sparse``; the dense (q, q) matrix is never built.
-``forward_recursion`` and ``backward_recursion`` keep the dense engine, as
-in the JAX layer.
+``make_A_sparse``; the dense (q, q) matrix is never built. Under a
+``state`` partition the posterior, the log-likelihood and the decode take
+the edge-sharded functions of :mod:`.parallel.sparse_sharding`; there the
+cross-entropy is the unfused objective through the taped edge-sharded
+posterior, and ``sample_paths`` raises. ``forward_recursion`` and
+``backward_recursion`` keep the dense engine, as in the JAX layer.
 
 Profile-family transitions built with ``structured_forward=True`` route
 the sequential :meth:`~HMMLayer.log_likelihood` (so :meth:`~HMMLayer.loss`)
@@ -37,13 +40,13 @@ Multi-device routes: with ``mesh`` (a :class:`hmm_layer_torch.parallel.Mesh`
 over the ranks of ``torch.distributed``) and ``partition`` the layer
 sends :meth:`~HMMLayer.loss`, :meth:`~HMMLayer.log_likelihood`,
 :meth:`~HMMLayer.state_posterior_log_probs` (so the cross-entropy) and
-:meth:`~HMMLayer.viterbi` through :mod:`hmm_layer_torch.parallel.sharding`.
-Every rank is given the whole batch and returns the whole result; under
-``{"batch": axis}`` each rank runs the layer's own engine (on CUDA its
-kernels) on its rows. The parameters are replicated and their gradients
-are those of the whole batch on every rank. The sparse engine takes the
-``batch`` route; its edge-sharded ``state`` route is ROADMAP Queue 1 item
-13 (rest).
+:meth:`~HMMLayer.viterbi` through :mod:`hmm_layer_torch.parallel.sharding`
+(sparse-forward transitions: the ``batch`` route, and the ``state`` route
+of :mod:`hmm_layer_torch.parallel.sparse_sharding`). Every rank is given
+the whole batch and returns the whole result; under ``{"batch": axis}``
+each rank runs the layer's own engine (on CUDA its kernels) on its rows.
+The parameters are replicated and their gradients are those of the whole
+batch on every rank.
 """
 
 from __future__ import annotations
@@ -96,7 +99,8 @@ class HMMLayer(nn.Module):
             (``L`` divisible by the seq-axis size) or ``{"batch": "data",
             "state": "state"}`` (``q`` is padded to a multiple of the
             state-axis size). ``"seq"`` and ``"state"`` exclude each
-            other. Sparse-forward transitions take ``"batch"`` only.
+            other. Sparse-forward transitions take ``"batch"`` and
+            ``"state"`` (the edge-sharded routes), not ``"seq"``.
     """
 
     _LOGICAL_AXES = ("batch", "seq", "state")
@@ -300,7 +304,8 @@ class HMMLayer(nn.Module):
 
     def _sparse_route(self) -> bool:
         """Whether the transitions ask for the sparse edge-list engine
-        (single device, or data parallel under ``{"batch": ...}``)."""
+        (single device, or data parallel under ``{"batch": ...}``); the
+        ``state`` partition takes :meth:`_sparse_state_route`."""
         if not getattr(self.transitions, "sparse_forward", False):
             return False
         route = self._route()
@@ -312,13 +317,19 @@ class HMMLayer(nn.Module):
                 "sparse engine exists to avoid at large q. Use state (+batch) "
                 "sharding for big-q models (partition={'state': ..., 'batch': ...})."
             )
-        if route == "state":
-            raise NotImplementedError(
-                "the sparse engine's edge-sharded state route "
-                "(parallel/sparse_sharding.py) is not ported yet: ROADMAP Queue 1 "
-                "item 13 (rest). Use partition={'batch': ...} or the dense engine."
-            )
-        return True
+        return route != "state"
+
+    def _sparse_state_route(self) -> bool:
+        """Whether the edge-sharded state routes serve this layer
+        (sparse-forward transitions under a ``state`` partition)."""
+        return getattr(self.transitions, "sparse_forward", False) and self._route() == "state"
+
+    def _edge_sharded(self, name, *args, **kwargs):
+        """``parallel.sparse_sharding.<name>`` on this layer's mesh and
+        partition."""
+        from .parallel import sparse_sharding
+
+        return getattr(sparse_sharding, name)(*args, **self._axes("state"), **kwargs)
 
     def _sparse_call(self, fn, init, indices, probs, E, *extra):
         """A sparse engine function on the whole batch, or on this rank's
@@ -362,6 +373,10 @@ class HMMLayer(nn.Module):
                 lambda *a: sparse_ops.sparse_posterior(*a, no_loglik=no_loglik),
                 *self._sparse_ingredients(inputs, end_hints, training),
             )
+        elif self._sparse_state_route():
+            lg, _ = self._edge_sharded(
+                "edge_sharded_posterior", *self._sparse_ingredients(inputs, end_hints, training), no_loglik=no_loglik
+            )
         else:
             init, A, E = self._ingredients(inputs, end_hints, training)
             lg, _ = self._dispatch_posterior(init, A, E, no_loglik)
@@ -385,6 +400,10 @@ class HMMLayer(nn.Module):
             return self._sparse_call(
                 sparse_ops.sparse_log_likelihood, *self._sparse_ingredients(inputs, end_hints, training)
             )
+        if self._sparse_state_route():
+            return self._edge_sharded(
+                "edge_sharded_log_likelihood", *self._sparse_ingredients(inputs, end_hints, training)
+            )
         init, A, E = self._ingredients(inputs, end_hints, training)
         return self._dispatch_log_likelihood(init, A, E)
 
@@ -396,6 +415,8 @@ class HMMLayer(nn.Module):
         """
         if self._sparse_route():
             return self._sparse_call(sparse_ops.sparse_viterbi, *self._sparse_ingredients(inputs, end_hints, False))
+        if self._sparse_state_route():
+            return self._edge_sharded("edge_sharded_viterbi", *self._sparse_ingredients(inputs, end_hints, False))
         init, A, E = self._ingredients(inputs, end_hints, False)
         return self._dispatch_viterbi(init, A, E)
 
@@ -539,6 +560,8 @@ class HMMLayer(nn.Module):
         the (m, b, L, q) posterior and its cotangent never exist, and the
         time block of its backward is
         :func:`~hmm_layer_torch.ops.sparse.set_sparse_posterior_block`'s.
+        Under a ``state`` partition they take the unfused objective through
+        the taped edge-sharded posterior, as the JAX layer does.
 
         Returns:
           scalar loss: mean CE − scaled prior (if ``use_prior``) + aux.

@@ -171,7 +171,9 @@ def _offsets(sorted_ids, q):
 class _DevicePlan:
     """An :class:`EdgePlan`'s index tensors on one device for ``q`` states,
     and the segment bounds expanded to each leading shape they are used
-    with (``torch.segment_reduce`` takes them per leading index)."""
+    with (``torch.segment_reduce`` takes them per leading index). They are
+    made outside inference mode, so that a plan first used in inference
+    mode still serves taped autograd later (which saves them)."""
 
     def __init__(self, plan: EdgePlan, device: torch.device, q: int):
         def tensor(a):
@@ -180,15 +182,16 @@ class _DevicePlan:
         if plan.n and int(plan.indices.max()) >= q:
             raise ValueError(f"edge indices reach state {int(plan.indices.max())}, but q = {q}")
         self.n = plan.n
-        self.src_d, self.dst_d = tensor(plan.src_d), tensor(plan.dst_d)
-        self.perm_d, self.inv_d = tensor(plan.perm_d), tensor(plan.inv_d)
-        self.src_s, self.dst_s, self.perm_s = tensor(plan.src_s), tensor(plan.dst_s), tensor(plan.perm_s)
-        self.src = tensor(plan.indices[:, 0])
-        # Viterbi: the winning in-edge's source; edge id n is the sentinel
-        # of a state without in-edges.
-        self.src_lookup = tensor(np.concatenate([plan.src_d, [0]]))
-        self.edge_ids = torch.arange(plan.n, dtype=torch.float32, device=device)
-        self._bounds = {"d": tensor(_offsets(plan.dst_d, q)), "s": tensor(_offsets(plan.src_s, q))}
+        with torch.inference_mode(False):
+            self.src_d, self.dst_d = tensor(plan.src_d), tensor(plan.dst_d)
+            self.perm_d, self.inv_d = tensor(plan.perm_d), tensor(plan.inv_d)
+            self.src_s, self.dst_s, self.perm_s = tensor(plan.src_s), tensor(plan.dst_s), tensor(plan.perm_s)
+            self.src = tensor(plan.indices[:, 0])
+            # Viterbi: the winning in-edge's source; edge id n is the
+            # sentinel of a state without in-edges.
+            self.src_lookup = tensor(np.concatenate([plan.src_d, [0]]))
+            self.edge_ids = torch.arange(plan.n, dtype=torch.float32, device=device)
+            self._bounds = {"d": tensor(_offsets(plan.dst_d, q)), "s": tensor(_offsets(plan.src_s, q))}
         self._expanded = {}
 
     def offsets(self, by: str, lead) -> torch.Tensor:
@@ -197,8 +200,9 @@ class _DevicePlan:
         key = (by, tuple(lead))
         off = self._expanded.get(key)
         if off is None:
-            bounds = self._bounds[by]
-            off = self._expanded[key] = bounds.expand(tuple(lead) + bounds.shape).contiguous()
+            with torch.inference_mode(False):
+                bounds = self._bounds[by]
+                off = self._expanded[key] = bounds.expand(tuple(lead) + bounds.shape).contiguous()
         return off
 
     def matvec(self, edge_probs, lead, transpose: bool):

@@ -1,7 +1,7 @@
 """Multi-device sharding over ``torch.distributed``: data, sequence and
-state parallelism on a mesh of ranks (port of ``hmm_layer_tpu/parallel``,
-its dense routes; the edge-sharded sparse routes are ROADMAP Queue 1 item
-13 (rest))."""
+state parallelism on a mesh of ranks (port of ``hmm_layer_tpu/parallel``):
+the dense routes (:mod:`.sharding`) and the sparse engine's edge-sharded
+state routes (:mod:`.sparse_sharding`)."""
 
 from .collectives import Mesh
 from .sharding import (
@@ -19,6 +19,12 @@ from .sharding import (
     state_sharded_posterior,
     state_sharded_viterbi,
 )
+from .sparse_sharding import (
+    ShardedEdgePlan,
+    edge_sharded_log_likelihood,
+    edge_sharded_posterior,
+    edge_sharded_viterbi,
+)
 
 __all__ = [
     "Mesh",
@@ -35,4 +41,8 @@ __all__ = [
     "seq_sharded_log_likelihood",
     "seq_sharded_posterior",
     "seq_sharded_viterbi",
+    "ShardedEdgePlan",
+    "edge_sharded_log_likelihood",
+    "edge_sharded_posterior",
+    "edge_sharded_viterbi",
 ]

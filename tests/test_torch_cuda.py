@@ -969,3 +969,35 @@ def test_data_route_runs_the_layer_kernels(cuda):
     ref = torch.autograd.grad(dense.posterior_cross_entropy(X, labels), list(dense.parameters()))
     for a, b in zip(g, ref):
         assert torch.equal(a, b)
+
+
+def test_edge_sharded_routes_equal_the_sparse_engine(cuda):
+    """The edge-sharded routes on a one-rank mesh ``{"state": 1}`` (one
+    bucket holding every edge in the single-device order): the
+    log-likelihood, posterior and decode and the MAP gradients equal
+    ``ops.sparse``'s on the card, and no kernel K1–K9 launches."""
+    from hmm_layer_torch.ops import sparse
+    from hmm_layer_torch.parallel import edge_sharded_log_likelihood, edge_sharded_posterior, edge_sharded_viterbi
+    from hmm_layer_torch.parallel import make_mesh
+
+    indices, init, probs, E, _, _ = _sparse_problem(L=64)
+    init, probs, E = (x.to(cuda) for x in (init, probs, E))
+    mesh = make_mesh({"state": 1})
+    for module in (cuda_forward, cuda_adjoint, cuda_viterbi, cuda_mxu):
+        module.reset_launches()
+    assert torch.equal(edge_sharded_log_likelihood(init, indices, probs, E, mesh),
+                       sparse.sparse_log_likelihood(init, indices, probs, E))
+    for got, ref in zip(edge_sharded_posterior(init, indices, probs, E, mesh),
+                        sparse.sparse_posterior(init, indices, probs, E, analytic_vjp=False)):
+        assert torch.equal(got, ref)
+    paths = edge_sharded_viterbi(init, indices, probs, E, mesh)
+    assert torch.equal(paths, sparse.sparse_viterbi(init, indices, probs, E))
+    grads = []
+    for fn in (lambda *a: edge_sharded_log_likelihood(*a[:1], indices, *a[1:], mesh),
+               lambda *a: sparse.sparse_log_likelihood(a[0], indices, *a[1:])):
+        xs = [x.clone().requires_grad_() for x in (init, probs, E)]
+        grads.append(torch.autograd.grad(fn(*xs).sum(), xs))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    for module in (cuda_forward, cuda_adjoint, cuda_viterbi, cuda_mxu):
+        assert not any(module.LAUNCHES.values())

@@ -667,15 +667,36 @@ def test_partition_checks():
         layer.forward_recursion(X)
 
 
-@pytest.mark.parametrize("axis", ["seq", "state"])
+@pytest.mark.parametrize("axis", ["seq"])
 def test_sparse_layer_seq_and_state_partitions_raise(axis):
+    """The sequence partition of a sparse layer raises, as in JAX (its
+    state partition is served: ``test_sparse_layer_state_route_matches_engine``
+    and ``tests/test_torch_sparse_sharding.py``)."""
     from hmm_layer_torch.parallel import make_mesh
 
     layer = _gene_layer(sparse=True, mesh=make_mesh({axis: 1}), partition={axis: axis})
     X, _, _ = _layer_inputs()
-    match = "Queue 1 item 13 \\(rest\\)" if axis == "state" else "sequence sharding"
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(NotImplementedError, match="sequence sharding"):
         layer.log_likelihood(X)
+
+
+def test_sparse_layer_state_route_matches_engine():
+    """On a one-rank mesh ``{"state": 1}`` the sparse layer's state route
+    (the edge-sharded functions) equals the sparse engine's layer."""
+    from hmm_layer_torch.parallel import make_mesh
+
+    routed = _gene_layer(sparse=True, mesh=make_mesh({"state": 1}), partition={"state": "state"})
+    single = _gene_layer(sparse=True)
+    X, labels, mask = _layer_inputs()
+    with torch.no_grad():
+        torch.testing.assert_close(routed.log_likelihood(X), single.log_likelihood(X), rtol=1e-6, atol=1e-5)
+        torch.testing.assert_close(
+            routed.state_posterior_log_probs(X), single.state_posterior_log_probs(X), rtol=1e-6, atol=1e-5
+        )
+        assert torch.equal(routed.viterbi(X), single.viterbi(X))
+    for objective in (lambda lay: lay.loss(X), lambda lay: lay.posterior_cross_entropy(X, labels, mask)):
+        got, ref = (_grads(objective(lay), list(lay.parameters())) for lay in (routed, single))
+        _assert_grads_scaled(got, ref, atol=1e-5)
 
 
 def test_one_rank_mesh_routes_match_dense():

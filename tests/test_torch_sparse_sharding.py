@@ -1,0 +1,413 @@
+"""The port's edge-sharded sparse routes (``hmm_layer_torch.parallel.
+sparse_sharding`` and the ``state`` partition of a sparse ``HMMLayer``) in
+one gloo world of four CPU ranks, against the JAX ``edge_sharded_*``
+functions on the 8-virtual-device mesh of ``tests/conftest.py`` on the same
+numpy inputs and parameters, at the tolerances of
+``tests/test_layer_mesh.py``, and against the port's single-device sparse
+layer.
+
+The world runs once for the module (every collective and the whole run
+time out) on the meshes ``{"state": 4}`` and ``{"data": 2, "state": 2}``:
+``GenePredMultiTransitions(k=2, sparse_forward=True)`` (q = 29, padded to
+32 over four state ranks and to 30 over two) and the simple family (q = 7)
+with an identity emitter. This file imports JAX only inside its fixtures
+and reference functions: the ranks load it without JAX.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+WORLD = 4
+MESHES = {"state4": {"state": 4}, "data2state2": {"data": 2, "state": 2}}
+PARTITIONS = {"state4": {"state": "state"}, "data2state2": {"batch": "data", "state": "state"}}
+FAMILIES = ("k2", "simple")
+B, L = 4, 40
+
+
+class IdentityEmitter(torch.nn.Module):
+    """The port's counterpart of ``tests/test_layer_mesh.py``'s
+    ``IdentityEmitter``: the inputs are the emission probabilities."""
+
+    def emissions(self, inputs, end_hints=None, training=False):
+        return inputs
+
+    def prior_log_density(self):
+        return torch.zeros(1)
+
+    def aux_loss(self):
+        return torch.zeros(())
+
+
+@functools.lru_cache(maxsize=None)
+def _problems():
+    """Per family: the JAX transition parameters (numpy), init, the edge
+    list and its probabilities, seeded emissions E (b = 4, L = 40), a
+    posterior cotangent W, CE labels and a label mask."""
+    import jax
+    from hmm_layer_tpu.models import GenePredMultiTransitions, SimpleGenePredTransitions
+
+    out = {}
+    families = (GenePredMultiTransitions(k=2, sparse_forward=True), SimpleGenePredTransitions(sparse_forward=True))
+    for seed, (family, jt) in enumerate(zip(FAMILIES, families)):
+        params = jax.device_get(jt.init_params(jax.random.PRNGKey(seed)))
+        indices, probs = jt.make_A_sparse(params)
+        q = jt.num_states
+        rng = np.random.default_rng(seed + 7)
+        out[family] = {
+            "params": params,
+            "init": np.asarray(jt.make_initial_distribution(params), np.float32),
+            "indices": np.asarray(indices),
+            "probs": np.asarray(probs, np.float32),
+            "E": rng.uniform(0.1, 1.0, (1, B, L, q)).astype(np.float32),
+            "W": rng.normal(size=(1, B, L, q)).astype(np.float32),
+            "labels": rng.integers(0, q, (1, B, L)),
+            "mask": (rng.uniform(size=(1, B, L)) > 0.3).astype(np.float32),
+        }
+    return out
+
+
+def _sparse_layer(family, pr, **kwargs):
+    """A sparse layer of ``family`` on the CPU with the JAX parameters."""
+    from hmm_layer_torch import HMMLayer
+    from hmm_layer_torch.convert import params_from_jax
+    from hmm_layer_torch.models import GenePredMultiTransitions, SimpleGenePredTransitions
+
+    if family == "k2":
+        t = GenePredMultiTransitions(k=2, sparse_forward=True)
+    else:
+        t = SimpleGenePredTransitions(sparse_forward=True)
+    t.load_state_dict(params_from_jax(pr["params"]))
+    return HMMLayer(t, IdentityEmitter(), use_prior=False, device="cpu", **kwargs)
+
+
+def _grads(loss, tensors):
+    return [g.numpy() for g in torch.autograd.grad(loss, tensors)]
+
+
+def _np(x):
+    return x.detach().numpy()
+
+
+# ---------------------------------------------------------------------------
+# The world: every case on every rank
+# ---------------------------------------------------------------------------
+
+
+def _function_cases(mesh, data, pr):
+    from hmm_layer_torch.parallel import sparse_sharding as S
+
+    init, probs, E, W = (torch.as_tensor(pr[k]) for k in ("init", "probs", "E", "W"))
+    idx = pr["indices"]
+    kw = dict(mesh=mesh, data_axis=data)
+    out = {"ll": _np(S.edge_sharded_log_likelihood(init, idx, probs, E, **kw))}
+    lg, ll = S.edge_sharded_posterior(init, idx, probs, E, **kw)
+    out["lg"], out["post_ll"] = _np(lg), _np(ll)
+    out["lg_nl"] = _np(S.edge_sharded_posterior(init, idx, probs, E, no_loglik=True, **kw)[0])
+    out["path"] = S.edge_sharded_viterbi(init, idx, probs, E, **kw).numpy()
+    xs = [x.clone().requires_grad_() for x in (init, probs, E)]
+    out["g_ll"] = _grads(S.edge_sharded_log_likelihood(xs[0], idx, xs[1], xs[2], **kw).sum(), xs)
+    for key, no_loglik in (("g_post", False), ("g_post_nl", True)):
+        lg, ll = S.edge_sharded_posterior(xs[0], idx, xs[1], xs[2], no_loglik=no_loglik, **kw)
+        out[key] = _grads((lg * W).sum() + ll.sum(), xs)
+    return out
+
+
+def _layer_cases(mesh, partition, family, pr):
+    X = pr["E"]
+    labels, mask = pr["labels"], pr["mask"]
+    out = {}
+    for name, layer in (("single", _sparse_layer(family, pr)),
+                        ("mesh", _sparse_layer(family, pr, mesh=mesh, partition=partition))):
+        with torch.no_grad():
+            out[f"{name}_ll"] = _np(layer.log_likelihood(X))
+            out[f"{name}_lg"] = _np(layer.state_posterior_log_probs(X))
+            out[f"{name}_path"] = layer.viterbi(X).numpy()
+        params = list(layer.parameters())
+        out[f"{name}_g_map"] = _grads(layer.loss(X), params)
+        out[f"{name}_g_ce"] = _grads(layer.posterior_cross_entropy(X, labels, mask), params)
+    return out
+
+
+def _trainer_case(mesh, partition, pr):
+    """Two Trainer steps (Adam 1e-2, the MAP loss) of the mesh layer: the
+    loss before and after, and the parameters every rank holds."""
+    from hmm_layer_torch.training import Trainer
+
+    layer = _sparse_layer("k2", pr, mesh=mesh, partition=partition)
+    X = pr["E"]
+    with torch.no_grad():
+        before = float(layer.loss(X))
+    Trainer(layer).fit([X] * 2, log_every=100)
+    with torch.no_grad():
+        after = float(layer.loss(X))
+    return {"before": before, "after": after, "params": {k: _np(v) for k, v in layer.state_dict().items()}}
+
+
+def _ragged_case(mesh, pr):
+    """b = 3 rows over two data ranks: the state route splits rows that must
+    divide, and raises."""
+    layer = _sparse_layer("k2", pr, mesh=mesh, partition=PARTITIONS["data2state2"])
+    try:
+        layer.log_likelihood(pr["E"][:, :3])
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def world_cases(problems):
+    """Every case of this file on this rank; run by each rank of the world."""
+    from hmm_layer_torch.parallel import make_mesh
+
+    meshes = {name: make_mesh(spec) for name, spec in MESHES.items()}
+    out = {}
+    for name, mesh in meshes.items():
+        data = "data" if "data" in MESHES[name] else None
+        out[name] = _function_cases(mesh, data, problems["k2"])
+        out[f"layer_{name}"] = {f: _layer_cases(mesh, PARTITIONS[name], f, problems[f]) for f in FAMILIES}
+        out[f"trainer_{name}"] = _trainer_case(mesh, PARTITIONS[name], problems["k2"])
+    out["ragged"] = _ragged_case(meshes["data2state2"], problems["k2"])
+    return out
+
+
+@pytest.fixture(scope="module")
+def world():
+    from hmm_layer_torch.parallel.launch import run_world
+
+    return run_world(world_cases, WORLD, _problems(), timeout_s=300)
+
+
+@pytest.fixture(scope="module")
+def results(world):
+    return world[0]
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+# ---------------------------------------------------------------------------
+# JAX references: one jit per mesh
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_functions(name):
+    import jax
+    import jax.numpy as jnp
+    from hmm_layer_tpu.parallel import sharding as J
+    from hmm_layer_tpu.parallel import sparse_sharding as JS
+
+    mesh = J.make_mesh(MESHES[name])
+    kw = dict(data_axis="data" if "data" in MESHES[name] else None)
+    pr = _problems()["k2"]
+    idx = pr["indices"]
+
+    def f(init, probs, E, W):
+        out = {"ll": JS.edge_sharded_log_likelihood(init, idx, probs, E, mesh, **kw)}
+        out["lg"], out["post_ll"] = JS.edge_sharded_posterior(init, idx, probs, E, mesh, **kw)
+        out["lg_nl"] = JS.edge_sharded_posterior(init, idx, probs, E, mesh, no_loglik=True, **kw)[0]
+        out["path"] = JS.edge_sharded_viterbi(init, idx, probs, E, mesh, **kw)
+        out["g_ll"] = jax.grad(
+            lambda *a: JS.edge_sharded_log_likelihood(a[0], idx, a[1], a[2], mesh, **kw).sum(), argnums=(0, 1, 2)
+        )(init, probs, E)
+
+        def post_obj(i, p, e, no_loglik):
+            lg, ll = JS.edge_sharded_posterior(i, idx, p, e, mesh, no_loglik=no_loglik, **kw)
+            return jnp.sum(lg * W) + jnp.sum(ll)
+
+        for key, no_loglik in (("g_post", False), ("g_post_nl", True)):
+            out[key] = jax.grad(functools.partial(post_obj, no_loglik=no_loglik), argnums=(0, 1, 2))(init, probs, E)
+        return out
+
+    out = jax.jit(f)(pr["init"], pr["probs"], pr["E"], pr["W"])
+    return jax.tree.map(np.asarray, out)
+
+
+def _assert_grads_scaled(got, ref, atol):
+    for a, r in zip(got, ref):
+        scale = np.abs(np.asarray(r)).max() + 1e-9
+        np.testing.assert_allclose(a / scale, np.asarray(r) / scale, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# The functions against JAX
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_edge_sharded_log_likelihood(results, name):
+    np.testing.assert_allclose(results[name]["ll"], _jax_functions(name)["ll"], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+@pytest.mark.parametrize("key", ["lg", "lg_nl"])
+def test_edge_sharded_posterior(results, name, key):
+    ref = _jax_functions(name)
+    np.testing.assert_allclose(results[name]["post_ll"], ref["post_ll"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(results[name][key], ref[key], atol=5e-5)
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_edge_sharded_viterbi(results, name):
+    path = results[name]["path"]
+    assert path.dtype == np.int32 and path.shape == (1, B, L)
+    np.testing.assert_array_equal(path, _jax_functions(name)["path"])
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_edge_sharded_log_likelihood_grads(results, name):
+    """The analytic Baum-Welch VJP: gradients of init, the edge
+    probabilities and E."""
+    _assert_grads_scaled(results[name]["g_ll"], _jax_functions(name)["g_ll"], atol=1e-4)
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+@pytest.mark.parametrize("key", ["g_post", "g_post_nl"])
+def test_edge_sharded_posterior_grads(results, name, key):
+    """The taped posterior's gradients, with and without ``no_loglik``."""
+    _assert_grads_scaled(results[name][key], _jax_functions(name)[key], atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# HMMLayer(mesh, partition={"state": ...}) and Trainer
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+@pytest.mark.parametrize("family", FAMILIES)
+def test_layer_state_route_matches_single_device(results, name, family):
+    """Log-likelihood, posterior and decode of the state route against the
+    single-device sparse layer (``tests/test_layer_mesh.py``'s
+    tolerances)."""
+    r = results[f"layer_{name}"][family]
+    np.testing.assert_allclose(r["mesh_ll"], r["single_ll"], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(r["mesh_lg"], r["single_lg"], atol=5e-5)
+    np.testing.assert_array_equal(r["mesh_path"], r["single_path"])
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+@pytest.mark.parametrize("family", FAMILIES)
+@pytest.mark.parametrize("objective", ["map", "ce"])
+def test_layer_state_route_grads_match_single_device(results, name, family, objective):
+    """MAP through the sharded Baum-Welch VJP, CE through the taped
+    edge-sharded posterior; the single-device layer's CE is the fused
+    analytic one."""
+    r = results[f"layer_{name}"][family]
+    _assert_grads_scaled(r[f"mesh_g_{objective}"], r[f"single_g_{objective}"], atol=1e-4)
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_trainer_trains_the_state_route(world, name):
+    """Two Trainer steps lower the MAP loss, and every rank holds the same
+    parameters."""
+    r = world[0][f"trainer_{name}"]
+    assert r["after"] < r["before"]
+    for other in world[1:]:
+        for key, value in r["params"].items():
+            np.testing.assert_array_equal(other[f"trainer_{name}"]["params"][key], value)
+
+
+def test_ragged_rows_raise(results):
+    err = results["ragged"]
+    assert err is not None and "not divisible" in err, err
+
+
+def test_every_rank_returns_the_global_result(world):
+    first = world[0]
+
+    def check(a, b, path):
+        if isinstance(a, dict):
+            for k in a:
+                check(a[k], b[k], f"{path}/{k}")
+        elif isinstance(a, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                check(x, y, f"{path}/{i}")
+        else:
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b), err_msg=path)
+
+    for other in world[1:]:
+        check(first, other, "")
+
+
+# ---------------------------------------------------------------------------
+# In-process checks (no process group: one-rank meshes)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n_shards, q_pad", [(1, 29), (2, 30), (4, 32), (8, 32)])
+def test_plan_buckets_keep_the_single_device_edge_order(n_shards, q_pad):
+    """Concatenated over the shards, the forward buckets are the
+    single-device plan's destination order and the backward buckets its
+    source order; each bucket's keys lie in its own state block."""
+    from hmm_layer_torch.models import GenePredMultiTransitions
+    from hmm_layer_torch.ops.sparse import EdgePlan
+    from hmm_layer_torch.parallel import ShardedEdgePlan
+
+    indices, _ = GenePredMultiTransitions(k=2, sparse_forward=True).make_A_sparse()
+    plan = ShardedEdgePlan(indices, 29, n_shards)
+    single = EdgePlan(indices)
+    assert (plan.q_pad, plan.q_local) == (q_pad, q_pad // n_shards)
+    np.testing.assert_array_equal(np.concatenate([b.sel for b in plan.fwd]), single.perm_d)
+    np.testing.assert_array_equal(np.concatenate([b.sel for b in plan.bwd]), single.perm_s)
+    for buckets, col in ((plan.fwd, 1), (plan.bwd, 0)):
+        for d, bucket in enumerate(buckets):
+            assert ((bucket.key >= 0) & (bucket.key < plan.q_local)).all()
+            np.testing.assert_array_equal(bucket.key + d * plan.q_local, indices[bucket.sel, col])
+            np.testing.assert_array_equal(bucket.other, indices[bucket.sel, 1 - col])
+
+
+def test_plan_is_memoised_and_takes_host_indices_only():
+    from hmm_layer_torch.models import GenePredMultiTransitions
+    from hmm_layer_torch.parallel import ShardedEdgePlan
+
+    indices, _ = GenePredMultiTransitions(k=2, sparse_forward=True).make_A_sparse()
+    assert ShardedEdgePlan.cached(indices, 29, 4) is ShardedEdgePlan.cached(torch.as_tensor(indices), 29, 4)
+    with pytest.raises(TypeError, match="host array"):
+        ShardedEdgePlan.cached(torch.as_tensor(indices, device="meta"), 29, 4)
+    with pytest.raises(ValueError, match="reach state 28"):
+        ShardedEdgePlan(indices, 20, 2)
+
+
+def test_state_route_sample_paths_raises():
+    """``sample_paths`` (and the recursions the dense engine serves) have no
+    state-sharded form, as in the JAX layer."""
+    from hmm_layer_torch.parallel import make_mesh
+
+    pr = _problems()["simple"]
+    layer = _sparse_layer("simple", pr, mesh=make_mesh({"state": 1}), partition={"state": "state"})
+    with pytest.raises(NotImplementedError, match="sample_paths"):
+        layer.sample_paths(pr["E"])
+    with pytest.raises(NotImplementedError, match="forward_recursion"):
+        layer.forward_recursion(pr["E"])
+
+
+def test_plans_first_used_in_inference_mode_serve_taped_gradients():
+    """The index tensors of both plans (single-device and sharded) are made
+    outside inference mode: a taped gradient after a first call in
+    inference mode works and equals the single-device one."""
+    from hmm_layer_torch.ops import sparse
+    from hmm_layer_torch.parallel import edge_sharded_posterior, make_mesh
+
+    pr = _problems()["simple"]
+    mesh = make_mesh({"state": 1})
+    indices = pr["indices"].copy()
+    indices[[0, -1]] = indices[[-1, 0]]  # an edge order no other test has cached
+    args = [torch.tensor(pr[k]) for k in ("init", "probs", "E")]
+    with torch.inference_mode():
+        sparse.sparse_posterior(args[0], indices, *args[1:], analytic_vjp=False)
+        edge_sharded_posterior(args[0], indices, *args[1:], mesh)
+    grads = []
+    for fn in (lambda i, p, e: sparse.sparse_posterior(i, indices, p, e, analytic_vjp=False),
+               lambda i, p, e: edge_sharded_posterior(i, indices, p, e, mesh)):
+        xs = [x.clone().requires_grad_() for x in args]
+        lg, ll = fn(*xs)
+        grads.append(_grads((lg * torch.tensor(pr["W"])).sum() + ll.sum(), xs))
+    for a, b in zip(*grads):
+        np.testing.assert_array_equal(a, b)
