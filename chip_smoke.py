@@ -157,9 +157,22 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    ``edge_sharded_posterior`` against ``sparse_log_likelihood`` /
    ``sparse_posterior``. Each call per rank: its ms, its device busy
    share (profiled on its first 200 positions) and peak device memory,
-   beside the sparse engine's in this process.
+   beside the sparse engine's in this process. After the global calls
+   each world makes the same calls under ``local=True`` on the rank's
+   blocks (``parallel.local_ranges``): the seq route's posterior and CE
+   step (K4 and K5 once each in its backward), the dense state route's
+   chunked posterior, config 5's edge posterior, decode and MAP value and
+   gradients, and q = 14,001's posterior; each local result bit-equal to
+   its block of the global one, and per rank its ms and peak memory above
+   the call's start beside the global call's (and the sparse engine's);
+   the config-5 and q = 14,001 posteriors' local peaks must lie below the
+   engine's.
+14. The examples: the five ``examples/torch_*.py`` at their default sizes
+   on the card, started together (the mesh ones spawn two ranks sharing
+   the card under gloo); each must exit 0 and print its line.
    ``python3 -c "import chip_smoke; chip_smoke.develop_phase13()"`` runs
-   phases 1, 2, 7 and 13 alone for development, and prints no result.
+   phases 1, 2, 7, 13 and 14 alone for development, and prints no
+   result.
 
 The second-to-last line is the JSON record of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before it.
@@ -2842,6 +2855,8 @@ DATA_ROUTE_LAUNCHES = {
 # ... of the sequence route (plain primal and decode, as in the JAX
 # package): K4 and K5 once in each of its 3 CE backwards, nothing else.
 SEQ_ROUTE_LAUNCHES = {"affine_chunk_composites": 3, "affine_reverse_outputs": 3}
+# ... and of its CE step under local=True: K4 and K5 once each.
+SEQ_LOCAL_CE_LAUNCHES = {"affine_chunk_composites": 1, "affine_reverse_outputs": 1}
 
 
 def route_counters():
@@ -2880,14 +2895,17 @@ def gloo_cuda_probe():
         dist.all_gather(parts, x)
         return bool((torch.cat(parts) == gathered).all())
 
-    def all_gather_into_tensor():
+    def all_gather_into_tensor():  # the one-buffer form collectives.all_gather takes
+        from hmm_layer_torch.parallel.collectives import _gather_into
+
         y = torch.empty(n * 4, device="cuda")
-        dist.all_gather_into_tensor(y, x)
+        _gather_into()(y, x)
         return bool((y == gathered).all())
 
     # Point-to-point send/recv of a CUDA tensor under gloo aborts the
     # sending process (gloo::IoException "writev: Bad address", torch 2.11):
-    # the collectives helper shifts through all-gathers and never sends.
+    # the collectives helper shifts through all-gathers and never sends;
+    # its all-gathers gather into one flat buffer.
     out = {}
     for op in (all_reduce, broadcast, all_gather, all_gather_into_tensor):
         try:
@@ -2989,7 +3007,47 @@ def seq_route_rank(problem):
         out["f64"] = route_objectives(*fns, *[t.double() for t in args[:3]], *args[3:])
     if out["rank"] != 0:
         del out["f32"], out["f64"]
+    out["local"] = seq_local_calls(mesh, P_local, *args)
     return out
+
+
+def seq_local_calls(mesh, P_local, init, A, E, labels, mask):
+    """Rank body part: the sequence route's posterior and CE step (the
+    masked CE's gradients with respect to init, A and E), each as a global
+    call on the whole E and then under ``local=True`` on this rank's block
+    of positions (:func:`measured_call`); the local results against the
+    global ones' blocks (bit-equal), and the local CE step's launches (K4
+    and K5 once each in its backward)."""
+    from hmm_layer_torch.parallel import local_ranges
+    from hmm_layer_torch.parallel import sharding as S
+
+    counters = route_counters()
+    r = local_ranges(mesh, "seq", E.shape)
+    E_l, pos = E[r.index].contiguous(), slice(*r.positions)
+    total = mask.sum()
+
+    def post(e, **kw):
+        return S.seq_sharded_posterior(init, A, e, mesh, "seq", local_parallel_factor=P_local, **kw)
+
+    def ce_step(e, lab, msk, **kw):
+        xs = [t.detach().clone().requires_grad_() for t in (init, A, e)]
+        lg, _ = S.seq_sharded_posterior(*xs, mesh, "seq", local_parallel_factor=P_local, **kw)
+        ce = -(torch.gather(lg, -1, lab[None, ..., None])[..., 0] * msk).sum() / total
+        return torch.autograd.grad(ce, xs)
+
+    recs, equal = {}, {}
+    (lg, ll), recs["posterior global"] = measured_call(lambda: post(E))
+    (lg_l, ll_l), recs["posterior local"] = measured_call(lambda: post(E_l, local=True))
+    equal["posterior"] = torch.equal(lg_l, lg[r.index]) and torch.equal(ll_l, ll)
+    del lg, ll, lg_l, ll_l
+    g, recs["CE step global"] = measured_call(lambda: ce_step(E, labels, mask), inference=False)
+    reset_kernels(counters)
+    g_l, recs["CE step local"] = measured_call(lambda: ce_step(E_l, labels[:, pos], mask[:, pos], local=True),
+                                               inference=False)
+    launches = kernel_counts(counters)
+    equal["CE gradients"] = (torch.equal(g_l[0], g[0]) and torch.equal(g_l[1], g[1])
+                             and torch.equal(g_l[2], g[2][r.index]))
+    return {"records": recs, "equal": equal, "launches": launches, "ranges": tuple(r)}
 
 
 def route_objectives(post, loglik, init, A, E, labels, mask):
@@ -3106,7 +3164,32 @@ def state_route_rank(b, length, pf, seq_length, vit_length):
     out["launches"] = kernel_counts(counters)
     for key in ("lg_1", f"lg_{pf}", "ll_1", f"ll_{pf}", "path"):
         out[key] = out[key].cpu() if out["rank"] == 0 else None
+    out["local"] = state_local_calls(layer, X, mesh, pf)
     return out
+
+
+def state_local_calls(layer, X, mesh, pf):
+    """Rank body part: the dense state route's chunked posterior (parallel
+    factor ``pf``) on the layer's padded ingredients, as a global call and
+    under ``local=True`` on this rank's (rows, state columns) block
+    (:func:`measured_call`); the local result against the global one's
+    block (bit-equal)."""
+    from hmm_layer_torch.parallel import local_ranges
+    from hmm_layer_torch.parallel import sharding as S
+
+    with torch.inference_mode():
+        init, A, E, _ = layer._pad_state(*layer._ingredients(X, None, False))
+    r = local_ranges(mesh, "state", E.shape)
+    E_l = E[r.index].contiguous()
+
+    def post(e, **kw):
+        return S.state_sharded_posterior(init, A, e, mesh, "state", parallel_factor=pf, **kw)
+
+    recs = {}
+    (lg, ll), recs["chunked posterior global"] = measured_call(lambda: post(E))
+    (lg_l, ll_l), recs["chunked posterior local"] = measured_call(lambda: post(E_l, local=True))
+    equal = {"chunked posterior": torch.equal(lg_l, lg[r.index]) and torch.equal(ll_l, ll)}
+    return {"records": recs, "equal": equal, "ranges": tuple(r)}
 
 
 def route_reference(layer, X, labels, mask, rows=None):
@@ -3164,6 +3247,24 @@ def compare_route(tag, got, ref, init, A, E, lg_tol, grad_tol, loss_tol):
             and step_err <= step_tol and par_err <= par_tol):
         raise AssertionError(f"{tag}: the route disagrees with the unsharded layer")
     return {"ll_err": ll_err, "lg_err": lg_err, "gamma_err": g_err, "grad_err": grad_err, "paths_equal": same}
+
+
+def local_text(name, rec):
+    return f"{name} {rec['ms']:.1f} ms, peak {rec['above_mib']:.1f} MiB above the call's start"
+
+
+def report_local(tag, results):
+    """Log each rank's global and rank-local calls (ms, peak memory above
+    the call's start) and fail where a local result differs from its block
+    of the global one."""
+    for r in results:
+        loc = r["local"]
+        log(f"phase 13 {tag} rank {r['rank']}, global vs local=True (block rows, positions, states "
+            f"{loc['ranges']}): " + "; ".join(local_text(k, v) for k, v in loc["records"].items())
+            + f"; local bit-equal to the global blocks: {loc['equal']}")
+    bad = [(r["rank"], k) for r in results for k, ok in r["local"]["equal"].items() if not ok]
+    if bad:
+        raise AssertionError(f"{tag}: local mode differs from the global mode's blocks: {bad}")
 
 
 def rank_times(tag, results):
@@ -3247,7 +3348,7 @@ def routes_phase(HMMLayer, models, make, smi):
     except (RuntimeError, TimeoutError) as exc:
         probe = f"the probe world failed: {str(exc)[-300:]}"
     log(f"phase 13 gloo on CUDA tensors (torch {torch.__version__}; values checked): {probe}")
-    if not isinstance(probe, dict) or probe["all_reduce"] != "ok" or probe["all_gather"] != "ok":
+    if not isinstance(probe, dict) or any(probe[k] != "ok" for k in ("all_reduce", "all_gather_into_tensor")):
         raise AssertionError("gloo refuses a collective the shared-card worlds use on CUDA tensors")
 
     # (a) data route, world 2 on the shared card
@@ -3283,6 +3384,9 @@ def routes_phase(HMMLayer, models, make, smi):
     rank_times(f"seq route world {SEQ_WORLD}", results)
     for r in results:
         check_launches(f"seq route rank {r['rank']}", r["launches"], SEQ_ROUTE_LAUNCHES)
+        check_launches(f"seq route rank {r['rank']} local CE step", r["local"]["launches"], SEQ_LOCAL_CE_LAUNCHES)
+    report_local(f"seq route world {SEQ_WORLD} functions", results)
+    summary.update({f"seq_w3_{k.replace(' ', '_')}_ms": v["ms"] for k, v in results[0]["local"]["records"].items()})
     got = results[0]
     err64 = objective_errors(got["f64"], obj64)
     err32 = objective_errors(got["f32"], obj64)
@@ -3344,6 +3448,8 @@ def routes_phase(HMMLayer, models, make, smi):
         log(f"phase 13 state route rank {r['rank']} ({r['backend']}): launches none; chunked (P={STATE_PF}) "
             f"posterior + loglik {r[f'post_ms_{STATE_PF}']:.3f} ms (b={SPARSE_B}, L={SPARSE_L}); sequential "
             f"(P=1) {r['post_ms_1']:.3f} ms (L={STATE_SEQ_L}); decode {r['decode_ms']:.3f} ms (L={STATE_VIT_L})")
+    report_local(f"state route world {STATE_WORLD} functions (P={STATE_PF}, L={SPARSE_L})", results)
+    summary.update({f"state_w2_{k.replace(' ', '_')}_ms": v["ms"] for k, v in results[0]["local"]["records"].items()})
     got = results[0]
     checks = []
     ll_seq_err, ll_seq_ok = within(got[f"ll_{STATE_PF}"].cuda(), ll_d, 1e-4, 0.0)
@@ -3502,11 +3608,14 @@ def edge_route_rank(lengths, labels, mask):
     pars = [p for p in layer.parameters() if p.requires_grad]
     _, wall_init, wall_idx, wall_probs, wall_E = wall_problem(models, device, lengths["wall"])
     wall = lambda fn: lambda n: fn(wall_init, wall_idx, wall_probs, wall_E[:, :, :n], mesh)  # noqa: E731
+    ingredient_grads = {}  # the MAP call's gradients of (init, edge probs, E), by length
     calls = {
         "posterior": (lambda n: layer.state_posterior_log_probs(X[:, :, :n]), lengths["c5"], True),
         "loglik": (lambda n: layer.log_likelihood(X[:, :, :n]), lengths["c5"], True),
         "decode": (lambda n: layer.viterbi(X[:, :, :n]), lengths["c5"], True),
-        "map": (lambda n: grads_of(layer.loss(X[:, :, :n]), pars), lengths["c5"], False),
+        "map": (lambda n: with_ingredient_grads(layer, ingredient_grads.setdefault(n, {}),
+                                                lambda: grads_of(layer.loss(X[:, :, :n]), pars)),
+                lengths["c5"], False),
         "ce": (lambda n: grads_of(layer.posterior_cross_entropy(X[:, :, :n], labels[:, :n], label_mask=mask[:, :n]),
                                   pars), lengths["ce"], False),
         "wall_loglik": (wall(edge_sharded_log_likelihood), lengths["wall"], True),
@@ -3515,11 +3624,106 @@ def edge_route_rank(lengths, labels, mask):
     reset_kernels(counters)
     out = {"rank": dist.get_rank(), "backend": dist.get_backend(), "setup_s": time.perf_counter() - t0}
     results, out["calls"] = measure_calls(calls)
+    out["local"] = edge_local_calls(layer, X, mesh, results, ingredient_grads[lengths["c5"]],
+                                    (wall_init, wall_idx, wall_probs, wall_E))
     out["launches"] = kernel_counts(counters)
     if out["rank"] == 0:
         cpu = lambda x: x.cpu() if torch.is_tensor(x) else [cpu(t) for t in x]  # noqa: E731
         out["results"] = {k: cpu(v) for k, v in results.items()}
     return out
+
+
+def with_ingredient_grads(layer, store, fn):
+    """``fn()`` with hooks that store the gradients of the sparse layer's
+    ingredients (init, edge probabilities, E) in ``store``."""
+    ingredients = layer._sparse_ingredients
+
+    def hooked(*args):
+        init, indices, probs, E = ingredients(*args)
+        for name, t in (("init", init), ("probs", probs), ("E", E)):
+            if t.requires_grad:
+                t.register_hook(lambda g, name=name: store.__setitem__(name, g))
+        return init, indices, probs, E
+
+    layer._sparse_ingredients = hooked
+    try:
+        return fn()
+    finally:
+        del layer._sparse_ingredients
+
+
+def edge_local_calls(layer, X, mesh, results, map_grads, wall):
+    """Rank body part: the edge-sharded functions under ``local=True`` on
+    this rank's block of the state columns (:func:`measured_call`), after
+    the global calls of :func:`edge_route_rank`: config 5's posterior,
+    decode and MAP value and gradients (of init, the edge probabilities and
+    the E block: the emitter computes no column block), and q = 14,001's
+    posterior. Each local result against its block of the global one
+    (bit-equal; the MAP gradients against those the global call's hooks
+    stored). Then the same four as global and local function calls in
+    turns (global, local, local, global) on BUSY_L positions: the local
+    over global time ratio of each, paired (single calls through gloo vary
+    by tens of percent from one machine to the next)."""
+    from hmm_layer_torch.parallel import (
+        edge_sharded_log_likelihood,
+        edge_sharded_posterior,
+        edge_sharded_viterbi,
+        local_ranges,
+    )
+
+    with torch.no_grad():
+        init, idx, probs, E = layer._sparse_ingredients(X, None, False)
+        E_train = layer.emission_probs(X, training=True)
+    r = local_ranges(mesh, "edge", E.shape)
+    E_l, E_train_l = E[r.index].contiguous(), E_train[r.index].contiguous()
+    short = {"E": E[:, :, :BUSY_L].contiguous(), "E_train": E_train[:, :, :BUSY_L].contiguous()}
+    del E, E_train
+
+    def map_step(e, **kw):
+        xs = [t.detach().clone().requires_grad_() for t in (init, probs, e)]
+        ll = edge_sharded_log_likelihood(xs[0], idx, xs[1], xs[2], mesh, **kw)
+        loss = -layer.apply_sequence_weights(ll, None, aggregate=True) + layer.aux_loss()
+        return torch.autograd.grad(loss, xs)
+
+    recs, equal = {}, {}
+    (lg_l, _), recs["posterior"] = measured_call(lambda: edge_sharded_posterior(init, idx, probs, E_l, mesh, local=True))
+    equal["posterior"] = torch.equal(lg_l, results["posterior"][r.index])
+    del lg_l
+    path_l, recs["decode"] = measured_call(lambda: edge_sharded_viterbi(init, idx, probs, E_l, mesh, local=True))
+    equal["decode"] = torch.equal(path_l, results["decode"][:, slice(*r.rows)])
+    g, recs["map"] = measured_call(lambda: map_step(E_train_l, local=True), inference=False)
+    equal["map gradients"] = (torch.equal(g[0], map_grads["init"]) and torch.equal(g[1], map_grads["probs"])
+                              and torch.equal(g[2], map_grads["E"][r.index]))
+    del g
+    w_init, w_idx, w_probs, w_E = wall
+    rw = local_ranges(mesh, "edge", w_E.shape)
+    wE_l = w_E[rw.index].contiguous()
+    (wlg_l, wll_l), recs["wall_posterior"] = measured_call(
+        lambda: edge_sharded_posterior(w_init, w_idx, w_probs, wE_l, mesh, local=True))
+    wlg, wll = results["wall_posterior"]
+    equal["wall_posterior"] = torch.equal(wlg_l, wlg[rw.index]) and torch.equal(wll_l, wll)
+    del wlg_l, wll_l
+
+    n = BUSY_L
+    w_short = w_E[:, :, :n].contiguous()
+    pairs = {  # name: (global call, local call, inference)
+        "posterior": (lambda: edge_sharded_posterior(init, idx, probs, short["E"], mesh),
+                      lambda: edge_sharded_posterior(init, idx, probs, E_l[:, :, :n], mesh, local=True), True),
+        "decode": (lambda: edge_sharded_viterbi(init, idx, probs, short["E"], mesh),
+                   lambda: edge_sharded_viterbi(init, idx, probs, E_l[:, :, :n], mesh, local=True), True),
+        "map": (lambda: map_step(short["E_train"]), lambda: map_step(E_train_l[:, :, :n], local=True), False),
+        "wall_posterior": (lambda: edge_sharded_posterior(w_init, w_idx, w_probs, w_short, mesh),
+                           lambda: edge_sharded_posterior(w_init, w_idx, w_probs, wE_l[:, :, :n], mesh, local=True),
+                           True),
+    }
+    paired = {}
+    for name, (glob, loc, inference) in pairs.items():
+        ms = {"global": [], "local": []}
+        with torch.inference_mode(inference):
+            for which in ("global", "local", "local", "global"):
+                ms[which].append(synced_ms(glob if which == "global" else loc)[1])
+        paired[name] = {k: sum(v) / 2 for k, v in ms.items()}
+    return {"records": recs, "equal": equal, "ranges": tuple(r), "wall_ranges": tuple(rw), "paired": paired}
 
 
 def sparse_truth(layer, X, objective64):
@@ -3599,6 +3803,7 @@ def edge_routes_phase(HMMLayer, models, make, smi):
     log(f"phase 13 single-device sparse engine on the card (the references; launches none; busy shares on "
         f"{BUSY_L} positions): "
         + "; ".join(call_text(k, v) for k, v in ref_rec.items()))
+    local_checks = edge_local_report(results, ref_rec)
     got = {k: v for k, v in results[0]["results"].items()}
     dev = X.device
     checks = {}
@@ -3648,13 +3853,46 @@ def edge_routes_phase(HMMLayer, models, make, smi):
         f"{-(-w_init.shape[-1] // EDGE_WORLD) * EDGE_WORLD}, {len(w_idx)} edges, b={WALL_B}, L={WALL_L}, world "
         f"{EDGE_WORLD}) vs sparse_log_likelihood / sparse_posterior: loglik max abs {w_ll_err:.3e} and {w_ll2_err:.3e} "
         f"(bound {wbound:.3g}), log gamma where gamma >= 1e-3 max abs {w_lg_err:.3e} (bound {2 * wbound:.3g})")
+    checks.update(local_checks)
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"edge-sharded routes disagree with the sparse engine: {failed}")
     log(f"phase 13 edge routes took {time.perf_counter() - t0:.1f} s (on {smi})")
     summary = {f"edge_w{EDGE_WORLD}_{k}_ms": v["ms"] for k, v in results[0]["calls"].items()}
+    summary.update({f"edge_w{EDGE_WORLD}_local_{k}_ms": v["ms"] for k, v in results[0]["local"]["records"].items()})
     summary.update({f"edge_single_{k}_ms": v["ms"] for k, v in ref_rec.items()})
     return summary
+
+
+def edge_local_report(results, ref_rec):
+    """Per rank, each local call beside the rank's global call and the
+    single-device engine's (ms, peak memory above the call's start); the
+    checks: local results bit-equal to the global blocks, and the config-5
+    and q = 14,001 posteriors' local peaks below the engine's."""
+    checks = {}
+    for r in results:
+        loc = r["local"]
+        parts = []
+        for name, rec in loc["records"].items():
+            glob, eng = r["calls"][name], ref_rec[name]
+            parts.append(f"{name} local {rec['ms']:.1f} ms / {rec['above_mib']:.1f} MiB, global "
+                         f"{glob['ms']:.1f} / {glob['above_mib']:.1f}, engine {eng['ms']:.1f} / "
+                         f"{eng['above_mib']:.1f} (local peak {rec['above_mib'] / eng['above_mib']:.3f}x the "
+                         f"engine's, {rec['above_mib'] / glob['above_mib']:.3f}x global's; ms "
+                         f"{rec['ms'] / glob['ms']:.3f}x global's)")
+        log(f"phase 13 edge route rank {r['rank']}, local=True on its state block {loc['ranges'][2]} (q = 14,001: "
+            f"{loc['wall_ranges'][2]}), ms / peak MiB above the call's start: " + "; ".join(parts)
+            + f"; local bit-equal to the global blocks: {loc['equal']}")
+        log(f"phase 13 edge route rank {r['rank']}, global and local function calls in turns (global, local, local, "
+            f"global) on {BUSY_L} positions, mean ms: " + "; ".join(
+                f"{name} global {p['global']:.1f}, local {p['local']:.1f} ({p['local'] / p['global']:.3f}x)"
+                for name, p in loc["paired"].items()))
+        for key, ok in loc["equal"].items():
+            checks[f"rank {r['rank']} local {key} equal"] = ok
+        for name in ("posterior", "wall_posterior"):
+            checks[f"rank {r['rank']} local {name} peak below the engine's"] = (
+                loc["records"][name]["above_mib"] < ref_rec[name]["above_mib"])
+    return checks
 
 
 def native_reader_phase(fasta, npz, tmp, smi):
@@ -3738,6 +3976,57 @@ def native_reader_phase(fasta, npz, tmp, smi):
     return out
 
 
+# ---------------------------------------------------------------------------
+# 14. The port's examples
+# ---------------------------------------------------------------------------
+
+# Each example at its default size on the card (the mesh ones at world 2:
+# NCCL takes one card a rank, so on one card they run gloo), and a line of
+# its output that shows it ran through.
+EXAMPLES = {
+    "torch_gene_prediction.py": ([], "synthetic: L=4096"),
+    "torch_train_profile_msa.py": ([], "done."),
+    "torch_distributed_training.py": ([], "sharded steps"),
+    "torch_train_sparse_multichip.py": ([], "equal to the layer route's: True"),
+    "torch_train_dirichlet_priors.py": (["--out", "{tmp}"], "saved"),
+}
+EXAMPLE_TIMEOUT_S = 600
+
+
+def examples_phase(smi):
+    """Phase 14: the five ``examples/torch_*.py`` as a user runs them
+    (``python3 examples/<name>``, no ``--cpu``), started together; each
+    must exit 0 and print its line. The Dirichlet one writes to a
+    temporary directory."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, OMP_NUM_THREADS="1")  # nine processes share the host's cores
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, (args, _) in EXAMPLES.items():
+            cmd = [sys.executable, os.path.join(root, "examples", name), *(a.format(tmp=tmp) for a in args)]
+            procs[name] = (subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True), time.perf_counter())
+        failed = []
+        for name, (proc, start) in procs.items():
+            try:
+                text, _ = proc.communicate(timeout=max(EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0), 1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+            lines = text.strip().splitlines()
+            ok = proc.returncode == 0 and any(EXAMPLES[name][1] in line for line in lines)
+            log(f"phase 14 examples/{name}: exit {proc.returncode} after {time.perf_counter() - start:.1f} s "
+                f"(started with the others); last lines: {' | '.join(lines[-3:])}")
+            if not ok:
+                failed.append(name)
+    log(f"phase 14 the five examples ran together in {time.perf_counter() - t0:.1f} s on {smi}")
+    if failed:
+        raise AssertionError(f"examples failed: {failed}")
+
+
 def device_and_build(_cuda_build):
     """Phases 1 and 2: the card and its peaks, then every kernel built
     (one nvcc per source, all started together). Returns (kind, smi,
@@ -3765,7 +4054,7 @@ def device_and_build(_cuda_build):
 
 
 def develop_phase13():
-    """Phases 1, 2, 7 and 13 alone, for development on the card:
+    """Phases 1, 2, 7, 13 and 14 alone, for development on the card:
     ``python3 -c "import chip_smoke; chip_smoke.develop_phase13()"``. It
     checks no kernel against its plain version and prints neither the
     kernel record nor the result line: only ``main`` does."""
@@ -3779,7 +4068,8 @@ def develop_phase13():
         native_reader_phase(fasta, npz, tmp, smi)
     routes_phase(HMMLayer, models, make, smi)
     edge_routes_phase(HMMLayer, models, make, smi)
-    log("phase 13 development run passed (phases 1, 2, 7 and 13 only; not a smoke result)")
+    examples_phase(smi)
+    log("phase 13 development run passed (phases 1, 2, 7, 13 and 14 only; not a smoke result)")
 
 
 def main() -> int:
@@ -3904,6 +4194,9 @@ def main() -> int:
     log(f"phase 13 summary on {smi}: " + ", ".join(
         f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}" for k, v in times.items()))
     log(f"phase 13 took {time.perf_counter() - t0:.1f} s")
+
+    # 14. The port's examples
+    examples_phase(smi)
 
     launches.update({k: v for k, v in decode_launches.items() if k in DECODE_Q16})
     launches.update({k: train_launches[k] for k in cuda_adjoint.LAUNCHES})

@@ -24,6 +24,8 @@ import torch
 
 torch.set_float32_matmul_precision("highest")
 
+__version__ = "0.1.0"
+
 _EXPORTS = {
     "HMMLayer": ".layer",
     "forward": ".ops.recursion",
@@ -33,6 +35,8 @@ _EXPORTS = {
     "viterbi": ".ops.recursion",
     "recommended_parallel_factor": ".ops.recursion",
     "ForwardResult": ".ops.recursion",
+    "set_dp_precision": ".ops.recursion",
+    "dp_precision": ".ops.recursion",
     "Trainer": ".training",
     "load_jax_params": ".convert",
     "params_from_jax": ".convert",
@@ -45,7 +49,7 @@ _EXPORTS = {
 }
 _MODULES = ("data", "models", "native", "ops", "parallel", "streaming", "utils")
 
-__all__ = sorted(_EXPORTS) + list(_MODULES)
+__all__ = sorted(_EXPORTS) + list(_MODULES) + ["__version__"]
 
 
 def __getattr__(name):

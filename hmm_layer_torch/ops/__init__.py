@@ -8,8 +8,9 @@ recursions over COO edge lists, for large multi-copy models),
 :mod:`.cuda_forward`
 (kernels K1–K3), :mod:`.cuda_adjoint` (kernels K4–K5),
 :mod:`.cuda_viterbi` (kernels K6–K8b), :mod:`.cuda_mxu` (K9) and
-:mod:`._cuda_build` (their build). The functions named in ``__all__`` and
-the submodule ``sparse`` load their modules on first access.
+:mod:`._cuda_build` (their build). The names in ``__all__`` (the JAX
+package's ``ops`` namespace: functions, constants and submodules) load
+their modules on first access.
 """
 
 from __future__ import annotations
@@ -17,6 +18,19 @@ from __future__ import annotations
 import importlib
 
 _EXPORTS = {
+    "ForwardResult": ".recursion",
+    "forward": ".recursion",
+    "backward": ".recursion",
+    "posterior": ".recursion",
+    "log_likelihood": ".recursion",
+    "viterbi": ".recursion",
+    "logmatmul": ".semiring",
+    "logmatvec": ".semiring",
+    "maxmatmul": ".semiring",
+    "maxargmatvec": ".semiring",
+    "log_normalize": ".semiring",
+    "EPS": ".semiring",
+    "LOG_ZERO": ".semiring",
     "em_step": ".em",
     "expected_statistics": ".em",
     "sample_posterior": ".sampling",
@@ -24,7 +38,7 @@ _EXPORTS = {
     "bidirectional_scan": ".scan",
 }
 
-_MODULES = ("sparse",)
+_MODULES = ("em", "kmer", "plan7", "recursion", "sampling", "scan", "semiring", "sparse")
 
 __all__ = sorted(_EXPORTS) + list(_MODULES)
 

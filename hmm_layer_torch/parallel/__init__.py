@@ -1,9 +1,11 @@
 """Multi-device sharding over ``torch.distributed``: data, sequence and
 state parallelism on a mesh of ranks (port of ``hmm_layer_tpu/parallel``):
 the dense routes (:mod:`.sharding`) and the sparse engine's edge-sharded
-state routes (:mod:`.sparse_sharding`)."""
+state routes (:mod:`.sparse_sharding`). The state, sequence and
+edge-sharded functions take ``local=True`` for rank-local blocks in and
+out (:func:`local_ranges`)."""
 
-from .collectives import Mesh
+from .collectives import LocalRanges, Mesh, local_ranges
 from .sharding import (
     data_parallel_em_step,
     data_parallel_em_step_categorical,
@@ -28,6 +30,8 @@ from .sparse_sharding import (
 
 __all__ = [
     "Mesh",
+    "LocalRanges",
+    "local_ranges",
     "init_distributed",
     "make_mesh",
     "shard_batch",

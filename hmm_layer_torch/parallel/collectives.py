@@ -16,9 +16,10 @@ process group of a mesh axis:
 =========================  ====================================
 
 The autograd-aware forms keep the JAX gradients of the global program
-(each sharded function takes the global tensors on every rank and returns
-the global result on every rank, so the cotangent of a result is the same
-on every rank):
+(in their global mode the sharded functions take the global tensors on
+every rank and return the global result on every rank, so the cotangent
+of a result is the same on every rank; in their rank-local mode a rank's
+blocks come in and go out as they are, and its cotangents are its own):
 
 * :func:`replicated` — identity; its backward sums the ranks' partial
   gradients over the given axes (a tensor every rank holds whole, read
@@ -39,15 +40,17 @@ whole (the ``gather`` backward gives each rank its block), so the
 gradients of every rank's inputs sum, through :func:`replicated`, to the
 gradient of the global program.
 
-Under NCCL the all-gather is ``all_gather_into_tensor``; under gloo it is
-the list form, which takes CPU and CUDA tensors alike (several ranks
-sharing one GPU run gloo: NCCL refuses two ranks on one device).
+The all-gather gathers into one flat buffer (``all_gather_single`` /
+``all_gather_into_tensor``) under NCCL and gloo alike; gloo takes CPU and
+CUDA tensors that way (several ranks sharing one GPU run gloo: NCCL
+refuses two ranks on one device).
 """
 
 from __future__ import annotations
 
 import itertools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -60,6 +63,9 @@ __all__ = [
     "pmin",
     "all_gather",
     "row_sizes",
+    "state_block",
+    "LocalRanges",
+    "local_ranges",
     "block",
     "gather_rows",
     "shift_from_next",
@@ -182,26 +188,34 @@ def pmin(x, mesh: Mesh, axes):
     return _all_reduce(x, mesh, axes, dist.ReduceOp.MIN)
 
 
+def _gather_into():
+    """``dist.all_gather_single`` where the installed torch has it (2.13
+    deprecates the older name), else ``dist.all_gather_into_tensor``."""
+    return getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+
+
 def all_gather(x, mesh: Mesh, axis: str | None, dim: int | None = None):
     """The ``axis`` ranks' ``x``: stacked on a new leading dim
     (``dim=None``), or concatenated along ``dim`` (``tiled=True`` in
-    ``lax.all_gather``)."""
+    ``lax.all_gather``).
+
+    The ranks' blocks land in ONE output buffer (gloo and NCCL both take
+    the flat, concatenated form; gloo refuses a stacked ``(n, ...)`` one):
+    the stacked result is a view of it, and a concatenation along ``dim >
+    0`` costs one more copy."""
     if not mesh.active(axis):
         return x[None] if dim is None else x
     group = mesh.group(axis)
     n = dist.get_world_size(group)
     x = x.contiguous()
-    if dist.get_backend(group) == "gloo":
-        parts = [torch.empty_like(x) for _ in range(n)]
-        dist.all_gather(parts, x, group=group)
-        out = torch.stack(parts)
-    else:
-        out = torch.empty((n, *x.shape), dtype=x.dtype, device=x.device)
-        dist.all_gather_into_tensor(out, x, group=group)
+    flat = torch.empty(n * x.numel(), dtype=x.dtype, device=x.device)
+    _gather_into()(flat, x.reshape(-1), group=group)
+    out = flat.view(n, *x.shape)
     if dim is None:
         return out
     dim = dim % x.dim()
-    return torch.cat(out.unbind(0), dim=dim)
+    shape = (*x.shape[:dim], n * x.shape[dim], *x.shape[dim + 1:])
+    return out.view(shape) if dim == 0 else out.movedim(0, dim).reshape(shape)
 
 
 def shift_from_next(x, mesh: Mesh, axis: str):
@@ -226,6 +240,73 @@ def row_sizes(size: int, n: int) -> list[int]:
     if size < n:
         raise ValueError(f"{size} rows cannot be split over {n} ranks (fewer rows than ranks)")
     return [size // n + (k < size % n) for k in range(n)]
+
+
+def state_block(q: int, n: int, k: int) -> tuple[int, int]:
+    """Shard ``k``'s ``[start, stop)`` of ``q`` states over ``n`` shards in
+    blocks of ``ceil(q / n)`` (``q`` padded to a multiple of ``n``, the
+    pad states dropped: the last blocks stop at ``q``)."""
+    width = -(-q // n)
+    return min(q, k * width), min(q, (k + 1) * width)
+
+
+class LocalRanges(NamedTuple):
+    """A rank's ``[start, stop)`` ranges of the data rows, the positions and
+    the states of a global ``(m, b, L, q)`` tensor (:func:`local_ranges`)."""
+
+    rows: tuple[int, int]
+    positions: tuple[int, int]
+    states: tuple[int, int]
+
+    @property
+    def index(self):
+        """``x[r.index]`` is the rank's block of a global ``(m, b, L, q)``
+        tensor ``x``."""
+        return (slice(None), slice(*self.rows), slice(*self.positions), slice(*self.states))
+
+
+def local_ranges(
+    mesh: Mesh,
+    route: str,
+    shape,
+    state_axis: str = "state",
+    seq_axis: str = "seq",
+    data_axis: str | None = None,
+) -> LocalRanges:
+    """This rank's block of a global ``(m, b, L, q)`` tensor (``E``, log
+    gamma) on a sharded ``route``, as the ``local=True`` mode of the
+    sharded functions takes and returns it:
+
+    * ``"edge"`` (``edge_sharded_*``): rows over ``data_axis``, states in
+      blocks of ``q_local = ceil(q / n)``; the last blocks stop at ``q``
+      (the pad states up to ``q_pad`` are the function's own);
+    * ``"state"`` (``state_sharded_*``): rows over ``data_axis``, states in
+      blocks of ``q / n`` (``q`` must divide, as the function requires);
+    * ``"seq"`` (``seq_sharded_*``): rows over ``data_axis``, positions
+      over ``seq_axis``, every state.
+
+    Rows and positions split by :func:`row_sizes` (blocks of equal size
+    where the count divides, which the functions' global mode requires).
+    A caller builds only its block from these ranges; ``r.index`` slices
+    it out of a global tensor."""
+    m, b, L, q = shape
+
+    def span(sizes, k):
+        start = sum(sizes[:k])
+        return start, start + sizes[k]
+
+    rows = span(row_sizes(b, mesh.shape[data_axis]), mesh.index(data_axis)) if data_axis else (0, b)
+    positions, states = (0, L), (0, q)
+    if route == "seq":
+        positions = span(row_sizes(L, mesh.shape[seq_axis]), mesh.index(seq_axis))
+    elif route in ("edge", "state"):
+        n = mesh.shape[state_axis]
+        if route == "state" and q % n:
+            raise ValueError(f"q={q} not divisible by state axis size {n}")
+        states = state_block(q, n, mesh.index(state_axis))
+    else:
+        raise ValueError(f"unknown route {route!r} (edge, state or seq)")
+    return LocalRanges(rows, positions, states)
 
 
 def block(x, mesh: Mesh, axis: str | None, dim: int, ragged: bool = False):

@@ -16,10 +16,26 @@
 
 One process per rank (SPMD): a ``shard_map`` body of the JAX package is
 the rank's own code here, with the collectives of :mod:`.collectives` on
-the mesh axes' process groups. Every function takes the GLOBAL tensors on
-every rank (as the JAX functions take global arrays) and returns the
-global result on every rank; gradients are those of the global function,
-the same on every rank. The sequence routes' gradients are analytic
+the mesh axes' process groups. The state and sequence routes have two
+modes:
+
+* global (``local=False``, the default): every function takes the GLOBAL
+  tensors on every rank (as the JAX functions take global arrays) and
+  returns the global result on every rank, so each rank holds the whole
+  ``E`` and the gathered outputs; gradients are those of the global
+  function, the same on every rank;
+* rank-local (``local=True``): ``init`` and ``A`` stay global, but ``E``
+  comes in and log gamma goes out as the rank's block, as the JAX
+  ``in_specs``/``out_specs`` shard them — (m, b_l, L, q_l) on the state
+  routes, (m, b_l, L_l, q) on the sequence routes
+  (:func:`~.collectives.local_ranges`); logliks (m, b_l), paths (m, b_l,
+  L) or (m, b_l, L_l). No rank holds a global (m, b, L, q) tensor, except
+  that the chunked state route (``parallel_factor > 1``) all-gathers its
+  rows' columns of ``E`` inside the call (its chunk operators need every
+  column). Gradients: ``E``'s is the rank's block of the global one;
+  ``init``'s and ``A``'s are the global ones on every rank.
+
+The sequence routes' gradients are analytic
 (``torch.autograd.Function``\\ s whose backwards make the JAX VJPs'
 collectives; on CUDA at q <= 15 the posterior VJP's affine solves launch
 K4–K5); the state routes are differentiated through autograd-aware
@@ -241,14 +257,39 @@ def _sharded_boundary_folds(init, C_l, mesh, state_axis, q_l, idx, want_backward
     return T, torch.stack(S), ll
 
 
-def _state_inputs(init, A, E, mesh, state_axis, data_axis):
-    """init and A replicated over both axes, E split over the data rows."""
+def _check_state_block(E, q_l):
+    if E.shape[-1] != q_l:
+        raise ValueError(f"local E has {E.shape[-1]} states; a state block holds {q_l} (local_ranges)")
+
+
+def _state_inputs(init, A, E, mesh, state_axis, data_axis, local, q_l):
+    """init and A replicated over both axes; the global E split over the
+    data rows, or under ``local`` the rank's (m, b_l, L, q_l) block as it
+    is."""
     axes = (state_axis, data_axis)
+    if local:
+        _check_state_block(E, q_l)
     return (
         C.replicated(init, mesh, axes),
         C.replicated(A, mesh, axes),
-        C.scatter(E, mesh, data_axis, 1),
+        E if local else C.scatter(E, mesh, data_axis, 1),
     )
+
+
+def _state_columns(E_d, mesh, state_axis, local):
+    """Every state column of the rank's rows, for the border-split chunk
+    operators: the global E's rows as they are (their gradient summed over
+    the state ranks), or under ``local`` the blocks all-gathered over the
+    state axis (its gradient the rank's block of that sum)."""
+    if local:
+        return C.all_gather_ad(E_d, mesh, state_axis, dim=3)
+    return C.replicated(E_d, mesh, state_axis)
+
+
+def _state_loglik(ll, mesh, state_axis, data_axis, local):
+    """The rank's (m, b_l) loglik, gathered over the rows unless ``local``."""
+    ll = C.replicated_out(ll, mesh, state_axis)
+    return ll if local else C.gather(ll, mesh, data_axis, 1)
 
 
 def _state_scan_forward(init_l, A_rows, E_l, mesh, state_axis, cols, want_outputs):
@@ -270,7 +311,14 @@ def _state_scan_forward(init_l, A_rows, E_l, mesh, state_axis, cols, want_output
 
 
 def state_sharded_log_likelihood(
-    init, A, E, mesh: Mesh, state_axis: str = "state", data_axis: str | None = None, parallel_factor: int = 1
+    init,
+    A,
+    E,
+    mesh: Mesh,
+    state_axis: str = "state",
+    data_axis: str | None = None,
+    parallel_factor: int = 1,
+    local: bool = False,
 ):
     """Log-likelihood with the state dimension split over ``state_axis``.
 
@@ -282,26 +330,29 @@ def state_sharded_log_likelihood(
     makes no collective; the boundary fold makes one per chunk.
 
     Args:
-        init: (m, q); A: (m, q, q); E: (m, b, L, q); ``q`` divisible by
-            the state-axis size (pad upstream).
+        init: (m, q); A: (m, q, q) — global, on every rank; ``q``
+            divisible by the state-axis size (pad upstream).
+        E: (m, b, L, q), global; under ``local`` the rank's (m, b_l, L,
+            q_l) block (:func:`~.collectives.local_ranges`, route
+            ``"state"``).
     Returns:
-        (m, b) log-likelihoods.
+        (m, b) log-likelihoods; under ``local`` the rank's rows (m, b_l).
     """
     n_state = mesh.shape[state_axis]
-    q = E.shape[-1]
+    q = A.shape[-1]
     _check_divisible(q, n_state, "q", "state axis")
     idx = mesh.index(state_axis)
     q_l = q // n_state
     cols = slice(idx * q_l, (idx + 1) * q_l)
-    init_r, A_r, E_d = _state_inputs(init, A, E, mesh, state_axis, data_axis)
+    init_r, A_r, E_d = _state_inputs(init, A, E, mesh, state_axis, data_axis, local, q_l)
     if parallel_factor > 1:
-        E_r = C.replicated(E_d, mesh, state_axis)
+        E_r = _state_columns(E_d, mesh, state_axis, local)
         C_l = _border_sharded_chunk_operators(A_r, E_r, parallel_factor, n_state, idx)
         _, _, ll = _sharded_boundary_folds(init_r, C_l, mesh, state_axis, q_l, idx, want_backward=False)
     else:
-        E_l = C.scatter(E_d, mesh, state_axis, 3)
+        E_l = E_d if local else C.scatter(E_d, mesh, state_axis, 3)
         _, ll = _state_scan_forward(init_r[:, cols], A_r[:, cols], E_l, mesh, state_axis, cols, False)
-    return C.gather(C.replicated_out(ll, mesh, state_axis), mesh, data_axis, 1)
+    return _state_loglik(ll, mesh, state_axis, data_axis, local)
 
 
 def state_sharded_posterior(
@@ -313,6 +364,7 @@ def state_sharded_posterior(
     data_axis: str | None = None,
     no_loglik: bool = False,
     parallel_factor: int = 1,
+    local: bool = False,
 ):
     """Posterior state log-probabilities with the state dimension split.
 
@@ -323,26 +375,34 @@ def state_sharded_posterior(
     the cheap O(L·q²) output passes run on whole state vectors on every
     rank, and each rank emits its posterior column block.
 
+    Under ``local`` ``E`` is the rank's (m, b_l, L, q_l) block
+    (:func:`~.collectives.local_ranges`, route ``"state"``) and the rank
+    gets back its block of log gamma and its rows' loglik. At
+    ``parallel_factor > 1`` the chunk operators need every column, so the
+    call all-gathers the rank's rows of ``E`` over the state axis (its
+    inputs and outputs stay the rank's blocks).
+
     Returns:
-        (log_gamma (m, b, L, q), loglik (m, b)).
+        (log_gamma (m, b, L, q), loglik (m, b)); under ``local``
+        ((m, b_l, L, q_l), (m, b_l)).
     """
     n_state = mesh.shape[state_axis]
-    q = E.shape[-1]
+    q = A.shape[-1]
     _check_divisible(q, n_state, "q", "state axis")
     idx = mesh.index(state_axis)
     q_l = q // n_state
     cols = slice(idx * q_l, (idx + 1) * q_l)
-    init_r, A_r, E_d = _state_inputs(init, A, E, mesh, state_axis, data_axis)
+    init_r, A_r, E_d = _state_inputs(init, A, E, mesh, state_axis, data_axis, local, q_l)
 
     if parallel_factor > 1:
-        E_r = C.replicated(E_d, mesh, state_axis)
+        E_r = _state_columns(E_d, mesh, state_axis, local)
         C_l = _border_sharded_chunk_operators(A_r, E_r, parallel_factor, n_state, idx)
         T, S, ll = _sharded_boundary_folds(init_r, C_l, mesh, state_axis, q_l, idx)
         la = _forward_outputs(init_r, A_r, E_r, T, parallel_factor)
         lb = _backward_outputs(A_r, E_r, S, parallel_factor)
         lg = (la + lb)[..., cols]
     else:
-        E_l = C.scatter(E_d, mesh, state_axis, 3)
+        E_l = E_d if local else C.scatter(E_d, mesh, state_axis, 3)
         A_c = A_r[:, :, cols]  # (m, q, q_l): columns for the backward contraction
         la, ll = _state_scan_forward(init_r[:, cols], A_r[:, cols], E_l, mesh, state_axis, cols, True)
         m, b, L, _ = E_l.shape
@@ -363,13 +423,15 @@ def state_sharded_posterior(
         lg = (la + lb).movedim(0, 2)  # (m, b, L, q_l)
     if not no_loglik:
         lg = lg - ll[..., None, None]
-    lg = C.gather(C.gather(lg, mesh, state_axis, 3), mesh, data_axis, 1)
-    ll = C.gather(C.replicated_out(ll, mesh, state_axis), mesh, data_axis, 1)
-    return lg, ll
+    if not local:
+        lg = C.gather(C.gather(lg, mesh, state_axis, 3), mesh, data_axis, 1)
+    return lg, _state_loglik(ll, mesh, state_axis, data_axis, local)
 
 
 @torch.no_grad()
-def state_sharded_viterbi(init, A, E, mesh: Mesh, state_axis: str = "state", data_axis: str | None = None):
+def state_sharded_viterbi(
+    init, A, E, mesh: Mesh, state_axis: str = "state", data_axis: str | None = None, local: bool = False
+):
     """Viterbi decode with the state dimension split.
 
     A sequential max-plus scan with the delta columns and the rows of
@@ -381,16 +443,21 @@ def state_sharded_viterbi(init, A, E, mesh: Mesh, state_axis: str = "state", dat
     with one masked all-reduce. The result is a backtrace, one valid path.
 
     Returns:
-        states (m, b, L) int32.
+        states (m, b, L) int32; under ``local`` (``E`` the rank's (m, b_l,
+        L, q_l) block) its rows' paths (m, b_l, L).
     """
     n_state = mesh.shape[state_axis]
-    q = E.shape[-1]
+    q = A.shape[-1]
     _check_divisible(q, n_state, "q", "state axis")
     q_l = q // n_state
     idx = mesh.index(state_axis)
     col0 = idx * q_l
     cols = slice(col0, col0 + q_l)
-    E_l = C.block(C.block(E, mesh, data_axis, 1), mesh, state_axis, 3)
+    if local:
+        _check_state_block(E, q_l)
+        E_l = E
+    else:
+        E_l = C.block(C.block(E, mesh, data_axis, 1), mesh, state_axis, 3)
     log_A_l = torch.log(_clamped(A[:, cols]))  # (m, q_l, q): local rows
     Et = torch.log(_clamped(E_l)).movedim(2, 0)  # (L, m, b, q_l)
     delta = torch.log(_clamped(init[:, cols]))[:, None, :] + Et[0]
@@ -411,13 +478,13 @@ def state_sharded_viterbi(init, A, E, mesh: Mesh, state_axis: str = "state", dat
     _, state = resolve_argmax(best_l, arg_l + col0)  # (m, b) global last state
     path = [state]
     for bp in reversed(bps):
-        local = state - col0
-        in_range = (local >= 0) & (local < q_l)
-        val = torch.gather(bp, -1, local.clamp(0, q_l - 1)[..., None])[..., 0]
+        own = state - col0
+        in_range = (own >= 0) & (own < q_l)
+        val = torch.gather(bp, -1, own.clamp(0, q_l - 1)[..., None])[..., 0]
         state = C.psum(torch.where(in_range, val, torch.zeros_like(val)), mesh, state_axis)
         path.append(state)
     path = torch.stack(path[::-1], dim=-1).to(torch.int32)  # (m, b_l, L)
-    return C.all_gather(path, mesh, data_axis, 1)
+    return path if local else C.gather(path, mesh, data_axis, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -432,7 +499,7 @@ def _seq_block(E, mesh, seq_axis, data_axis):
 
 def _gather_seq(x, mesh, seq_axis, data_axis):
     """Positions over ``seq_axis`` (dim 2), then rows over ``data_axis``."""
-    return C.all_gather(C.all_gather(x, mesh, seq_axis, 2), mesh, data_axis, 1)
+    return C.gather(C.gather(x, mesh, seq_axis, 2), mesh, data_axis, 1)
 
 
 def _seq_ll_local(init, A, E_l, mesh, seq_axis, P_local):
@@ -513,19 +580,20 @@ class _SeqLoglik(torch.autograd.Function):
     with a rank level)."""
 
     @staticmethod
-    def forward(ctx, init, A, E, mesh, seq_axis, data_axis, P_local):
-        E_l = _seq_block(E, mesh, seq_axis, data_axis)
-        ctx.args = (mesh, seq_axis, data_axis, P_local)
+    def forward(ctx, init, A, E, mesh, seq_axis, data_axis, P_local, local):
+        E_l = E.contiguous() if local else _seq_block(E, mesh, seq_axis, data_axis)
+        ctx.args = (mesh, seq_axis, data_axis, P_local, local)
         ctx.save_for_backward(init, A, E_l)
-        return C.all_gather(_seq_ll_local(init, A, E_l, mesh, seq_axis, P_local), mesh, data_axis, 1)
+        ll = _seq_ll_local(init, A, E_l, mesh, seq_axis, P_local)
+        return ll if local else C.gather(ll, mesh, data_axis, 1)
 
     @staticmethod
     def backward(ctx, ct):
-        mesh, seq_axis, data_axis, P_local = ctx.args
+        mesh, seq_axis, data_axis, P_local, local = ctx.args
         init, A, E_l = ctx.saved_tensors
         idx = mesh.index(seq_axis)
         reduce_axes = (seq_axis, data_axis)
-        ct_l = C.block(ct, mesh, data_axis, 1)
+        ct_l = ct if local else C.block(ct, mesh, data_axis, 1)
         la, lb, ll, v_enter = _seq_local_forward_backward(init, A, E_l, mesh, seq_axis, P_local)
         log_E = torch.log(_clamped(E_l))
         # Within-block statistics are the dense VJP's; ginit counts on the
@@ -538,11 +606,19 @@ class _SeqLoglik(torch.autograd.Function):
             up = torch.exp(lb[:, :, 0] + log_E[:, :, 0] - ll[..., None] + csp) * ct_l[..., None]
             gA = gA + torch.einsum("mbi,mbj->mij", wp, up)
         gA = C.psum(gA, mesh, reduce_axes)
-        return ginit, gA, _gather_seq(gE, mesh, seq_axis, data_axis), None, None, None, None
+        gE = gE if local else _gather_seq(gE, mesh, seq_axis, data_axis)
+        return ginit, gA, gE, None, None, None, None, None
 
 
 def seq_sharded_log_likelihood(
-    init, A, E, mesh: Mesh, seq_axis: str = "seq", data_axis: str | None = None, local_parallel_factor: int = 1
+    init,
+    A,
+    E,
+    mesh: Mesh,
+    seq_axis: str = "seq",
+    data_axis: str | None = None,
+    local_parallel_factor: int = 1,
+    local: bool = False,
 ):
     """Log-likelihood with the sequence axis split over ``seq_axis``.
 
@@ -551,9 +627,15 @@ def seq_sharded_log_likelihood(
     operators are all-gathered and folded on every rank: one collective
     per call. The gradient is the analytic Baum-Welch VJP
     (:class:`_SeqLoglik`): one boundary exchange, no taped summary scan.
+
+    Under ``local`` ``E`` is the rank's (m, b_l, L_l, q) block of rows and
+    positions (:func:`~.collectives.local_ranges`, route ``"seq"``), the
+    result its rows' (m, b_l), and ``E``'s gradient its block of the
+    global one.
     """
-    _check_seq(E, mesh, seq_axis, data_axis)
-    return _SeqLoglik.apply(init, A, E, mesh, seq_axis, data_axis, max(local_parallel_factor, 1))
+    if not local:
+        _check_seq(E, mesh, seq_axis, data_axis)
+    return _SeqLoglik.apply(init, A, E, mesh, seq_axis, data_axis, max(local_parallel_factor, 1), local)
 
 
 def _seq_post_local(init, A, E_l, mesh, seq_axis, P_local, no_loglik):
@@ -714,23 +796,29 @@ class _SeqPosterior(torch.autograd.Function):
     (:func:`_seq_post_bwd`)."""
 
     @staticmethod
-    def forward(ctx, init, A, E, mesh, seq_axis, data_axis, P_local, no_loglik):
-        E_l = _seq_block(E, mesh, seq_axis, data_axis)
+    def forward(ctx, init, A, E, mesh, seq_axis, data_axis, P_local, no_loglik, local):
+        E_l = E.contiguous() if local else _seq_block(E, mesh, seq_axis, data_axis)
         lg, ll, la = _seq_post_local(init, A, E_l, mesh, seq_axis, P_local, no_loglik)
-        ctx.args = (mesh, seq_axis, data_axis, P_local, no_loglik)
+        ctx.args = (mesh, seq_axis, data_axis, P_local, no_loglik, local)
         ctx.save_for_backward(init, A, E_l, la, lg, ll)
-        return _gather_seq(lg, mesh, seq_axis, data_axis), C.all_gather(ll, mesh, data_axis, 1)
+        if local:
+            return lg, ll
+        return _gather_seq(lg, mesh, seq_axis, data_axis), C.gather(ll, mesh, data_axis, 1)
 
     @staticmethod
     def backward(ctx, ct, ct_ll):
-        mesh, seq_axis, data_axis, P_local, no_loglik = ctx.args
+        mesh, seq_axis, data_axis, P_local, no_loglik, local = ctx.args
         init, A, E_l, la, lg, ll = ctx.saved_tensors
-        ct_l = _seq_block(ct, mesh, seq_axis, data_axis)
-        ct_ll_l = C.block(ct_ll, mesh, data_axis, 1)
+        if local:
+            ct_l, ct_ll_l = ct.contiguous(), ct_ll
+        else:
+            ct_l = _seq_block(ct, mesh, seq_axis, data_axis)
+            ct_ll_l = C.block(ct_ll, mesh, data_axis, 1)
         ginit, gA, gE = _seq_post_bwd(
             init, A, E_l, la, lg, ll, ct_l, ct_ll_l, mesh, seq_axis, data_axis, P_local, no_loglik
         )
-        return ginit, gA, _gather_seq(gE, mesh, seq_axis, data_axis), None, None, None, None, None
+        gE = gE if local else _gather_seq(gE, mesh, seq_axis, data_axis)
+        return ginit, gA, gE, None, None, None, None, None, None
 
 
 def seq_sharded_posterior(
@@ -742,6 +830,7 @@ def seq_sharded_posterior(
     data_axis: str | None = None,
     local_parallel_factor: int = 1,
     no_loglik: bool = False,
+    local: bool = False,
 ):
     """Posterior state log-probabilities with the sequence axis split.
 
@@ -752,15 +841,28 @@ def seq_sharded_posterior(
     sequence-sharded analytic VJP (:func:`_seq_post_bwd`).
 
     Returns:
-        (log_gamma (m, b, L, q), loglik (m, b)).
+        (log_gamma (m, b, L, q), loglik (m, b)); under ``local`` (``E`` the
+        rank's (m, b_l, L_l, q) block, as
+        :func:`seq_sharded_log_likelihood` takes it) the rank's
+        ((m, b_l, L_l, q), (m, b_l)).
     """
-    _check_seq(E, mesh, seq_axis, data_axis)
-    return _SeqPosterior.apply(init, A, E, mesh, seq_axis, data_axis, max(local_parallel_factor, 1), no_loglik)
+    if not local:
+        _check_seq(E, mesh, seq_axis, data_axis)
+    return _SeqPosterior.apply(
+        init, A, E, mesh, seq_axis, data_axis, max(local_parallel_factor, 1), no_loglik, local
+    )
 
 
 @torch.no_grad()
 def seq_sharded_viterbi(
-    init, A, E, mesh: Mesh, seq_axis: str = "seq", data_axis: str | None = None, local_parallel_factor: int = 1
+    init,
+    A,
+    E,
+    mesh: Mesh,
+    seq_axis: str = "seq",
+    data_axis: str | None = None,
+    local_parallel_factor: int = 1,
+    local: bool = False,
 ):
     """Viterbi decode with the sequence axis split: one all-gather of
     max-plus block operators, the rank-boundary backtrace on every rank,
@@ -768,13 +870,15 @@ def seq_sharded_viterbi(
     spliced result is one valid optimal path.
 
     Returns:
-        states (m, b, L) int32.
+        states (m, b, L) int32; under ``local`` (``E`` the rank's (m, b_l,
+        L_l, q) block) the rank's (m, b_l, L_l).
     """
-    _check_seq(E, mesh, seq_axis, data_axis)
+    if not local:
+        _check_seq(E, mesh, seq_axis, data_axis)
     P_local = max(local_parallel_factor, 1)
     n_seq = mesh.shape[seq_axis]
     idx = mesh.index(seq_axis)
-    E_l = _seq_block(E, mesh, seq_axis, data_axis)
+    E_l = E.contiguous() if local else _seq_block(E, mesh, seq_axis, data_axis)
     m, b, L_l, q = E_l.shape
     log_A = torch.log(_clamped(A))
     log_init_b = torch.log(_clamped(init))[:, None, :].expand(m, b, q)
@@ -816,7 +920,7 @@ def seq_sharded_viterbi(
     T = _viterbi_boundaries(v_start, C_T)
     j_end = _boundary_backtrace(T, C_T, j_last=j_exit)
     path = _viterbi_outputs(first_start, log_A, Et, j_end, P_local)
-    return _gather_seq(path, mesh, seq_axis, data_axis)
+    return path if local else _gather_seq(path, mesh, seq_axis, data_axis)
 
 
 # ---------------------------------------------------------------------------

@@ -20,9 +20,21 @@ What state sharding buys the sparse engine:
   collectives can only slow a step down. The gain is that the recursions'
   O(L·q) intermediates (the forward and backward variables, the Viterbi
   backpointers during the scan) and the Baum-Welch VJP's residuals are
-  ``1/n`` per rank. Under this package's convention every rank is given
-  the GLOBAL ``init``, ``edge_probs`` and ``E`` and returns the global
-  result, so a rank still holds the whole ``E`` and the gathered outputs.
+  ``1/n`` per rank. Two modes:
+
+  - global (``local=False``, the default): every rank is given the GLOBAL
+    ``init``, ``edge_probs`` and ``E`` and returns the global result, so a
+    rank holds the whole ``E`` and the gathered outputs;
+  - rank-local (``local=True``): ``init`` and ``edge_probs`` stay global,
+    but ``E`` comes in and log gamma goes out as the rank's (m, b_l, L,
+    q_l) block (JAX's ``P(None, data_axis, None, state_axis)`` specs), the
+    loglik as its rows (m, b_l), the paths as (m, b_l, L)
+    (:func:`~.collectives.local_ranges` gives the ranges), so every
+    O(L·q) tensor of the call is ``1/n`` per rank. The one exception is
+    the decode's all-gather of its int32 backpointers for the backtrace
+    (as JAX backtraces on the global view). Gradients: the ``E`` block's
+    is the rank's block of the global gradient; ``init``'s and
+    ``edge_probs``'s are the global ones on every rank.
 * Training: :func:`edge_sharded_log_likelihood` carries the sharded
   Baum-Welch VJP (an ``autograd.Function``; its backward recomputes the
   forward and backward variables as local blocks);
@@ -182,8 +194,8 @@ class _ShardPlan:
 class _Local(NamedTuple):
     """This rank's part of a call: its shard plan, init columns (m, q_l),
     clamped emission block (m, b_l, L, q_l), the unclamped block (for the
-    gradient masks) and the edge weights of its forward and backward
-    buckets (m, 1, k)."""
+    gradient masks; under ``local`` its real states only) and the edge
+    weights of its forward and backward buckets (m, 1, k)."""
 
     sp: _ShardPlan
     init: torch.Tensor
@@ -193,24 +205,39 @@ class _Local(NamedTuple):
     wb: torch.Tensor
 
 
-def _local(plan, mesh, state_axis, data_axis, init, edge_probs, E) -> _Local:
-    """This rank's block of the global inputs. ``init`` and ``edge_probs``
-    enter through ``replicated`` and ``E`` through ``scatter`` (data rows,
+def _local(plan, mesh, state_axis, data_axis, init, edge_probs, E, local=False) -> _Local:
+    """This rank's block of the inputs. ``init`` and ``edge_probs`` enter
+    through ``replicated``; the global ``E`` through ``scatter`` (data rows,
     then state columns after padding q to ``q_pad``), so taped gradients
-    are those of the global inputs on every rank."""
+    are those of the global inputs on every rank. Under ``local`` ``E`` is
+    the rank's block already (its real states), padded here to
+    ``q_local`` (the clamped block is padded, so no padded copy of ``E``
+    lives through the call)."""
     idx = mesh.index(state_axis)
     ql, pad = plan.q_local, plan.q_pad - plan.q
     sp = plan.on(E.device, idx)
     axes = (state_axis, data_axis)
     init, probs = C.replicated(init, mesh, axes), C.replicated(edge_probs, mesh, axes)
-    E = C.scatter(E, mesh, data_axis, 1)
     if pad:
-        init, E = F.pad(init, (0, pad)), F.pad(E, (0, pad))
-    E_l = C.scatter(E, mesh, state_axis, 3)
+        init = F.pad(init, (0, pad))
+    if local:
+        start, stop = C.state_block(plan.q, plan.n_shards, idx)
+        real = stop - start
+        if E.shape[-1] != real:
+            raise ValueError(f"local E has {E.shape[-1]} states; shard {idx} holds {real} (local_ranges)")
+        E_l, Ec = E, _clamped(E)
+        if real < ql:
+            Ec = F.pad(Ec, (0, ql - real), value=EPS)
+    else:
+        E = C.scatter(E, mesh, data_axis, 1)
+        if pad:
+            E = F.pad(E, (0, pad))
+        E_l = C.scatter(E, mesh, state_axis, 3)
+        Ec = _clamped(E_l)
     return _Local(
         sp,
         init[:, idx * ql:(idx + 1) * ql],
-        _clamped(E_l),
+        Ec,
         E_l,
         probs.index_select(-1, sp.f_sel)[:, None, :],
         probs.index_select(-1, sp.b_sel)[:, None, :],
@@ -270,8 +297,8 @@ def _bwd_scan(loc: _Local, mesh, axis):
     return _log_values(betas[::-1], lls[::-1])
 
 
-def _plan_for(indices, E, mesh, state_axis) -> ShardedEdgePlan:
-    return ShardedEdgePlan.cached(indices, E.shape[-1], mesh.shape[state_axis])
+def _plan_for(indices, init, mesh, state_axis) -> ShardedEdgePlan:
+    return ShardedEdgePlan.cached(indices, init.shape[-1], mesh.shape[state_axis])
 
 
 # ---------------------------------------------------------------------------
@@ -287,21 +314,26 @@ def edge_sharded_log_likelihood(
     mesh: Mesh,
     state_axis: str = "state",
     data_axis: str | None = None,
+    local: bool = False,
 ):
     """(m, b) log-likelihoods with the states split over ``state_axis``
     (and the batch rows over ``data_axis``).
 
     Args:
         init: (m, q); indices: (n_edges, 2) host (numpy or CPU) (from, to)
-            pairs; edge_probs: (m, n_edges); E: (m, b, L, q) — the global
-            tensors, on every rank.
+            pairs; edge_probs: (m, n_edges) — global, on every rank.
+        E: (m, b, L, q), the global emissions on every rank; under
+            ``local`` the rank's block (m, b_l, L, q_l) of its rows and
+            real states (:func:`~.collectives.local_ranges`, route
+            ``"edge"``), and the result is its rows' (m, b_l).
 
     Differentiable through the sharded Baum-Welch VJP, whose per-rank
     residuals are O(L·q_local·b_local) local blocks (nothing O(L·q_pad) is
-    built), unlike taped autodiff through the gathered carries.
+    built), unlike taped autodiff through the gathered carries. Under
+    ``local`` the gradient of ``E`` is the rank's block of the global one.
     """
-    plan = _plan_for(indices, E, mesh, state_axis)
-    return _EdgeLoglik.apply(init, edge_probs, E, plan, mesh, state_axis, data_axis)
+    plan = _plan_for(indices, init, mesh, state_axis)
+    return _EdgeLoglik.apply(init, edge_probs, E, plan, mesh, state_axis, data_axis, local)
 
 
 def _edge_grad(loc: _Local, la, lb, log_E, ll, ct, plan, mesh, axis):
@@ -333,27 +365,30 @@ class _EdgeLoglik(torch.autograd.Function):
     state columns, ``ginit`` summed over the data rows), the edge gradient
     per destination bucket, summed over the state and data ranks (each edge
     lives in one bucket, so the state sum adds disjoint parts). Every rank
-    returns the global gradients."""
+    returns the global gradients of ``init`` and the edge probabilities,
+    and of ``E`` the global one, or under ``local`` its own block."""
 
     @staticmethod
-    def forward(ctx, init, edge_probs, E, plan, mesh, state_axis, data_axis):
-        ctx.args = (plan, mesh, state_axis, data_axis)
+    def forward(ctx, init, edge_probs, E, plan, mesh, state_axis, data_axis, local):
+        ctx.args = (plan, mesh, state_axis, data_axis, local)
         ctx.save_for_backward(init, edge_probs, E)
-        loc = _local(plan, mesh, state_axis, data_axis, init, edge_probs, E)
+        loc = _local(plan, mesh, state_axis, data_axis, init, edge_probs, E, local)
         _, ll = _fwd_scan(loc, mesh, state_axis, want_outputs=False)
-        return C.all_gather(ll, mesh, data_axis, 1)
+        return ll if local else C.gather(ll, mesh, data_axis, 1)
 
     @staticmethod
     def backward(ctx, ct):
-        plan, mesh, state_axis, data_axis = ctx.args
+        plan, mesh, state_axis, data_axis, local = ctx.args
         init, edge_probs, E = ctx.saved_tensors
-        loc = _local(plan, mesh, state_axis, data_axis, init, edge_probs, E)
-        ct = C.block(ct, mesh, data_axis, 1)
+        loc = _local(plan, mesh, state_axis, data_axis, init, edge_probs, E, local)
+        if not local:
+            ct = C.block(ct, mesh, data_axis, 1)
         la, ll = _fwd_scan(loc, mesh, state_axis, want_outputs=True)
         lb = _bwd_scan(loc, mesh, state_axis)
         log_E = torch.log(loc.Ec)
         lgam = la + lb - ll[..., None, None]
-        gE = torch.exp(lgam - log_E) * (loc.E >= EPS) * ct[..., None, None]
+        real = loc.E.shape[-1]  # q_l, or under local the real states
+        gE = torch.exp(lgam - log_E)[..., :real] * (loc.E >= EPS) * ct[..., None, None]
         ginit = (
             (torch.exp(log_E[:, :, 0] + lb[:, :, 0] - ll[..., None]) * ct[..., None]).sum(1)
             * (loc.init >= EPS)
@@ -361,9 +396,10 @@ class _EdgeLoglik(torch.autograd.Function):
         g_edge = _edge_grad(loc, la, lb, log_E, ll, ct, plan, mesh, state_axis)
         q = plan.q
         ginit = C.all_gather(C.psum(ginit, mesh, data_axis), mesh, state_axis, -1)[..., :q]
-        gE = C.all_gather(C.all_gather(gE, mesh, state_axis, 3), mesh, data_axis, 1)[..., :q]
+        if not local:
+            gE = C.gather(C.gather(gE, mesh, state_axis, 3), mesh, data_axis, 1)[..., :q]
         g_edge = C.psum(g_edge, mesh, (state_axis, data_axis))
-        return ginit, g_edge, gE, None, None, None, None
+        return ginit, g_edge, gE, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -380,25 +416,34 @@ def edge_sharded_posterior(
     state_axis: str = "state",
     data_axis: str | None = None,
     no_loglik: bool = False,
+    local: bool = False,
 ):
     """Posterior state log-probabilities with the states split;
     (log_gamma (m, b, L, q), loglik (m, b)).
 
+    Under ``local`` the rank passes its block of ``E`` (m, b_l, L, q_l),
+    its rows and real states (:func:`~.collectives.local_ranges`, route
+    ``"edge"``; the function pads the block to ``q_local`` itself), and
+    gets back log gamma on the same block and its rows' loglik (m, b_l):
+    no rank holds a global (m, b, L, q) tensor.
+
     Differentiable by TAPING the sharded scans (``psum_ad`` and
     ``all_gather_ad`` inside the recursions): exact, but each step's
     residuals include the gathered full-q carry, so training through the
-    posterior does not get the per-rank memory gain; the MAP objective
-    (:func:`edge_sharded_log_likelihood`) does.
+    posterior does not get the per-rank memory gain of the recursions;
+    the MAP objective (:func:`edge_sharded_log_likelihood`) does.
     """
-    plan = _plan_for(indices, E, mesh, state_axis)
-    loc = _local(plan, mesh, state_axis, data_axis, init, edge_probs, E)
+    plan = _plan_for(indices, init, mesh, state_axis)
+    loc = _local(plan, mesh, state_axis, data_axis, init, edge_probs, E, local)
     la, ll = _fwd_scan(loc, mesh, state_axis, want_outputs=True)
     lg = la + _bwd_scan(loc, mesh, state_axis)
     if not no_loglik:
         lg = lg - ll[..., None, None]
+    ll = C.replicated_out(ll, mesh, state_axis)
+    if local:
+        return lg[..., :E.shape[-1]], ll
     lg = C.gather(C.gather(lg, mesh, state_axis, 3), mesh, data_axis, 1)[..., :plan.q]
-    ll = C.gather(C.replicated_out(ll, mesh, state_axis), mesh, data_axis, 1)
-    return lg, ll
+    return lg, C.gather(ll, mesh, data_axis, 1)
 
 
 @torch.no_grad()
@@ -410,8 +455,11 @@ def edge_sharded_viterbi(
     mesh: Mesh,
     state_axis: str = "state",
     data_axis: str | None = None,
+    local: bool = False,
 ):
-    """Max-plus Viterbi decode with the states split; (m, b, L) int32.
+    """Max-plus Viterbi decode with the states split; (m, b, L) int32, or
+    under ``local`` (``E`` the rank's block, as
+    :func:`edge_sharded_posterior` takes it) its rows' paths (m, b_l, L).
 
     The delta recursion runs sharded, each rank over its destination
     bucket: one all-gather of delta a step, a segment max, and the lowest
@@ -419,11 +467,12 @@ def edge_sharded_viterbi(
     the same edge as :func:`~hmm_layer_torch.ops.sparse.sparse_viterbi`).
     Padded states are held at -1e30 and never win. The backpointers stay
     local during the scan; one all-gather of the (L-1, m, b, q_local) int32
-    block at the end gives the global view, on which the O(L·b) backtrace
-    runs (``argmax`` takes the first maximum, as JAX's does).
+    blocks at the end gives the global view, on which the O(L·b) backtrace
+    runs (``argmax`` takes the first maximum, as JAX's does); this gather,
+    O(L·b_l·q_pad) int32, is the one global-size buffer of the local mode.
     """
-    plan = _plan_for(indices, E, mesh, state_axis)
-    loc = _local(plan, mesh, state_axis, data_axis, init, edge_probs, E)
+    plan = _plan_for(indices, init, mesh, state_axis)
+    loc = _local(plan, mesh, state_axis, data_axis, init, edge_probs, E, local)
     sp = loc.sp
     m, b, L, ql = loc.Ec.shape
     off = sp.offsets("f", (m, b))
@@ -432,20 +481,21 @@ def edge_sharded_viterbi(
     states = mesh.index(state_axis) * ql + torch.arange(ql, device=log_E.device)
     real = states < plan.q
     delta = torch.where(real, torch.log(_clamped(loc.init))[:, None, :] + log_E[:, :, 0], _NEG)
-    backptrs = []
+    backptrs = torch.empty((L - 1, m, b, ql), dtype=torch.int32, device=log_E.device)
     for t in range(1, L):
         contrib = C.all_gather(delta, mesh, state_axis, dim=-1).index_select(-1, sp.f_other) + log_w  # (m, b, k)
         best = torch.clamp_min(_segreduce(contrib, "max", off), _NEG)  # unreachable: -inf -> _NEG
         attained = contrib >= best.index_select(-1, sp.f_key)
         win_edge = _segreduce(torch.where(attained, sp.edge_ids, float(sp.k)), "min", off)
-        backptrs.append(sp.src_lookup[win_edge.clamp_max(sp.k).long()].to(torch.int32))  # (m, b, q_l)
+        backptrs[t - 1] = sp.src_lookup[win_edge.clamp_max(sp.k).long()]  # (m, b, q_l)
         delta = torch.where(real, best + log_E[:, :, t], _NEG)
     state = C.all_gather(delta, mesh, state_axis, dim=-1).argmax(-1)
     path = [state]
-    if backptrs:
-        backptrs = C.all_gather(torch.stack(backptrs), mesh, state_axis, dim=-1)  # (L-1, m, b, q_pad)
+    if L > 1:
+        shards = C.all_gather(backptrs, mesh, state_axis)  # (n, L-1, m, b, q_l), shard d's states d·q_l + j
+        rows = (torch.arange(m, device=state.device)[:, None], torch.arange(b, device=state.device)[None, :])
         for t in range(L - 2, -1, -1):
-            state = backptrs[t].gather(-1, state[..., None])[..., 0].long()
+            state = shards[:, t][state // ql, *rows, state % ql].long()
             path.append(state)
     path = torch.stack(path[::-1], dim=-1).to(torch.int32)
-    return C.all_gather(path, mesh, data_axis, 1)
+    return path if local else C.gather(path, mesh, data_axis, 1)

@@ -12,6 +12,7 @@ case on the meshes ``{"seq": 4}``, ``{"state": 4}``, ``{"data": 2, "seq":
 JAX only inside its fixtures: the ranks load it without JAX.
 """
 
+import contextlib
 import functools
 
 import numpy as np
@@ -143,6 +144,95 @@ def _state_cases(mesh, data):
     return out
 
 
+def _raising(name):
+    def call(*args, **kwargs):
+        raise AssertionError(f"collectives.{name} was called")
+
+    return call
+
+
+@contextlib.contextmanager
+def _no_gathers():
+    """``collectives.gather`` and ``gather_rows`` raise inside the block:
+    they make every output gather (and the gradient gather of a scattered
+    ``E``) of the global mode."""
+    from hmm_layer_torch.parallel import collectives as C
+
+    saved = C.gather, C.gather_rows
+    C.gather, C.gather_rows = _raising("gather"), _raising("gather_rows")
+    try:
+        yield
+    finally:
+        C.gather, C.gather_rows = saved
+
+
+def _from_every_rank(x):
+    """``x`` of every rank in rank order: the same list on every rank."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, x)
+    return out
+
+
+def _local_cases(mesh, data, route):
+    """The route's functions under ``local=True`` on this rank's blocks of
+    the global cases' inputs (:func:`local_ranges`), the gathers forbidden
+    (:func:`_no_gathers`); then one global call under the same ban, which
+    must raise. Returned from every rank, so every rank holds the list."""
+    from hmm_layer_torch.parallel import local_ranges
+    from hmm_layer_torch.parallel import sharding as S
+
+    pr = {k: torch.as_tensor(v) for k, v in (SEQ_PROBLEM() if route == "seq" else STATE_PROBLEM()).items()}
+    r = local_ranges(mesh, route, pr["E"].shape, data_axis=data)
+    E, W = pr["E"][r.index], pr["W"][r.index]
+    out = {"ranges": tuple(r), "error": None}
+    xs = [pr["init"].clone().requires_grad_(), pr["A"].clone().requires_grad_(), E.clone().requires_grad_()]
+
+    def post_grads(fn, **kw):
+        lg, ll = fn(*xs, **kw)
+        return _grads((lg * W).sum() + ll.sum(), xs)
+
+    try:
+        with _no_gathers():
+            if route == "seq":
+                kw = dict(mesh=mesh, data_axis=data, local_parallel_factor=P_SEQ, local=True)
+                out["ll"] = _np(S.seq_sharded_log_likelihood(pr["init"], pr["A"], E, **kw))
+                lg, ll = S.seq_sharded_posterior(pr["init"], pr["A"], E, **kw)
+                out["lg"], out["post_ll"] = _np(lg), _np(ll)
+                out["lg_nl"] = _np(S.seq_sharded_posterior(pr["init"], pr["A"], E, no_loglik=True, **kw)[0])
+                out["path"] = S.seq_sharded_viterbi(pr["init"], pr["A"], E, **kw).numpy()
+                out["g_ll"] = _grads(S.seq_sharded_log_likelihood(*xs, **kw).sum(), xs)
+                out["g_post"] = post_grads(S.seq_sharded_posterior, **kw)
+                out["g_post_nl"] = post_grads(S.seq_sharded_posterior, no_loglik=True, **kw)
+            else:
+                kw = dict(mesh=mesh, data_axis=data, local=True)
+                args = (pr["init"], pr["A"], E)
+                out["ll_P1"] = _np(S.state_sharded_log_likelihood(*args, **kw))
+                out[f"ll_P{P_STATE}"] = _np(S.state_sharded_log_likelihood(*args, **kw, parallel_factor=P_STATE))
+                lg, ll = S.state_sharded_posterior(*args, **kw)
+                out["lg_P1"], out["post_ll_P1"] = _np(lg), _np(ll)
+                out[f"lg_nl_P{P_STATE}"] = _np(
+                    S.state_sharded_posterior(*args, **kw, no_loglik=True, parallel_factor=P_STATE)[0]
+                )
+                out["path"] = S.state_sharded_viterbi(*args, **kw).numpy()
+                out["g_ll"] = _grads(S.state_sharded_log_likelihood(*xs, **kw).sum(), xs)
+                out["g_post"] = post_grads(S.state_sharded_posterior, **kw, parallel_factor=P_STATE)
+    except AssertionError as e:
+        out["error"] = str(e)
+    try:
+        with _no_gathers():
+            if route == "seq":
+                S.seq_sharded_log_likelihood(pr["init"], pr["A"], pr["E"], mesh, data_axis=data,
+                                             local_parallel_factor=P_SEQ)
+            else:
+                S.state_sharded_log_likelihood(pr["init"], pr["A"], pr["E"], mesh, data_axis=data)
+        out["global_error"] = None
+    except AssertionError as e:
+        out["global_error"] = str(e)
+    return _from_every_rank(out)
+
+
 def _data_cases(mesh):
     from hmm_layer_torch.ops import recursion
     from hmm_layer_torch.parallel import sharding as S
@@ -251,6 +341,9 @@ def world_cases():
         out[name] = _seq_cases(meshes[name], "data" if "data" in MESHES[name] else None)
     for name in STATE_MESHES:
         out[name] = _state_cases(meshes[name], "data" if "data" in MESHES[name] else None)
+    for name in SEQ_MESHES + STATE_MESHES:
+        route = "seq" if name in SEQ_MESHES else "state"
+        out[f"local_{name}"] = _local_cases(meshes[name], "data" if "data" in MESHES[name] else None, route)
     out["data4"] = _data_cases(meshes["data4"])
     out["layer"] = {name: _layer_cases(meshes[name], part) for name, part in LAYER_PARTITIONS.items()}
     out["sparse_layer"] = _layer_cases(meshes["data4"], {"batch": "data"}, sparse=True)
@@ -475,6 +568,65 @@ def test_state_log_likelihood_grads(results, name):
 @pytest.mark.parametrize("name", STATE_MESHES)
 def test_state_posterior_grads(results, name):
     _assert_grads_scaled(results[name]["g_post"], _jax_state(name)["g_post"])
+
+
+# ---------------------------------------------------------------------------
+# The rank-local mode of the state and sequence routes
+# ---------------------------------------------------------------------------
+
+LOCAL_OUTPUTS = {
+    "seq": ("ll", "lg", "post_ll", "lg_nl", "path"),
+    "state": ("ll_P1", f"ll_P{P_STATE}", "lg_P1", "post_ll_P1", f"lg_nl_P{P_STATE}", "path"),
+}
+LOCAL_GRADS = {"seq": ("g_ll", "g_post", "g_post_nl"), "state": ("g_ll", "g_post")}
+
+
+def _block(x, ranges):
+    """The block of a global result at a rank's ranges: (m, b, L, q)
+    outputs, (m, b, L) paths, (m, b) logliks."""
+    rows, positions, states = (slice(*r) for r in ranges)
+    return x[(slice(None), rows, positions, states)[: x.ndim]]
+
+
+def _route(name):
+    return "seq" if name in SEQ_MESHES else "state"
+
+
+@pytest.mark.parametrize("name", SEQ_MESHES + STATE_MESHES)
+def test_local_mode_values_are_the_global_blocks(results, name):
+    """Under ``local=True`` each rank's log gamma, logliks and paths are
+    bit-equal to its block of the global mode's result (which the JAX
+    parity tests above hold); the blocks tile the global result."""
+    glob = results[name]
+    for rank, loc in enumerate(results[f"local_{name}"]):
+        assert loc["error"] is None, f"rank {rank}: {loc['error']}"
+        for key in LOCAL_OUTPUTS[_route(name)]:
+            np.testing.assert_array_equal(loc[key], _block(glob[key], loc["ranges"]), err_msg=f"rank {rank} {key}")
+    covered = sum(np.prod([hi - lo for lo, hi in loc["ranges"]]) for loc in results[f"local_{name}"])
+    assert covered == np.prod(glob["lg" if _route(name) == "seq" else "lg_P1"].shape[1:])
+
+
+@pytest.mark.parametrize("name", SEQ_MESHES + STATE_MESHES)
+def test_local_mode_gradients_are_the_global_blocks(results, name):
+    """The gradient of each rank's ``E`` block is its block of the global
+    gradient; those of ``init`` and ``A`` are the global ones, bit for bit."""
+    glob = results[name]
+    for rank, loc in enumerate(results[f"local_{name}"]):
+        for key in LOCAL_GRADS[_route(name)]:
+            (gi, gA, gE), (ri, rA, rE) = loc[key], glob[key]
+            np.testing.assert_array_equal(gi, ri, err_msg=f"rank {rank} {key} init")
+            np.testing.assert_array_equal(gA, rA, err_msg=f"rank {rank} {key} A")
+            np.testing.assert_array_equal(gE, _block(rE, loc["ranges"]), err_msg=f"rank {rank} {key} E")
+
+
+@pytest.mark.parametrize("name", SEQ_MESHES + STATE_MESHES)
+def test_local_mode_never_gathers(results, name):
+    """With ``collectives.gather`` and ``gather_rows`` made to raise, every
+    local call above ran (no output or ``E`` gather), while a global call
+    under the same ban raises."""
+    for loc in results[f"local_{name}"]:
+        assert loc["error"] is None, loc["error"]
+        assert loc["global_error"] is not None and "collectives.gather" in loc["global_error"]
 
 
 # ---------------------------------------------------------------------------

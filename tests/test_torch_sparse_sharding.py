@@ -14,6 +14,7 @@ with an identity emitter. This file imports JAX only inside its fixtures
 and reference functions: the ranks load it without JAX.
 """
 
+import contextlib
 import functools
 
 import numpy as np
@@ -115,6 +116,74 @@ def _function_cases(mesh, data, pr):
     return out
 
 
+def _raising(name):
+    def call(*args, **kwargs):
+        raise AssertionError(f"collectives.{name} was called")
+
+    return call
+
+
+@contextlib.contextmanager
+def _no_gathers():
+    """``collectives.gather`` and ``gather_rows`` raise inside the block:
+    they make every output gather (and the gradient gather of a scattered
+    ``E``) of the global mode."""
+    from hmm_layer_torch.parallel import collectives as C
+
+    saved = C.gather, C.gather_rows
+    C.gather, C.gather_rows = _raising("gather"), _raising("gather_rows")
+    try:
+        yield
+    finally:
+        C.gather, C.gather_rows = saved
+
+
+def _from_every_rank(x):
+    """``x`` of every rank in rank order: the same list on every rank."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, x)
+    return out
+
+
+def _local_function_cases(mesh, data, pr):
+    """:func:`_function_cases` under ``local=True`` on this rank's blocks
+    (:func:`local_ranges`, route ``"edge"``), the gathers forbidden; then
+    one global call under the same ban, which must raise. Returned from
+    every rank, so every rank holds the list."""
+    from hmm_layer_torch.parallel import local_ranges
+    from hmm_layer_torch.parallel import sparse_sharding as S
+
+    init, probs, E, W = (torch.as_tensor(pr[k]) for k in ("init", "probs", "E", "W"))
+    idx = pr["indices"]
+    r = local_ranges(mesh, "edge", E.shape, data_axis=data)
+    E_l, W_l = E[r.index], W[r.index]
+    kw = dict(mesh=mesh, data_axis=data, local=True)
+    out = {"ranges": tuple(r), "error": None}
+    try:
+        with _no_gathers():
+            out["ll"] = _np(S.edge_sharded_log_likelihood(init, idx, probs, E_l, **kw))
+            lg, ll = S.edge_sharded_posterior(init, idx, probs, E_l, **kw)
+            out["lg"], out["post_ll"] = _np(lg), _np(ll)
+            out["lg_nl"] = _np(S.edge_sharded_posterior(init, idx, probs, E_l, no_loglik=True, **kw)[0])
+            out["path"] = S.edge_sharded_viterbi(init, idx, probs, E_l, **kw).numpy()
+            xs = [x.clone().requires_grad_() for x in (init, probs, E_l)]
+            out["g_ll"] = _grads(S.edge_sharded_log_likelihood(xs[0], idx, xs[1], xs[2], **kw).sum(), xs)
+            for key, no_loglik in (("g_post", False), ("g_post_nl", True)):
+                lg, ll = S.edge_sharded_posterior(xs[0], idx, xs[1], xs[2], no_loglik=no_loglik, **kw)
+                out[key] = _grads((lg * W_l).sum() + ll.sum(), xs)
+    except AssertionError as e:
+        out["error"] = str(e)
+    try:
+        with _no_gathers():
+            S.edge_sharded_log_likelihood(init, idx, probs, E, mesh=mesh, data_axis=data)
+        out["global_error"] = None
+    except AssertionError as e:
+        out["global_error"] = str(e)
+    return _from_every_rank(out)
+
+
 def _layer_cases(mesh, partition, family, pr):
     X = pr["E"]
     labels, mask = pr["labels"], pr["mask"]
@@ -166,6 +235,7 @@ def world_cases(problems):
     for name, mesh in meshes.items():
         data = "data" if "data" in MESHES[name] else None
         out[name] = _function_cases(mesh, data, problems["k2"])
+        out[f"local_{name}"] = _local_function_cases(mesh, data, problems["k2"])
         out[f"layer_{name}"] = {f: _layer_cases(mesh, PARTITIONS[name], f, problems[f]) for f in FAMILIES}
         out[f"trainer_{name}"] = _trainer_case(mesh, PARTITIONS[name], problems["k2"])
     out["ragged"] = _ragged_case(meshes["data2state2"], problems["k2"])
@@ -273,6 +343,96 @@ def test_edge_sharded_log_likelihood_grads(results, name):
 def test_edge_sharded_posterior_grads(results, name, key):
     """The taped posterior's gradients, with and without ``no_loglik``."""
     _assert_grads_scaled(results[name][key], _jax_functions(name)[key], atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The rank-local mode
+# ---------------------------------------------------------------------------
+
+
+def _block(x, ranges):
+    """The block of a global result at a rank's ranges: (m, b, L, q)
+    outputs, (m, b, L) paths, (m, b) logliks."""
+    rows, positions, states = (slice(*r) for r in ranges)
+    return x[(slice(None), rows, positions, states)[: x.ndim]]
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_local_mode_values_are_the_global_blocks(results, name):
+    """Under ``local=True`` each rank's log gamma (its real states, the pad
+    cut), logliks and paths are bit-equal to its block of the global
+    mode's result (which the JAX parity tests above hold)."""
+    for rank, loc in enumerate(results[f"local_{name}"]):
+        assert loc["error"] is None, f"rank {rank}: {loc['error']}"
+        for key in ("ll", "lg", "post_ll", "lg_nl", "path"):
+            np.testing.assert_array_equal(loc[key], _block(results[name][key], loc["ranges"]),
+                                          err_msg=f"rank {rank} {key}")
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+@pytest.mark.parametrize("key", ["g_ll", "g_post", "g_post_nl"])
+def test_local_mode_gradients_are_the_global_blocks(results, name, key):
+    """The gradient of each rank's ``E`` block is its block of the global
+    gradient (through the Baum-Welch VJP for ``g_ll``, the taped scans for
+    the posterior); those of ``init`` and the edge probabilities are the
+    global ones, bit for bit."""
+    for rank, loc in enumerate(results[f"local_{name}"]):
+        (gi, gp, gE), (ri, rp, rE) = loc[key], results[name][key]
+        np.testing.assert_array_equal(gi, ri, err_msg=f"rank {rank} init")
+        np.testing.assert_array_equal(gp, rp, err_msg=f"rank {rank} edge_probs")
+        np.testing.assert_array_equal(gE, _block(rE, loc["ranges"]), err_msg=f"rank {rank} E")
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_local_mode_never_gathers(results, name):
+    """With ``collectives.gather`` and ``gather_rows`` made to raise, every
+    local call ran, while a global call under the same ban raises."""
+    for loc in results[f"local_{name}"]:
+        assert loc["error"] is None, loc["error"]
+        assert loc["global_error"] is not None and "collectives.gather" in loc["global_error"]
+
+
+class _Mesh:
+    """A stand-in for one rank of a mesh: its axis sizes and coordinates."""
+
+    def __init__(self, shape, coords):
+        self.shape, self.coords = shape, coords
+
+    def index(self, axis):
+        return self.coords[axis]
+
+
+@pytest.mark.parametrize("b, n_data, q, n_state", [(4, 2, 29, 4), (6, 4, 29, 2), (3, 1, 5, 4), (8, 2, 32, 4)])
+def test_local_ranges_follow_row_sizes_and_q_pad(b, n_data, q, n_state):
+    """Rows in the blocks of ``row_sizes``; edge-route states in blocks of
+    ``ShardedEdgePlan.q_local`` cut at ``q`` (a block past ``q`` is empty:
+    the function pads it); the dense state route's equal blocks, raising
+    where ``q`` does not divide; seq-route positions in ``row_sizes``
+    blocks. The blocks tile the tensor."""
+    from hmm_layer_torch.parallel import ShardedEdgePlan, local_ranges
+    from hmm_layer_torch.parallel.collectives import row_sizes
+
+    plan = ShardedEdgePlan(np.array([[0, q - 1]]), q, n_state)
+    shape = (1, b, 40, q)
+    rows = np.cumsum([0] + row_sizes(b, n_data))
+    positions = np.cumsum([0] + row_sizes(40, n_state))
+    for d in range(n_data):
+        for k in range(n_state):
+            mesh = _Mesh({"data": n_data, "state": n_state, "seq": n_state}, {"data": d, "state": k, "seq": k})
+            edge = local_ranges(mesh, "edge", shape, data_axis="data")
+            assert edge.rows == (rows[d], rows[d + 1]) and edge.positions == (0, 40)
+            assert edge.states == (min(q, k * plan.q_local), min(q, (k + 1) * plan.q_local))
+            seq = local_ranges(mesh, "seq", shape, data_axis="data")
+            assert seq.positions == (positions[k], positions[k + 1]) and seq.states == (0, q)
+            if q % n_state:
+                with pytest.raises(ValueError, match="not divisible"):
+                    local_ranges(mesh, "state", shape, data_axis="data")
+            else:
+                assert local_ranges(mesh, "state", shape).states == (k * q // n_state, (k + 1) * q // n_state)
+                assert local_ranges(mesh, "state", shape).rows == (0, b)
+    assert sum(min(q, (k + 1) * plan.q_local) - min(q, k * plan.q_local) for k in range(n_state)) == q
+    with pytest.raises(ValueError, match="unknown route"):
+        local_ranges(_Mesh({"state": 1}, {"state": 0}), "rows", shape)
 
 
 # ---------------------------------------------------------------------------
