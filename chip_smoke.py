@@ -158,15 +158,25 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    ``sparse_posterior``. Each call per rank: its ms, its device busy
    share (profiled on its first 200 positions) and peak device memory,
    beside the sparse engine's in this process. After the global calls
-   each world makes the same calls under ``local=True`` on the rank's
-   blocks (``parallel.local_ranges``): the seq route's posterior and CE
-   step (K4 and K5 once each in its backward), the dense state route's
-   chunked posterior, config 5's edge posterior, decode and MAP value and
-   gradients, and q = 14,001's posterior; each local result bit-equal to
-   its block of the global one, and per rank its ms and peak memory above
-   the call's start beside the global call's (and the sparse engine's);
-   the config-5 and q = 14,001 posteriors' local peaks must lie below the
-   engine's.
+   each world makes the same calls under ``local=True``: through the
+   functions on the rank's blocks (``parallel.local_ranges``), the seq
+   route's posterior and CE step (K4 and K5 once each in its backward),
+   the dense state route's chunked posterior and q = 14,001's posterior,
+   each bit-equal to its block of the global one; through the layer
+   (``HMMLayer.local_ranges``: its emitters compute only the rank's block
+   of E), the seq route's posterior and CE step (K4 and K5 once each) and
+   config 5's edge posterior, decode and MAP step, each held to its block
+   of the layer's global call: bit-equal (log gamma, paths, the MAP loss,
+   the MAP gradients of init, the edge probabilities and the E block; and
+   q = 14,001's local posterior, log gamma and loglik), the CE value and
+   the parameter gradients, sums in another order, within their float32
+   bounds (the error and the bound printed; the MAP step's anchored in
+   float64 as the global one's). Per rank each local call's ms and peak memory above the
+   call's start beside the global call's (and the sparse engine's); the
+   config-5 and q = 14,001 posteriors' local peaks must lie below the
+   engine's, the local MAP step's below the layer's global one; the
+   layer's edge posterior and MAP step timed global and local in turns on
+   200 positions.
 14. The examples: the five ``examples/torch_*.py`` at their default sizes
    on the card, started together (the mesh ones spawn two ranks sharing
    the card under gloo); each must exit 0 and print its line.
@@ -3008,7 +3018,44 @@ def seq_route_rank(problem):
     if out["rank"] != 0:
         del out["f32"], out["f64"]
     out["local"] = seq_local_calls(mesh, P_local, *args)
+    out["layer_local"] = layer_local_calls(layer, X, labels, mask)
     return out
+
+
+def block_error(local, glob):
+    """A local block against its block of the global result: max abs
+    difference, and whether the two are bit-equal."""
+    return {"max_abs": float((local - glob).abs().max()), "bit_equal": bool(torch.equal(local, glob))}
+
+
+def layer_local_calls(layer, X, labels, mask):
+    """Rank body part: the sequence route's layer posterior and CE step
+    (the loss and its parameter gradients) in the global mode and under
+    ``local=True`` (the emitters compute only the rank's positions of E,
+    with the codon factors' halo; :func:`measured_call`). The local
+    posterior against the global one's block (the parent holds it
+    bit-equal: the emitters compute the same columns, the function's
+    local mode the same arithmetic), the local CE value and gradients
+    against the global ones (the parent holds them to float32 limits: the
+    value is the sum of the ranks' partial sums, the emitters' gradients
+    the sum of the ranks' shares, each in another order than the global
+    mode's), and the local CE step's launches."""
+    counters = route_counters()
+    pars = [p for p in layer.parameters() if p.requires_grad]
+    r = layer.local_ranges((*X.shape[:3], layer.transitions.num_states))
+    ce = lambda **kw: grads_of(layer.posterior_cross_entropy(X, labels, label_mask=mask, **kw), pars)  # noqa: E731
+    recs, errs = {}, {}
+    lg, recs["layer posterior global"] = measured_call(lambda: layer.state_posterior_log_probs(X))
+    lg_l, recs["layer posterior local"] = measured_call(lambda: layer.state_posterior_log_probs(X, local=True))
+    errs["posterior"] = block_error(lg_l, lg[r.index])
+    del lg, lg_l
+    (loss, g), recs["layer CE step global"] = measured_call(ce, inference=False)
+    reset_kernels(counters)
+    (loss_l, g_l), recs["layer CE step local"] = measured_call(lambda: ce(local=True), inference=False)
+    launches = kernel_counts(counters)
+    errs["CE loss rel"] = float(abs(loss_l - loss) / abs(loss))
+    errs["CE gradients"] = grad_drift(g_l, g)
+    return {"records": recs, "errors": errs, "launches": launches, "ranges": tuple(r)}
 
 
 def seq_local_calls(mesh, P_local, init, A, E, labels, mask):
@@ -3267,6 +3314,30 @@ def report_local(tag, results):
         raise AssertionError(f"{tag}: local mode differs from the global mode's blocks: {bad}")
 
 
+def report_layer_local(tag, results, limits):
+    """Log each rank's layer calls global and under ``local=True`` (ms,
+    peak memory above the call's start) and the local results' errors
+    against the global ones, beside their limits; fail where the
+    posterior is not bit-equal or an error passes its limit."""
+    bad = []
+    for r in results:
+        loc = r["layer_local"]
+        errs = loc["errors"]
+        post = errs["posterior"]
+        text = [f"posterior max abs {post['max_abs']:.3e}, bit-equal {post['bit_equal']} (must be)"]
+        if not post["bit_equal"]:
+            bad.append((r["rank"], "posterior"))
+        for key, lim in limits.items():
+            text.append(f"{key} {errs[key]:.3e} (limit {lim:.3e})")
+            if not errs[key] <= lim:
+                bad.append((r["rank"], key))
+        log(f"phase 13 {tag} rank {r['rank']}, the layer global vs local=True (block rows, positions, states "
+            f"{loc['ranges']}): " + "; ".join(local_text(k, v) for k, v in loc["records"].items())
+            + "; local against global: " + ", ".join(text))
+    if bad:
+        raise AssertionError(f"{tag}: the layer's local mode differs from its global mode's blocks: {bad}")
+
+
 def rank_times(tag, results):
     for r in results:
         med = statistics.median
@@ -3419,6 +3490,13 @@ def routes_phase(HMMLayer, models, make, smi):
     summary["seq_w3_post_ms"] = statistics.median(results[0]["post_ms"])
     summary["seq_w3_decode_ms"] = statistics.median(results[0]["decode_ms"])
     summary["seq_w3_step_ms"] = results[0]["steps"][1][1]
+    limits = {"CE loss rel": F32_NOISE_FACTOR * layer_noise["loss"],
+              "CE gradients": F32_NOISE_FACTOR * layer_noise["grads"]}
+    report_layer_local(f"seq route world {SEQ_WORLD}", results, limits)
+    for r in results:
+        check_launches(f"seq route rank {r['rank']} layer local CE step", r["layer_local"]["launches"],
+                       SEQ_LOCAL_CE_LAUNCHES)
+    summary.update({f"seq_w3_{k.replace(' ', '_')}_ms": v["ms"] for k, v in results[0]["layer_local"]["records"].items()})
     del X, E, ref, ref_plain, obj_kernel, obj_plain, obj64, truth
 
     # (c) state route at config 5, world 2
@@ -3613,7 +3691,7 @@ def edge_route_rank(lengths, labels, mask):
         "posterior": (lambda n: layer.state_posterior_log_probs(X[:, :, :n]), lengths["c5"], True),
         "loglik": (lambda n: layer.log_likelihood(X[:, :, :n]), lengths["c5"], True),
         "decode": (lambda n: layer.viterbi(X[:, :, :n]), lengths["c5"], True),
-        "map": (lambda n: with_ingredient_grads(layer, ingredient_grads.setdefault(n, {}),
+        "map": (lambda n: with_ingredient_grads(layer, GLOBAL_INGREDIENTS, ingredient_grads.setdefault(n, {}),
                                                 lambda: grads_of(layer.loss(X[:, :, :n]), pars)),
                 lengths["c5"], False),
         "ce": (lambda n: grads_of(layer.posterior_cross_entropy(X[:, :, :n], labels[:, :n], label_mask=mask[:, :n]),
@@ -3633,88 +3711,91 @@ def edge_route_rank(lengths, labels, mask):
     return out
 
 
-def with_ingredient_grads(layer, store, fn):
+# Where the sparse layer's MAP step makes its ingredients (init, edge
+# probabilities, E or the rank's block of E), in the global and the
+# rank-local mode: the method, and the ingredients in what it returns.
+GLOBAL_INGREDIENTS = ("_sparse_ingredients", lambda out: {"init": out[0], "probs": out[2], "E": out[3]})
+LOCAL_INGREDIENTS = ("_local_ingredients", lambda out: {"init": out[0], "probs": out[1][1], "E": out[2]})
+
+
+def with_ingredient_grads(layer, ingredients, store, fn):
     """``fn()`` with hooks that store the gradients of the sparse layer's
-    ingredients (init, edge probabilities, E) in ``store``."""
-    ingredients = layer._sparse_ingredients
+    ingredients in ``store``; ``ingredients`` is :data:`GLOBAL_INGREDIENTS`
+    or :data:`LOCAL_INGREDIENTS`."""
+    method, pick = ingredients
+    original = getattr(layer, method)
 
     def hooked(*args):
-        init, indices, probs, E = ingredients(*args)
-        for name, t in (("init", init), ("probs", probs), ("E", E)):
+        out = original(*args)
+        for name, t in pick(out).items():
             if t.requires_grad:
                 t.register_hook(lambda g, name=name: store.__setitem__(name, g))
-        return init, indices, probs, E
+        return out
 
-    layer._sparse_ingredients = hooked
+    setattr(layer, method, hooked)
     try:
         return fn()
     finally:
-        del layer._sparse_ingredients
+        delattr(layer, method)
 
 
 def edge_local_calls(layer, X, mesh, results, map_grads, wall):
-    """Rank body part: the edge-sharded functions under ``local=True`` on
-    this rank's block of the state columns (:func:`measured_call`), after
-    the global calls of :func:`edge_route_rank`: config 5's posterior,
-    decode and MAP value and gradients (of init, the edge probabilities and
-    the E block: the emitter computes no column block), and q = 14,001's
-    posterior. Each local result against its block of the global one
-    (bit-equal; the MAP gradients against those the global call's hooks
-    stored). Then the same four as global and local function calls in
-    turns (global, local, local, global) on BUSY_L positions: the local
-    over global time ratio of each, paired (single calls through gloo vary
-    by tens of percent from one machine to the next)."""
-    from hmm_layer_torch.parallel import (
-        edge_sharded_log_likelihood,
-        edge_sharded_posterior,
-        edge_sharded_viterbi,
-        local_ranges,
-    )
+    """Rank body part, after the global calls of :func:`edge_route_rank`:
+    config 5's posterior, decode and MAP step (its loss and parameter
+    gradients) through the layer under ``local=True`` — the emitter
+    computes only the rank's column block of E, the edge-sharded functions
+    take and return blocks — and q = 14,001's posterior through
+    ``edge_sharded_posterior(local=True)`` on its block
+    (:func:`measured_call`). Bit-equal to the global calls, as the
+    functions' local mode is given the same E block: the posteriors' log
+    gamma blocks (and q = 14,001's loglik), the decode's rows, the MAP
+    loss and the MAP step's gradients of init, the edge probabilities and
+    the E block (hooked in both modes, ``map_grads`` the global call's).
+    The MAP step's parameter gradients go back to the parent, which holds
+    them to the float32 bound: the backward sums over the multi-copy
+    codon columns (``repeat_interleave``'s backward is an ``index_add_``,
+    which CUDA runs with atomic adds) and over the ranks' shares have no
+    fixed order. Then the layer's posterior and MAP step global and local
+    in turns (global, local, local, global) on BUSY_L positions: the local
+    over global time ratio, paired (single calls through gloo vary by tens
+    of percent between machines)."""
+    from hmm_layer_torch.parallel import edge_sharded_posterior, local_ranges
 
-    with torch.no_grad():
-        init, idx, probs, E = layer._sparse_ingredients(X, None, False)
-        E_train = layer.emission_probs(X, training=True)
-    r = local_ranges(mesh, "edge", E.shape)
-    E_l, E_train_l = E[r.index].contiguous(), E_train[r.index].contiguous()
-    short = {"E": E[:, :, :BUSY_L].contiguous(), "E_train": E_train[:, :, :BUSY_L].contiguous()}
-    del E, E_train
-
-    def map_step(e, **kw):
-        xs = [t.detach().clone().requires_grad_() for t in (init, probs, e)]
-        ll = edge_sharded_log_likelihood(xs[0], idx, xs[1], xs[2], mesh, **kw)
-        loss = -layer.apply_sequence_weights(ll, None, aggregate=True) + layer.aux_loss()
-        return torch.autograd.grad(loss, xs)
-
-    recs, equal = {}, {}
-    (lg_l, _), recs["posterior"] = measured_call(lambda: edge_sharded_posterior(init, idx, probs, E_l, mesh, local=True))
-    equal["posterior"] = torch.equal(lg_l, results["posterior"][r.index])
+    pars = [p for p in layer.parameters() if p.requires_grad]
+    r = layer.local_ranges((*X.shape[:3], layer.transitions.num_states))
+    recs, errs, equal = {}, {}, {}
+    lg_l, recs["posterior"] = measured_call(lambda: layer.state_posterior_log_probs(X, local=True))
+    errs["posterior"] = block_error(lg_l, results["posterior"][r.index])
+    equal["posterior"] = errs["posterior"]["bit_equal"]
     del lg_l
-    path_l, recs["decode"] = measured_call(lambda: edge_sharded_viterbi(init, idx, probs, E_l, mesh, local=True))
+    path_l, recs["decode"] = measured_call(lambda: layer.viterbi(X, local=True))
     equal["decode"] = torch.equal(path_l, results["decode"][:, slice(*r.rows)])
-    g, recs["map"] = measured_call(lambda: map_step(E_train_l, local=True), inference=False)
-    equal["map gradients"] = (torch.equal(g[0], map_grads["init"]) and torch.equal(g[1], map_grads["probs"])
-                              and torch.equal(g[2], map_grads["E"][r.index]))
-    del g
+    local_grads = {}
+    (loss_l, g_l), recs["map"] = measured_call(
+        lambda: with_ingredient_grads(layer, LOCAL_INGREDIENTS, local_grads,
+                                      lambda: grads_of(layer.loss(X, local=True), pars)), inference=False)
+    equal["map loss"] = torch.equal(loss_l, results["map"][0])
+    equal["map gradients of init, edge probs, E"] = (
+        torch.equal(local_grads["init"], map_grads["init"]) and torch.equal(local_grads["probs"], map_grads["probs"])
+        and torch.equal(local_grads["E"], map_grads["E"][r.index]))
+    del local_grads
     w_init, w_idx, w_probs, w_E = wall
     rw = local_ranges(mesh, "edge", w_E.shape)
     wE_l = w_E[rw.index].contiguous()
     (wlg_l, wll_l), recs["wall_posterior"] = measured_call(
         lambda: edge_sharded_posterior(w_init, w_idx, w_probs, wE_l, mesh, local=True))
     wlg, wll = results["wall_posterior"]
-    equal["wall_posterior"] = torch.equal(wlg_l, wlg[rw.index]) and torch.equal(wll_l, wll)
+    errs["wall_posterior"] = block_error(wlg_l, wlg[rw.index])
+    equal["wall_posterior"] = errs["wall_posterior"]["bit_equal"] and torch.equal(wll_l, wll)
     del wlg_l, wll_l
 
     n = BUSY_L
-    w_short = w_E[:, :, :n].contiguous()
+    short = X[:, :, :n]
     pairs = {  # name: (global call, local call, inference)
-        "posterior": (lambda: edge_sharded_posterior(init, idx, probs, short["E"], mesh),
-                      lambda: edge_sharded_posterior(init, idx, probs, E_l[:, :, :n], mesh, local=True), True),
-        "decode": (lambda: edge_sharded_viterbi(init, idx, probs, short["E"], mesh),
-                   lambda: edge_sharded_viterbi(init, idx, probs, E_l[:, :, :n], mesh, local=True), True),
-        "map": (lambda: map_step(short["E_train"]), lambda: map_step(E_train_l[:, :, :n], local=True), False),
-        "wall_posterior": (lambda: edge_sharded_posterior(w_init, w_idx, w_probs, w_short, mesh),
-                           lambda: edge_sharded_posterior(w_init, w_idx, w_probs, wE_l[:, :, :n], mesh, local=True),
-                           True),
+        "posterior": (lambda: layer.state_posterior_log_probs(short),
+                      lambda: layer.state_posterior_log_probs(short, local=True), True),
+        "map": (lambda: grads_of(layer.loss(short), pars), lambda: grads_of(layer.loss(short, local=True), pars),
+                False),
     }
     paired = {}
     for name, (glob, loc, inference) in pairs.items():
@@ -3723,7 +3804,8 @@ def edge_local_calls(layer, X, mesh, results, map_grads, wall):
             for which in ("global", "local", "local", "global"):
                 ms[which].append(synced_ms(glob if which == "global" else loc)[1])
         paired[name] = {k: sum(v) / 2 for k, v in ms.items()}
-    return {"records": recs, "equal": equal, "ranges": tuple(r), "wall_ranges": tuple(rw), "paired": paired}
+    return {"records": recs, "errors": errs, "equal": equal, "ranges": tuple(r), "wall_ranges": tuple(rw),
+            "paired": paired, "decode": path_l.cpu(), "map": (loss_l.cpu(), [g.cpu() for g in g_l])}
 
 
 def sparse_truth(layer, X, objective64):
@@ -3803,7 +3885,6 @@ def edge_routes_phase(HMMLayer, models, make, smi):
     log(f"phase 13 single-device sparse engine on the card (the references; launches none; busy shares on "
         f"{BUSY_L} positions): "
         + "; ".join(call_text(k, v) for k, v in ref_rec.items()))
-    local_checks = edge_local_report(results, ref_rec)
     got = {k: v for k, v in results[0]["results"].items()}
     dev = X.device
     checks = {}
@@ -3821,6 +3902,14 @@ def edge_routes_phase(HMMLayer, models, make, smi):
     score_ref, used_ref = path_score64(init, A, E, ref["decode"])
     s_err, s_ok = within(score, score_ref, 1e-6, 0.0)
     checks["c5 decode"] = s_ok and bool(used.all())
+    for r in results:  # the layer's local decode: every rank holds its rows' paths, here every row
+        path_l = r["local"]["decode"].to(dev)
+        score_l, used_l = path_score64(init, A, E, path_l)
+        err, ok = within(score_l, score_ref, 1e-6, 0.0)
+        checks[f"rank {r['rank']} local decode"] = ok and bool(used_l.all())
+        log(f"phase 13 edge route rank {r['rank']} layer decode local=True: valid {bool(used_l.all())}, float64 "
+            f"scores max abs {err:.3e} (rtol 1e-6), paths equal to the global call's at "
+            f"{100 * float((path_l == path).float().mean()):.3f}%")
     same = float((path == ref["decode"]).float().mean())
     q = single.transitions.num_states
     log(f"phase 13 edge route config 5 (q={q} padded to {-(-q // EDGE_WORLD) * EDGE_WORLD}, "
@@ -3841,6 +3930,17 @@ def edge_routes_phase(HMMLayer, models, make, smi):
             f"diff {loss_err:.3e}, bound {2 * bound:.3g}), float64 {val64:.6f}; gradients max abs / max against "
             f"the float64 anchor {d_route:.3e}, the sparse engine's {d_single:.3e} (limit {F32_NOISE_FACTOR:g}x); "
             f"route vs sparse engine {apart:.3e}")
+        if name == "map":
+            for r in results:  # the layer's MAP step under local=True, held as the global one
+                val_l, grads_l = r["local"]["map"]
+                d_local, loss_l_err = grad_drift(grads_l, grads64), abs(float(val_l) - float(ref_val))
+                checks[f"rank {r['rank']} local map"] = d_local <= F32_NOISE_FACTOR * d_single and loss_l_err <= 2 * bound
+                log(f"phase 13 edge route rank {r['rank']} layer MAP step local=True: loss {float(val_l):.6f} (abs "
+                    f"diff to the engine {loss_l_err:.3e}, to the global call {abs(float(val_l) - float(val)):.3e}; "
+                    f"bound {2 * bound:.3g}); gradients max abs / max against the float64 anchor {d_local:.3e} "
+                    f"(limit {F32_NOISE_FACTOR:g}x the engine's), against the global call's "
+                    f"{grad_drift(grads_l, grads):.3e} (bit-equal "
+                    f"{all(torch.equal(a, b) for a, b in zip(grads_l, grads))})")
 
     # q = 14,001: log-likelihood and posterior.
     wll, (wlg, wll2) = got["wall_loglik"].to(dev), [t.to(dev) for t in got["wall_posterior"]]
@@ -3853,7 +3953,7 @@ def edge_routes_phase(HMMLayer, models, make, smi):
         f"{-(-w_init.shape[-1] // EDGE_WORLD) * EDGE_WORLD}, {len(w_idx)} edges, b={WALL_B}, L={WALL_L}, world "
         f"{EDGE_WORLD}) vs sparse_log_likelihood / sparse_posterior: loglik max abs {w_ll_err:.3e} and {w_ll2_err:.3e} "
         f"(bound {wbound:.3g}), log gamma where gamma >= 1e-3 max abs {w_lg_err:.3e} (bound {2 * wbound:.3g})")
-    checks.update(local_checks)
+    checks.update(edge_local_report(results, ref_rec))
     failed = [k for k, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"edge-sharded routes disagree with the sparse engine: {failed}")
@@ -3866,9 +3966,11 @@ def edge_routes_phase(HMMLayer, models, make, smi):
 
 def edge_local_report(results, ref_rec):
     """Per rank, each local call beside the rank's global call and the
-    single-device engine's (ms, peak memory above the call's start); the
-    checks: local results bit-equal to the global blocks, and the config-5
-    and q = 14,001 posteriors' local peaks below the engine's."""
+    single-device engine's (ms, peak memory above the call's start), and
+    the paired local/global times; the checks: the local results
+    bit-equal to the global ones (:func:`edge_local_calls`), the config-5
+    and q = 14,001 posteriors' local peaks below the engine's, and the
+    local MAP step's peak below the layer's global one."""
     checks = {}
     for r in results:
         loc = r["local"]
@@ -3880,11 +3982,12 @@ def edge_local_report(results, ref_rec):
                          f"{eng['above_mib']:.1f} (local peak {rec['above_mib'] / eng['above_mib']:.3f}x the "
                          f"engine's, {rec['above_mib'] / glob['above_mib']:.3f}x global's; ms "
                          f"{rec['ms'] / glob['ms']:.3f}x global's)")
-        log(f"phase 13 edge route rank {r['rank']}, local=True on its state block {loc['ranges'][2]} (q = 14,001: "
-            f"{loc['wall_ranges'][2]}), ms / peak MiB above the call's start: " + "; ".join(parts)
-            + f"; local bit-equal to the global blocks: {loc['equal']}")
-        log(f"phase 13 edge route rank {r['rank']}, global and local function calls in turns (global, local, local, "
-            f"global) on {BUSY_L} positions, mean ms: " + "; ".join(
+        errs = "; ".join(f"{k} log gamma max abs {e['max_abs']:.3e}" for k, e in loc["errors"].items())
+        log(f"phase 13 edge route rank {r['rank']}, local=True on its state block {loc['ranges'][2]} (config 5 "
+            f"through the layer; q = 14,001: the function, {loc['wall_ranges'][2]}), ms / peak MiB above the call's "
+            f"start: " + "; ".join(parts) + f"; local against the global blocks: {errs}; bit-equal {loc['equal']}")
+        log(f"phase 13 edge route rank {r['rank']}, the layer's global and local calls in turns (global, local, "
+            f"local, global) on {BUSY_L} positions, mean ms: " + "; ".join(
                 f"{name} global {p['global']:.1f}, local {p['local']:.1f} ({p['local'] / p['global']:.3f}x)"
                 for name, p in loc["paired"].items()))
         for key, ok in loc["equal"].items():
@@ -3892,6 +3995,8 @@ def edge_local_report(results, ref_rec):
         for name in ("posterior", "wall_posterior"):
             checks[f"rank {r['rank']} local {name} peak below the engine's"] = (
                 loc["records"][name]["above_mib"] < ref_rec[name]["above_mib"])
+        checks[f"rank {r['rank']} local map peak below the global one"] = (
+            loc["records"]["map"]["above_mib"] < r["calls"]["map"]["above_mib"])
     return checks
 
 

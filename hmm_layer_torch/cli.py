@@ -153,6 +153,16 @@ def _model_lengths(seq_lengths, n_models: int, override):
 
 
 def _align(args) -> int:
+    """``align`` under ``--precision``, the caller's DP precision mode
+    restored when it returns (``main`` also runs in-process, from tests and
+    examples; the JAX CLI exits its process instead)."""
+    from .ops.recursion import dp_precision
+
+    with dp_precision(args.precision):
+        return _align_in_mode(args)
+
+
+def _align_in_mode(args) -> int:
     import functools
 
     import numpy as np
@@ -167,14 +177,12 @@ def _align(args) -> int:
         paths_to_msa,
         write_msa,
     )
-    from .ops.recursion import set_dp_precision
     from .training import Trainer
 
     records = list(data.read_fasta(args.input))
     if not records:
         print(f"error: no sequences in {args.input}", file=sys.stderr)
         return 2
-    set_dp_precision(args.precision)
     names = [name for name, _ in records]
     encoded = [data.encode_protein(seq) for _, seq in records]  # L+1 rows
     seq_lens = [e.shape[0] - 1 for e in encoded]

@@ -21,7 +21,7 @@ from torch import nn
 
 from ..ops.kmer import encode_kmer_string, make_k_mers
 from ..utils.bijectors import DefaultDiagBijector
-from .emission_utils import apply_end_hints
+from .emission_utils import apply_end_hints, block_ranges
 from .mvn import MvnMixture
 
 __all__ = [
@@ -181,14 +181,15 @@ class SimpleGenePredEmissions(nn.Module):
             setattr(copy, name, param)
         return copy
 
-    def _expand_shared_introns(self, emit):
-        if not self.share_intron_parameters:
-            return emit
-        c = self.num_copies
-        i0 = emit[..., 1 : 1 + c]
-        return torch.cat([emit[..., : 1 + c], i0, i0, emit[..., 1 + c :]], dim=-1)
+    def _state_columns(self, x, states, dim: int = -1):
+        """The states ``[start, stop)`` of ``x``, whose ``dim`` holds the
+        parameter states: with shared intron parameters the I1 and I2
+        blocks read the I0 columns."""
+        c, n = self.num_copies, x.shape[dim]
+        runs = [(0, 1 + c), (1, 1 + c), (1, 1 + c), (1 + c, n)] if self.share_intron_parameters else [(0, n)]
+        return _take_runs(x, runs, states, dim)
 
-    def emissions(self, inputs, end_hints=None, training: bool = False):
+    def emissions(self, inputs, end_hints=None, training: bool = False, block=None):
         """Per-state emission probabilities (m, b, L, num_states), linear space.
 
         Args:
@@ -197,30 +198,39 @@ class SimpleGenePredEmissions(nn.Module):
             end_hints: optional border-state masks, (m, b, 2, num_states) or
                 (m, b, P, 2, num_states) (see
                 :func:`~hmm_layer_torch.models.emission_utils.apply_end_hints`).
+            block: optional (rows, positions, states) ranges: only
+                ``E[:, rows, positions, states]`` is computed and returned
+                (the class product over the parameter columns those states
+                read). With ``emit_embeddings`` a block of states still
+                scores every state's density at its rows and positions, for
+                the per-position maximum of the full state row.
         """
-        B = self.make_B()  # (m, q_param, s)
+        rows, positions, states = block_ranges(inputs, self.num_states, block)
+        x = inputs[:, slice(*rows), slice(*positions)]
+        B = self._state_columns(self.make_B(), states, dim=1)  # (m, q_block, s)
         if self.emit_embeddings:
             d = self.embedding_dim
-            emit = torch.matmul(inputs[..., :-d], B.transpose(-1, -2)[:, None])
-            flat = inputs[..., -d:].reshape(1, -1, d)
+            emit = torch.matmul(x[..., :-d], B.transpose(-1, -2)[:, None])
+            flat = x[..., -d:].reshape(1, -1, d)
             log_pdf = self.mvn.log_pdf(self.embedding_emission_kernel, flat)
-            log_pdf = log_pdf.reshape(emit.shape)
+            log_pdf = log_pdf.reshape(*emit.shape[:-1], -1)  # every parameter state
             # Per-position max-shift before the exponent: posterior
             # marginals, Viterbi paths and the posterior-CE objective do not
             # change under a positive per-position rescaling of E, and the
             # raw density overflows float32 once a trained component
             # sharpens (NaN losses after ~20 CE steps). The maximum carries
             # no gradient, as in the JAX package.
-            log_pdf = log_pdf - log_pdf.amax(-1, keepdim=True).detach()
+            log_pdf = self._state_columns(log_pdf, states) - log_pdf.amax(-1, keepdim=True).detach()
             embedding_emit = torch.exp(log_pdf / self.temperature)
             if training:
                 emit = emit + 1e-10
                 embedding_emit = embedding_emit + 1e-10
             emit = emit * embedding_emit
         else:
-            emit = torch.matmul(inputs, B.transpose(-1, -2)[:, None])
-        emit = self._expand_shared_introns(emit)
-        return apply_end_hints(emit, end_hints)
+            emit = torch.matmul(x, B.transpose(-1, -2)[:, None])
+        if block is None:
+            return apply_end_hints(emit, end_hints)
+        return apply_end_hints(emit, end_hints, (rows, positions, states), inputs.shape[2])
 
     def get_config(self) -> dict:
         return {
@@ -353,32 +363,56 @@ class GenePredEmissions(SimpleGenePredEmissions):
         idx_right = 25 * prv2 + 5 * prv1 + n_idx  # window (t-2, t-1, t)
         return self.codon_lookup[0][idx_left] * self.codon_lookup[1][idx_right]
 
-    def emissions(self, inputs, end_hints=None, training: bool = False):
-        """Inputs: (m, b, L, s + 5); the trailing 5 channels are one-hot ACGTN."""
-        nucleotides = inputs[..., -5:]
-        emit = super().emissions(inputs[..., :-5], end_hints=end_hints, training=training)
-
-        m, b, L = nucleotides.shape[:3]
+    def _codon_factor(self, nucleotides, positions):
+        """(m, b_l, L_l, 9) codon factors at ``positions`` of the rows'
+        (m, b_l, L, 5) one-hot nucleotides. The 3-mers read two positions
+        on each side, so they are built on the positions with that halo;
+        the ``N`` fill applies at the sequence's own ends only."""
+        p0, p1 = positions
+        L = nucleotides.shape[2]
+        w0, w1 = max(p0 - 2, 0), min(p1 + 2, L)
+        window = nucleotides[:, :, w0:w1]
         if self.onehot_lookup_kmers:
-            codon_factor = self._codon_factor_lookup(nucleotides)  # (m, b, L, 9)
+            factor = self._codon_factor_lookup(window)
         else:
-            nuc_flat = nucleotides.reshape(m * b, L, 5)
+            m, b, n = window.shape[:3]
+            nuc_flat = window.reshape(m * b, n, 5)
             if self.compute_kmers_in_bf16:
                 nuc_flat = nuc_flat.to(torch.bfloat16)
             factors = []
             for side, pivot_left in ((0, True), (1, False)):
                 k_mers = make_k_mers(nuc_flat, k=3, pivot_left=pivot_left)
-                k_mers = k_mers.reshape(m, b, L, 64).to(torch.float32)
+                k_mers = k_mers.reshape(m, b, n, 64).to(torch.float32)
                 factors.append(torch.matmul(k_mers, self.codon_probs[side].T))
-            codon_factor = factors[0] * factors[1]  # (m, b, L, 9)
+            factor = factors[0] * factors[1]
+        return factor[:, :, p0 - w0 : p1 - w0]
 
-        if self.num_copies > 1:
-            codon_factor = codon_factor.repeat_interleave(self.num_copies, dim=-1)
-        unconstrained = torch.full(
-            tuple(codon_factor.shape[:-1]) + (1 + 5 * self.num_copies,),
-            1.0 / 4096.0,
-            dtype=codon_factor.dtype,
-            device=codon_factor.device,
+    def emissions(self, inputs, end_hints=None, training: bool = False, block=None):
+        """Inputs: (m, b, L, s + 5); the trailing 5 channels are one-hot ACGTN.
+
+        ``block`` (rows, positions, states) computes only
+        ``E[:, rows, positions, states]``: the class product over the
+        block's states, the codon factors on the block's positions (with
+        their two-position halo) and the factor columns of its states.
+        """
+        rows, positions, states = block_ranges(inputs, self.num_states, block)
+        nucleotides = inputs[:, slice(*rows), :, -5:]
+        blocked = {} if block is None else {"block": block}
+        emit = super().emissions(inputs[..., :-5], end_hints=end_hints, training=training, **blocked)
+
+        # Factor columns by state: the first 1 + 5c states (Ir, introns,
+        # E0, E1) are unconstrained (1/4096); the constrained ones (E2,
+        # START, EI0-2, IE0-2, STOP) take their class's column, one column
+        # for each of the c copies.
+        c, (s0, s1) = self.num_copies, states
+        free = 1 + 5 * c
+        t0, t1 = max(s0 - free, 0), max(s1 - free, 0)  # the block's constrained columns
+        k0 = t0 // c  # the classes they read start here
+        codon_factor = self._codon_factor(nucleotides, positions)[..., k0 : -(-t1 // c)]
+        if c > 1:
+            codon_factor = codon_factor.repeat_interleave(c, dim=-1)[..., t0 - k0 * c : t1 - k0 * c]
+        unconstrained = codon_factor.new_full(
+            tuple(codon_factor.shape[:-1]) + (max(min(s1, free) - s0, 0),), 1.0 / 4096.0
         )
         codon_factor = torch.cat([unconstrained, codon_factor], dim=-1)
         if training:
@@ -386,13 +420,17 @@ class GenePredEmissions(SimpleGenePredEmissions):
         emission = emit * codon_factor
 
         if self.trainable_nucleotides_at_exons:
-            nuc_no_n = nucleotides[..., :4] + nucleotides[..., 4:] / 4.0
+            nuc = nucleotides[:, :, slice(*positions)]
+            nuc_no_n = nuc[..., :4] + nuc[..., 4:] / 4.0
             nuc_probs = torch.softmax(self.nuc_emission_kernel, dim=-1)  # (m, 3c, 4)
-            exon_factor = torch.matmul(nuc_no_n, nuc_probs.transpose(-1, -2)[:, None])
-            c = self.num_copies
+            # Exon states (E0-2, states 1 + 3c .. 1 + 6c) take their column,
+            # every other state 1/4.
+            e0, e1 = min(max(s0, 1 + 3 * c), 1 + 6 * c), max(min(s1, 1 + 6 * c), 1 + 3 * c)
+            exon_probs = nuc_probs[:, e0 - 1 - 3 * c : e1 - 1 - 3 * c]
+            exon_factor = torch.matmul(nuc_no_n, exon_probs.transpose(-1, -2)[:, None])
             lead = tuple(emission.shape[:-1])
-            pre = emission.new_full(lead + (1 + 3 * c,), 0.25)
-            post = emission.new_full(lead + (self.num_states - (1 + 6 * c),), 0.25)
+            pre = emission.new_full(lead + (max(min(s1, e0) - s0, 0),), 0.25)
+            post = emission.new_full(lead + (max(s1 - max(s0, e1), 0),), 0.25)
             emission = emission * torch.cat([pre, exon_factor, post], dim=-1)
         return emission
 
@@ -418,3 +456,19 @@ class GenePredEmissions(SimpleGenePredEmissions):
             }
         )
         return config
+
+
+def _take_runs(x, runs, columns, dim: int = -1):
+    """Columns ``[start, stop)`` of the concatenation of ``x``'s column
+    runs ``[(start, stop), ...]`` along ``dim``: the runs' overlapping
+    slices, concatenated."""
+    c0, c1 = columns
+    parts, at = [], 0
+    for a, b in runs:
+        lo, hi = max(c0 - at, 0), min(c1 - at, b - a)
+        if lo < hi:
+            parts.append(x.narrow(dim, a + lo, hi - lo))
+        at += b - a
+    if not parts:
+        return x.narrow(dim, 0, 0)
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)

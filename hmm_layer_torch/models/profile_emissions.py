@@ -21,7 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .emission_utils import apply_end_hints
+from .emission_utils import apply_end_hints, block_ranges
 from .priors import AminoAcidPrior
 from .profile_transitions import ProfileTransitions, get_num_states
 
@@ -156,13 +156,18 @@ class ProfileEmissions(nn.Module):
             mats.append(mat)
         return torch.stack(mats, dim=0)
 
-    def emissions(self, inputs, end_hints=None, training: bool = False):
+    def emissions(self, inputs, end_hints=None, training: bool = False, block=None):
         """inputs: (m, ..., s_in) distributions over the alphabet; returns
-        (m, ..., q_max)."""
+        (m, ..., q_max), or with ``block`` (rows, positions, states ranges)
+        only ``E[:, rows, positions, states]``."""
         B = self.make_B()
         s_in = inputs.shape[-1]
-        emit = torch.einsum("mbls,mqs->mblq", inputs, B[..., :s_in])
-        return apply_end_hints(emit, end_hints)
+        if block is None:
+            return apply_end_hints(torch.einsum("mbls,mqs->mblq", inputs, B[..., :s_in]), end_hints)
+        rows, positions, states = block_ranges(inputs, B.shape[-2], block)
+        x = inputs[:, slice(*rows), slice(*positions)]
+        emit = torch.einsum("mbls,mqs->mblq", x, B[:, slice(*states), :s_in])
+        return apply_end_hints(emit, end_hints, (rows, positions, states), inputs.shape[2])
 
     def prior_log_density(self):
         return self.prior(self.make_B(), lengths=self.lengths)

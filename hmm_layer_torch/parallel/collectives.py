@@ -33,7 +33,11 @@ blocks come in and go out as they are, and its cotangents are its own):
   cotangents (and keep this rank's block);
 * :func:`replicated_out` and :func:`mean_out` — a result every rank
   computes whole (its cotangent goes to the first rank of the axes only),
-  and the row-weighted mean of the ranks' values.
+  and the row-weighted mean of the ranks' values;
+* :func:`replicated_many` — :func:`replicated` of several tensors with one
+  all-reduce in the backward (a module's parameters, read by each rank's
+  own block of work), and :func:`sum_out` — the sum of the ranks' partial
+  values, each rank's cotangent its own part's.
 
 Inside a sharded function each rank's cotangents are its own part of the
 whole (the ``gather`` backward gives each rank its block), so the
@@ -77,6 +81,8 @@ __all__ = [
     "all_gather_ad",
     "replicated_out",
     "mean_out",
+    "replicated_many",
+    "sum_out",
 ]
 
 
@@ -497,3 +503,48 @@ def mean_out(x, mesh: Mesh, axis: str | None, share: float | None = None):
     if not (torch.is_grad_enabled() and x.requires_grad):
         return _weighted_sum(x, mesh, axis, share)
     return _MeanOut.apply(x, mesh, axis, share)
+
+
+class _ReplicatedMany(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, mesh, axes, *xs):
+        ctx.mesh, ctx.axes = mesh, axes
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        flat = psum(torch.cat([ct.reshape(-1) for ct in cts]), ctx.mesh, ctx.axes)
+        return (None, None, *(g.view_as(ct) for g, ct in zip(flat.split([ct.numel() for ct in cts]), cts)))
+
+
+def replicated_many(xs, mesh: Mesh, axes):
+    """:func:`replicated` of each tensor of ``xs`` (one dtype), the
+    gradients summed over the ranks of ``axes`` in ONE all-reduce of their
+    concatenation: every rank makes the same single collective, whichever
+    of them its block of work reads."""
+    xs = tuple(xs)
+    if not (xs and _live(axes, mesh) and torch.is_grad_enabled() and any(x.requires_grad for x in xs)):
+        return xs
+    return _ReplicatedMany.apply(mesh, axes, *xs)
+
+
+class _SumOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        return psum(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None, None
+
+
+def sum_out(x, mesh: Mesh, axes):
+    """The sum over the ranks of ``axes`` of each rank's partial value
+    ``x`` (a loss summed over blocks); each rank's part of the cotangent is
+    the whole cotangent, as the sum's gradient is with respect to each
+    term."""
+    if not _live(axes, mesh):
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return psum(x, mesh, axes)
+    return _SumOut.apply(x, mesh, axes)

@@ -176,19 +176,30 @@ def data_parallel_fn(fn, mesh: Mesh, axis: str = "data", batch_dim: int = 1):
     def wrapped(params, x, *args, **kwargs):
         x = tuple(x) if isinstance(x, (tuple, list)) else torch.as_tensor(x)
         total = next(t for t in (x if isinstance(x, tuple) else (x,)) if torch.is_tensor(t)).shape[batch_dim]
-        params = _map_tensors(lambda a: C.replicated(a, mesh, axis), params)
         rows = _map_tensors(lambda t: C.scatter(t, mesh, axis, batch_dim, ragged=True), x)
-        share = C.row_sizes(total, mesh.shape[axis])[mesh.index(axis)] / total
-        out = fn(params, rows, *args, **kwargs)
-
-        def combine(o):
-            if o.dim() == 0:
-                return C.mean_out(o, mesh, axis, share)
-            return C.gather(o, mesh, axis, batch_dim, total)
-
-        return _map_tensors(combine, out)
+        return run_on_rows(fn, params, rows, total, mesh, axis, batch_dim, *args, **kwargs)
 
     return wrapped
+
+
+def run_on_rows(fn, params, rows, total: int, mesh: Mesh, axis: str = "data", batch_dim: int = 1, *args, **kwargs):
+    """``fn(params, rows, ...)`` on this rank's ``rows`` (its block of
+    ``total`` rows along ``batch_dim``, :func:`~.collectives.row_sizes`),
+    combined as :func:`data_parallel_fn` combines them: the parameters
+    replicated, tensor results gathered, 0-d results averaged by rows. The
+    rows' own gradients are their block's (a rank that computed only its
+    rows, e.g. its emissions, sums the gradients of what it computed them
+    from over ``axis`` itself)."""
+    params = _map_tensors(lambda a: C.replicated(a, mesh, axis), params)
+    share = C.row_sizes(total, mesh.shape[axis])[mesh.index(axis)] / total
+    out = fn(params, rows, *args, **kwargs)
+
+    def combine(o):
+        if o.dim() == 0:
+            return C.mean_out(o, mesh, axis, share)
+        return C.gather(o, mesh, axis, batch_dim, total)
+
+    return _map_tensors(combine, out)
 
 
 def _check_divisible(size, n, what, axis_size_name):

@@ -24,6 +24,22 @@ layer without a partition the data-parallel route ``{"batch": data_axis}``
 on that mesh. Either way every rank starts from rank 0's parameters and
 takes the same optimizer step; rank 0 alone writes metrics and
 checkpoints.
+
+A layer with a ``state`` or ``seq`` partition (or ``batch``) trains in its
+rank-local mode through ``loss_fn``, e.g. ``loss_fn=lambda batch, indices:
+layer.loss(batch, indices=indices, local=True)``: each rank computes only
+its block of the emissions, and the step's reductions are the layer's own,
+so that every rank gets the whole batch's loss and gradients:
+
+* the emitters' parameters: their gradients, each rank's block's share,
+  summed over the route's axes and the data axis (one all-reduce);
+* ``init`` and ``A`` (or the edge probabilities): global already, from the
+  sharded functions' backward, and not summed again;
+* the CE objective: its partial sums summed over the ranks once, for the
+  value; its gradient is the sharded function's VJP alone;
+* the MAP loss: the log-likelihood is the same on the ranks of a
+  ``state`` or ``seq`` axis, its rows' mean summed over the data axis;
+  the prior and the auxiliary loss are computed whole on every rank.
 """
 
 from __future__ import annotations

@@ -85,6 +85,22 @@ class TestAlignCommand:
         assert "adaptation round 1: lengths" in capsys.readouterr().out
         _check_alignment(fasta, out)
 
+    @pytest.mark.parametrize("found", ["highest", "high"])
+    def test_align_restores_the_dp_precision_it_found(self, tmp_path, found):
+        """``main`` runs in-process (tests, examples): ``align`` sets
+        ``--precision`` (default ``high``) for its own run only, and leaves
+        ``set_dp_precision``'s mode as it found it."""
+        from hmm_layer_torch.ops import recursion
+
+        fasta, out = tmp_path / "prot.fa", tmp_path / "aln.fa"
+        _write_family(fasta, 1, insert_tail=False)
+        flags = {"highest": [], "high": ["--precision", "highest"]}[found]
+        with recursion.dp_precision(found):
+            rc = main(["align", "-i", str(fasta), "-o", str(out), "--models", "1", "--steps", "2",
+                       "--batch", "8", "--cpu", *flags])
+            assert rc == 0
+            assert recursion._dp_mode == found
+
     def test_align_empty_input(self, tmp_path):
         fasta = tmp_path / "empty.fa"
         fasta.write_text("")

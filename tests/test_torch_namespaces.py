@@ -52,9 +52,12 @@ def test_port_versions_and_aliases():
     assert hmm_layer_torch.set_dp_precision is recursion.set_dp_precision
     assert ops.forward is hmm_layer_torch.forward is recursion.forward
     assert ops.EPS == semiring.EPS == 1e-16
-    with hmm_layer_torch.dp_precision("high"):
-        assert recursion._dp_mode == "high"
-    assert recursion._dp_mode == "highest"
+    # The starting mode is pinned: what ran before in this process (the
+    # align command, another test) may have left any mode set.
+    with hmm_layer_torch.dp_precision("highest"):
+        with hmm_layer_torch.dp_precision("high"):
+            assert recursion._dp_mode == "high"
+        assert recursion._dp_mode == "highest"
 
 
 _PROBE = """

@@ -10,6 +10,15 @@ instead of hanging) and returns, from every rank, the results of every
 case on the meshes ``{"seq": 4}``, ``{"state": 4}``, ``{"data": 2, "seq":
 2}``, ``{"data": 2, "state": 2}`` and ``{"data": 4}``. This file imports
 JAX only inside its fixtures: the ranks load it without JAX.
+
+The JAX references run in one child process (:func:`_jax_in_child`),
+each quantity its own jitted program: XLA:CPU's in-process all-reduce
+rendezvous keys on (run, devices, op id), and a program whose independent
+sharded scans run at once (the forward and backward scans of one
+posterior, or several functions in one program) can put two of its
+all-reduces in one rendezvous (``Check failed: id < num_threads``); the
+process then aborts or segfaults while its result is fetched. A child
+that dies so is run again; the pytest worker goes on.
 """
 
 import contextlib
@@ -28,6 +37,9 @@ MESHES = {
     "data2state2": {"data": 2, "state": 2},
     "data4": {"data": 4},
 }
+LOCAL_FAMILIES = ("simple", "k2")
+LOCAL_TRAINERS = ("seq4", "data2state2", "data4")
+JAX_LAYER_MESHES = ("data2seq2", "state4")  # the JAX layer references of the local blocks
 SEQ_MESHES = ("seq4", "data2seq2")
 STATE_MESHES = ("state4", "data2state2")
 P_SEQ = 3  # rank-local factor: L / 4 = 24 and L / 2 = 48 divide by 3
@@ -86,6 +98,51 @@ def _gene_layer(sparse=False, **kwargs):
     with torch.no_grad():
         for p in layer.parameters():
             p += torch.as_tensor(rng.normal(0, 0.5, size=p.shape), dtype=p.dtype)
+    return layer
+
+
+CODONS = dict(
+    start_codons=[("ATG", 1.0)],
+    stop_codons=[("TAG", 0.34), ("TAA", 0.33), ("TGA", 0.33)],
+    intron_begin_pattern=[("NGT", 0.99), ("NGC", 0.005), ("NAT", 0.005)],
+    intron_end_pattern=[("AGN", 0.99), ("ACN", 0.01)],
+)
+K2_Q = 29  # GenePredMultiTransitions(k=2): 1 + 14 * 2 states
+
+
+def _k2_inputs(seed=5, b=4, L=96):
+    """15 class probabilities, one-hot ACGTN (a tenth N), labels over the
+    29 states, a label mask and per-chunk end hints (8 chunks of 12)."""
+    rng = np.random.default_rng(seed)
+    cls = rng.dirichlet(np.ones(15), size=(1, b, L))
+    nuc = np.eye(5)[np.where(rng.uniform(size=(1, b, L)) < 0.1, 4, rng.integers(0, 4, size=(1, b, L)))]
+    x = np.concatenate([cls, nuc], axis=-1).astype(np.float32)
+    labels = rng.integers(0, K2_Q, size=(1, b, L))
+    mask = (rng.uniform(size=(1, b, L)) > 0.3).astype(np.float32)
+    hints = rng.uniform(0.2, 1.0, size=(1, b, 8, 2, K2_Q)).astype(np.float32)
+    return x, labels, mask, hints
+
+
+def _k2_layer(**kwargs):
+    """The multi-copy gene-pred layer (k = 2, q = 29; trainable exon
+    nucleotides) on the CPU, its parameters drawn from fixed seeds (the
+    same on every rank)."""
+    from hmm_layer_torch import HMMLayer
+    from hmm_layer_torch.models import GenePredEmissions, GenePredMultiTransitions, make_15_class_emission_kernel
+
+    layer = HMMLayer(
+        GenePredMultiTransitions(k=2, generator=torch.Generator().manual_seed(0)),
+        GenePredEmissions(num_copies=2, init=make_15_class_emission_kernel(num_copies=2),
+                          trainable_nucleotides_at_exons=True, **CODONS),
+        num_seqs=100,
+        parallel_factor=P_SEQ,
+        device="cpu",
+        **kwargs,
+    )
+    rng = np.random.default_rng(6)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p += torch.as_tensor(rng.normal(0, 0.3, size=p.shape), dtype=p.dtype)
     return layer
 
 
@@ -331,6 +388,92 @@ def _trainer_cases(mesh, partition):
     return out
 
 
+@contextlib.contextmanager
+def _emitter_shapes(layer, shapes):
+    """Inside the block every emitter call of ``layer`` appends its
+    output's shape to ``shapes``."""
+    saved = [(em, em.emissions) for em in layer.emissions]
+
+    def recording(call):
+        @functools.wraps(call)
+        def emissions(*args, **kwargs):
+            out = call(*args, **kwargs)
+            shapes.append(tuple(out.shape))
+            return out
+
+        return emissions
+
+    for em, call in saved:
+        em.emissions = recording(call)
+    try:
+        yield
+    finally:
+        for em, _ in saved:
+            del em.emissions
+
+
+def _layer_local_cases(mesh, partition, family="simple"):
+    """The layer's rank-local mode (``local=True``) against its global mode
+    on the same rank and weights: log gamma, logliks, paths, the CE and
+    MAP values and their parameter gradients, and the rank's block of E;
+    the shapes every emitter call of the local calls returned. Returned
+    from every rank."""
+    if family in ("simple", "sparse"):
+        X, labels, mask = _layer_inputs()
+        hints, layer = None, _gene_layer(family == "sparse", mesh=mesh, partition=partition)
+    else:
+        X, labels, mask, hints = _k2_inputs()
+        layer = _k2_layer(mesh=mesh, partition=partition)
+    q = layer.transitions.num_states
+    out, shapes = {}, []
+    with torch.no_grad():
+        for key, call in (("lg", layer.state_posterior_log_probs), ("ll", layer.log_likelihood),
+                          ("path", layer.viterbi)):
+            out[key] = _np(call(X, end_hints=hints))
+            with _emitter_shapes(layer, shapes):
+                out[f"local_{key}"] = _np(call(X, end_hints=hints, local=True))
+        out["E"] = _np(layer.emission_probs(X, end_hints=hints))
+        with _emitter_shapes(layer, shapes):
+            out["local_E"] = _np(layer._local_ingredients(X, hints, False)[2])
+    params = list(layer.parameters())
+    for key, objective in (("ce", lambda **kw: layer.posterior_cross_entropy(X, labels, mask, end_hints=hints, **kw)),
+                           ("map", lambda **kw: layer.loss(X, end_hints=hints, **kw))):
+        value = objective()
+        out[key], out[f"g_{key}"] = float(value), _grads(value, params)
+        with _emitter_shapes(layer, shapes):
+            value = objective(local=True)
+        out[f"local_{key}"], out[f"local_g_{key}"] = float(value), _grads(value, params)
+    out["ranges"] = tuple(layer.local_ranges((1, X.shape[1], X.shape[2], q)))
+    out["global_shape"], out["emitter_shapes"] = (1, X.shape[1], X.shape[2], q), sorted(set(shapes))
+    with torch.no_grad():
+        init, A = layer.transitions.matrices()
+        out["init"], out["A"] = _np(init), _np(A)
+        out["params"] = {k: _np(v) for k, v in layer.state_dict().items()}
+    return _from_every_rank(out)
+
+
+def _trainer_local_cases(mesh, partition):
+    """One SGD step (lr 0.05) of the CE objective and one of the MAP loss
+    (``layer.loss``, the Trainer's default objective, through ``loss_fn``)
+    in the rank-local mode and in the global mode, from the same weights:
+    the parameters after each. Returned from every rank."""
+    from hmm_layer_torch.training import Trainer
+
+    X, labels, mask = _layer_inputs()
+    sgd = functools.partial(torch.optim.SGD, lr=0.05)
+    out = {}
+    for mode, local in (("global", False), ("local", True)):
+        layer = _gene_layer(mesh=mesh, partition=partition)
+        Trainer(layer, optimizer=sgd, loss_fn=lambda batch, _, l=layer, loc=local: l.posterior_cross_entropy(
+            batch, labels, mask, local=loc)).fit([X], log_every=100)
+        out[f"ce_{mode}"] = {k: _np(v) for k, v in layer.state_dict().items()}
+        layer = _gene_layer(mesh=mesh, partition=partition)
+        Trainer(layer, optimizer=sgd, loss_fn=lambda batch, i, l=layer, loc=local: l.loss(
+            batch, indices=i, local=loc)).fit([X], log_every=100)
+        out[f"map_{mode}"] = {k: _np(v) for k, v in layer.state_dict().items()}
+    return _from_every_rank(out)
+
+
 def world_cases():
     """Every case of this file on this rank; run by each rank of the world."""
     from hmm_layer_torch.parallel import make_mesh
@@ -356,6 +499,12 @@ def world_cases():
         "data4": _trainer_cases(meshes["data4"], None),  # Trainer(mesh=...) adopts {"batch": "data"}
         "data2seq2": _trainer_cases(meshes["data2seq2"], LAYER_PARTITIONS["data2seq2"]),
     }
+    out["layer_local"] = {
+        f"{name}-{family}": _layer_local_cases(meshes[name], part, family)
+        for name, part in LAYER_PARTITIONS.items() for family in LOCAL_FAMILIES
+    }
+    out["layer_local"]["data4-sparse"] = _layer_local_cases(meshes["data4"], LAYER_PARTITIONS["data4"], "sparse")
+    out["trainer_local"] = {name: _trainer_local_cases(meshes[name], LAYER_PARTITIONS[name]) for name in LOCAL_TRAINERS}
     return out
 
 
@@ -384,14 +533,74 @@ def _one_torch_thread():
 # ---------------------------------------------------------------------------
 
 
+def _jax_in_child(fn, *args, attempts=3):
+    """``fn(*args)`` in a fresh child process (spawned; it sets up JAX as
+    ``tests/conftest.py`` does), run again when the child dies (XLA:CPU's
+    rendezvous abort, see the module docstring), at most ``attempts``
+    times; an exception in ``fn`` is raised here."""
+    import concurrent.futures as cf
+    import multiprocessing
+    import warnings
+
+    for attempt in range(1, attempts + 1):
+        with cf.ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn")) as pool:
+            try:
+                return pool.submit(_in_child, fn, *args).result()
+            except cf.process.BrokenProcessPool:
+                warnings.warn(f"the JAX reference process died (attempt {attempt} of {attempts})")
+    raise RuntimeError(f"the JAX reference process died {attempts} times")
+
+
+def _in_child(fn, *args):
+    import conftest  # noqa: F401 -- the 8-device CPU platform and the compilation cache
+
+    return fn(*args)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_refs():
+    """Every JAX reference of this file, made in one child process."""
+    return _jax_in_child(_jax_references)
+
+
+def _jax_references():
+    params = {k: _np(v) for k, v in _gene_layer().state_dict().items()}
+    return {
+        "seq": {name: _jax_seq_values(name) for name in SEQ_MESHES},
+        "state": {name: _jax_state_values(name) for name in STATE_MESHES},
+        "data": _jax_data_values(),
+        "layer": {name: _jax_layer_values(name, params) for name in JAX_LAYER_MESHES},
+        "layer_params": params,
+    }
+
+
+def _jax_seq(name):
+    return _jax_refs()["seq"][name]
+
+
+def _jax_state(name):
+    return _jax_refs()["state"][name]
+
+
+def _jax_data():
+    return _jax_refs()["data"]
+
+
 def _jax_mesh(name):
     from hmm_layer_tpu.parallel import sharding as J
 
     return J.make_mesh(MESHES[name])
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_seq(name):
+def _fetch(fn, *args):
+    """``fn(*args)`` as its own jitted program, run and fetched (numpy)
+    before the caller starts another (see the module docstring)."""
+    import jax
+
+    return jax.tree.map(np.asarray, jax.jit(fn)(*args))
+
+
+def _jax_seq_values(name):
     from functools import partial
 
     import jax
@@ -401,29 +610,25 @@ def _jax_seq(name):
     mesh = _jax_mesh(name)
     kw = dict(data_axis="data" if "data" in MESHES[name] else None, local_parallel_factor=P_SEQ)
     pr = SEQ_PROBLEM()
+    args = (pr["init"], pr["A"], pr["E"])
 
-    def f(init, A, E, W):
-        ll = J.seq_sharded_log_likelihood(init, A, E, mesh, **kw)
-        lg, post_ll = J.seq_sharded_posterior(init, A, E, mesh, **kw)
-        lg_nl, _ = J.seq_sharded_posterior(init, A, E, mesh, no_loglik=True, **kw)
-        path = J.seq_sharded_viterbi(init, A, E, mesh, **kw)
-        g_ll = jax.grad(lambda *a: J.seq_sharded_log_likelihood(*a, mesh, **kw).sum(), argnums=(0, 1, 2))(init, A, E)
+    def post_obj(*a, no_loglik=False):
+        lg, ll = J.seq_sharded_posterior(*a[:3], mesh, no_loglik=no_loglik, **kw)
+        return jnp.sum(lg * a[3]) + jnp.sum(ll)
 
-        def post_obj(*a, no_loglik=False):
-            lg, ll = J.seq_sharded_posterior(*a, mesh, no_loglik=no_loglik, **kw)
-            return jnp.sum(lg * W) + jnp.sum(ll)
-
-        g_post = jax.grad(post_obj, argnums=(0, 1, 2))(init, A, E)
-        g_post_nl = jax.grad(partial(post_obj, no_loglik=True), argnums=(0, 1, 2))(init, A, E)
-        return dict(ll=ll, lg=lg, post_ll=post_ll, lg_nl=lg_nl, path=path, g_ll=g_ll, g_post=g_post,
-                    g_post_nl=g_post_nl)
-
-    out = jax.jit(f)(pr["init"], pr["A"], pr["E"], pr["W"])
-    return jax.tree.map(np.asarray, out)
+    out = {"ll": _fetch(lambda *a: J.seq_sharded_log_likelihood(*a, mesh, **kw), *args)}
+    out["lg"], out["post_ll"] = _fetch(lambda *a: J.seq_sharded_posterior(*a, mesh, **kw), *args)
+    out["lg_nl"] = _fetch(lambda *a: J.seq_sharded_posterior(*a, mesh, no_loglik=True, **kw)[0], *args)
+    out["path"] = _fetch(lambda *a: J.seq_sharded_viterbi(*a, mesh, **kw), *args)
+    out["g_ll"] = _fetch(
+        jax.grad(lambda *a: J.seq_sharded_log_likelihood(*a, mesh, **kw).sum(), argnums=(0, 1, 2)), *args
+    )
+    out["g_post"] = _fetch(jax.grad(post_obj, argnums=(0, 1, 2)), *args, pr["W"])
+    out["g_post_nl"] = _fetch(jax.grad(partial(post_obj, no_loglik=True), argnums=(0, 1, 2)), *args, pr["W"])
+    return out
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_state(name):
+def _jax_state_values(name):
     import jax
     import jax.numpy as jnp
     from hmm_layer_tpu.parallel import sharding as J
@@ -431,30 +636,46 @@ def _jax_state(name):
     mesh = _jax_mesh(name)
     kw = dict(data_axis="data" if "data" in MESHES[name] else None)
     pr = STATE_PROBLEM()
+    args = (pr["init"], pr["A"], pr["E"])
 
-    def f(init, A, E, W):
-        out = {
-            "ll_P1": J.state_sharded_log_likelihood(init, A, E, mesh, **kw),
-            f"ll_P{P_STATE}": J.state_sharded_log_likelihood(init, A, E, mesh, **kw, parallel_factor=P_STATE),
-        }
-        out["lg_P1"], out["post_ll_P1"] = J.state_sharded_posterior(init, A, E, mesh, **kw)
-        out[f"lg_nl_P{P_STATE}"] = J.state_sharded_posterior(
-            init, A, E, mesh, **kw, no_loglik=True, parallel_factor=P_STATE
-        )[0]
-        out["path"] = J.state_sharded_viterbi(init, A, E, mesh, **kw)
-        out["g_ll"] = jax.grad(
-            lambda *a: J.state_sharded_log_likelihood(*a, mesh, **kw).sum(), argnums=(0, 1, 2)
-        )(init, A, E)
+    def post_obj(*a):
+        lg, ll = J.state_sharded_posterior(*a[:3], mesh, **kw, parallel_factor=P_STATE)
+        return jnp.sum(lg * a[3]) + jnp.sum(ll)
 
-        def post_obj(*a):
-            lg, ll = J.state_sharded_posterior(*a, mesh, **kw, parallel_factor=P_STATE)
-            return jnp.sum(lg * W) + jnp.sum(ll)
+    out = {
+        "ll_P1": _fetch(lambda *a: J.state_sharded_log_likelihood(*a, mesh, **kw), *args),
+        f"ll_P{P_STATE}": _fetch(
+            lambda *a: J.state_sharded_log_likelihood(*a, mesh, **kw, parallel_factor=P_STATE), *args
+        ),
+    }
+    out["lg_P1"], out["post_ll_P1"] = _fetch(lambda *a: J.state_sharded_posterior(*a, mesh, **kw), *args)
+    out[f"lg_nl_P{P_STATE}"] = _fetch(
+        lambda *a: J.state_sharded_posterior(*a, mesh, **kw, no_loglik=True, parallel_factor=P_STATE)[0], *args
+    )
+    out["path"] = _fetch(lambda *a: J.state_sharded_viterbi(*a, mesh, **kw), *args)
+    out["g_ll"] = _fetch(
+        jax.grad(lambda *a: J.state_sharded_log_likelihood(*a, mesh, **kw).sum(), argnums=(0, 1, 2)), *args
+    )
+    out["g_post"] = _fetch(jax.grad(post_obj, argnums=(0, 1, 2)), *args, pr["W"])
+    return out
 
-        out["g_post"] = jax.grad(post_obj, argnums=(0, 1, 2))(init, A, E)
-        return out
 
-    out = jax.jit(f)(pr["init"], pr["A"], pr["E"], pr["W"])
-    return jax.tree.map(np.asarray, out)
+def _jax_layer_values(name, params):
+    """The JAX layer with a mesh (``tests/test_layer_mesh.py``'s
+    ``HMMLayer(mesh, partition)``) on the simple family's inputs, at the
+    port layer's weights ``params`` (its ``state_dict``): log gamma and
+    logliks, the global arrays."""
+    from hmm_layer_tpu.layer import HMMLayer
+    from hmm_layer_tpu.models import SimpleGenePredEmissions, SimpleGenePredTransitions
+
+    tree = {"transitions": {}, "emissions": [{}]}
+    for key, value in params.items():
+        part, *rest = key.split(".")
+        (tree["transitions"] if part == "transitions" else tree["emissions"][int(rest[0])])[rest[-1]] = value
+    layer = HMMLayer(SimpleGenePredTransitions(), SimpleGenePredEmissions(), num_seqs=100, parallel_factor=P_SEQ,
+                     mesh=_jax_mesh(name), partition=LAYER_PARTITIONS[name])
+    X = _layer_inputs()[0]
+    return {"lg": _fetch(layer.state_posterior_log_probs, tree, X), "ll": _fetch(layer.log_likelihood, tree, X)}
 
 
 def _path_score64(init, A, E, path):
@@ -537,8 +758,12 @@ def test_seq_posterior_grads(results, name, key):
 
 @pytest.mark.parametrize("name", STATE_MESHES)
 @pytest.mark.parametrize("P", [1, P_STATE])
-def test_state_log_likelihood(results, name, P):
-    np.testing.assert_allclose(results[name][f"ll_P{P}"], _jax_state(name)[f"ll_P{P}"], rtol=1e-4)
+def test_state_log_likelihood(world, name, P):
+    key = f"ll_P{P}"
+    ref = _jax_state(name)[key]
+    for rank, got in enumerate(r[name][key] for r in world):
+        np.testing.assert_allclose(got, ref, rtol=1e-4, err_msg=(
+            f"rank {rank}; every rank's {key}: {[r[name][key].tolist() for r in world]}; JAX: {ref.tolist()}"))
 
 
 @pytest.mark.parametrize("name", STATE_MESHES)
@@ -634,8 +859,7 @@ def test_local_mode_never_gathers(results, name):
 # ---------------------------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _jax_data():
+def _jax_data_values():
     import jax
     import jax.numpy as jnp
     from hmm_layer_tpu.ops import recursion as JR
@@ -789,8 +1013,238 @@ def test_every_rank_returns_the_global_result(world):
 
 
 # ---------------------------------------------------------------------------
+# The layer's rank-local mode
+# ---------------------------------------------------------------------------
+
+# ... and the sparse engine's data route (its state route: tests/test_torch_sparse_sharding.py)
+LOCAL_CASES = [f"{name}-{family}" for name in LAYER_PARTITIONS for family in LOCAL_FAMILIES] + ["data4-sparse"]
+# The local mode computes E's block with matmuls of other shapes than the
+# global mode's (rows, positions or state columns cut), whose float32 sums
+# may round differently in the last bit (CPU BLAS picks its kernel by
+# shape), and sums the parameter gradients in another order: outputs are
+# held to float32 rounding, not bit-equality.
+LOCAL_LG_TOL = 1e-4  # log gamma, max abs (|log gamma| <= ~60 here)
+LOCAL_GRAD_TOL = 5e-5  # parameter gradients, max abs over the largest
+
+
+def _tile(blocks, shape, dtype):
+    """The global array from every rank's block (``(ranges, block)``)."""
+    out = np.full(shape, np.nan if np.issubdtype(dtype, np.floating) else -1, dtype)
+    for ranges, block in blocks:
+        index = tuple(slice(*r) for r in ranges)[: len(shape) - 1]
+        out[(slice(None), *index)] = block
+    return out
+
+
+def _state_cut(ranges, q):
+    rows, positions, (s0, s1) = ranges
+    return rows, positions, (min(s0, q), min(s1, q))
+
+
+@pytest.mark.parametrize("case", LOCAL_CASES)
+def test_layer_local_mode_returns_the_global_blocks(results, case):
+    """Each rank's ``local=True`` log gamma (its real states), logliks and
+    paths are its block of the global layer call (the whole result under
+    the data route, which gathers); the blocks tile the global result."""
+    ranks = results["layer_local"][case]
+    glob = ranks[0]
+    q = glob["global_shape"][-1]
+    data_route = case.startswith("data4")
+    for rank, r in enumerate(ranks):
+        rng = ((0, 4), (0, 96), (0, q)) if data_route else _state_cut(r["ranges"], q)
+        np.testing.assert_allclose(r["local_lg"], _block(r["lg"], rng), rtol=0, atol=LOCAL_LG_TOL,
+                                   err_msg=f"rank {rank}")
+        np.testing.assert_allclose(r["local_ll"], _block(r["ll"], rng), rtol=1e-6, err_msg=f"rank {rank}")
+        assert r["local_path"].shape == _block(r["path"], rng).shape
+    if not data_route:
+        lg = _tile([(_state_cut(r["ranges"], q), r["local_lg"]) for r in ranks], glob["lg"].shape, np.float32)
+        path = _tile([(r["ranges"], r["local_path"]) for r in ranks], glob["path"].shape, np.int32)
+        assert not np.isnan(lg).any() and (path >= 0).all()
+    else:
+        path = glob["local_path"]
+    _assert_paths_equivalent(glob["init"], glob["A"], glob["E"], path, glob["path"])
+
+
+@pytest.mark.parametrize("case", LOCAL_CASES)
+def test_layer_local_mode_objectives_and_gradients(results, case):
+    """The local CE and MAP values are the whole batch's on every rank, and
+    the parameter gradients the global mode's, the same on every rank
+    (the emitters' summed over the ranks, init's and A's from the sharded
+    functions, not summed again)."""
+    ranks = results["layer_local"][case]
+    for rank, r in enumerate(ranks):
+        for key in ("ce", "map"):
+            np.testing.assert_allclose(r[f"local_{key}"], r[key], rtol=1e-6, err_msg=f"rank {rank} {key}")
+            _assert_grads_scaled(r[f"local_g_{key}"], r[f"g_{key}"], atol=LOCAL_GRAD_TOL)
+            for got, first in zip(r[f"local_g_{key}"], ranks[0][f"local_g_{key}"]):
+                np.testing.assert_array_equal(got, first, err_msg=f"rank {rank} {key}")
+
+
+@pytest.mark.parametrize("case", LOCAL_CASES)
+def test_layer_local_emitters_compute_only_the_rank_block(results, case):
+    """No emitter call of the local mode returned the global (m, b, L, q)
+    shape: each returned the rank's block (rows, positions and real
+    states; the codon factors' halo inside the emitter), equal to the
+    global E's block, and under the state route the last ranks' pad states
+    are zero columns of the block."""
+    for rank, r in enumerate(results["layer_local"][case]):
+        q = r["global_shape"][-1]
+        rows, positions, states = _state_cut(r["ranges"], q)
+        block = (1, rows[1] - rows[0], positions[1] - positions[0], states[1] - states[0])
+        assert r["emitter_shapes"] == [block], (rank, r["emitter_shapes"], r["global_shape"])
+        assert r["global_shape"] not in r["emitter_shapes"]
+        width = block[-1]
+        assert r["local_E"].shape == (*block[:3], r["ranges"][2][1] - r["ranges"][2][0])
+        np.testing.assert_allclose(r["local_E"][..., :width], _block(r["E"], (rows, positions, states)),
+                                   rtol=1e-6, atol=0, err_msg=f"rank {rank}")
+        assert (r["local_E"][..., width:] == 0).all()
+
+
+@pytest.mark.parametrize("name", JAX_LAYER_MESHES)
+def test_layer_local_blocks_gathered_match_jax_layer(results, name):
+    """The JAX layer with the same mesh and partition is the reference for
+    the rank blocks gathered: log gamma and logliks, at the tolerances of
+    the function parity tests above."""
+    ranks = results["layer_local"][f"{name}-simple"]
+    glob = ranks[0]
+    q = glob["global_shape"][-1]
+    lg = _tile([(_state_cut(r["ranges"], q), r["local_lg"]) for r in ranks], glob["lg"].shape, np.float32)
+    ll = np.zeros_like(glob["ll"])
+    for r in ranks:
+        ll[:, slice(*r["ranges"][0])] = r["local_ll"]
+    for key, value in _jax_refs()["layer_params"].items():  # the reference's weights are the ranks'
+        np.testing.assert_array_equal(glob["params"][key], value)
+    ref = _jax_refs()["layer"][name]
+    np.testing.assert_allclose(ll, ref["ll"], rtol=1e-4)
+    np.testing.assert_allclose(lg, ref["lg"], rtol=1e-3, atol=2e-3)
+
+
+@pytest.mark.parametrize("name", LOCAL_TRAINERS)
+@pytest.mark.parametrize("objective", ["ce", "map"])
+def test_trainer_local_step_matches_global(results, name, objective):
+    """One SGD step in the rank-local mode leaves every rank with the same
+    parameters (bit-equal across the ranks), equal to the global mode's
+    step within float32 rounding (rtol 1e-5, atol 1e-6)."""
+    ranks = results["trainer_local"][name]
+    for rank, r in enumerate(ranks):
+        for key, value in r[f"{objective}_global"].items():
+            np.testing.assert_allclose(r[f"{objective}_local"][key], value, rtol=1e-5, atol=1e-6,
+                                       err_msg=f"rank {rank} {key}")
+            np.testing.assert_array_equal(r[f"{objective}_local"][key], ranks[0][f"{objective}_local"][key])
+
+
+# ---------------------------------------------------------------------------
 # In-process checks (no process group: a one-rank mesh)
 # ---------------------------------------------------------------------------
+
+
+EMITTERS = {
+    "k2_kmers": dict(family="gene", num_copies=2, trainable_nucleotides_at_exons=True),
+    "k2_lookup": dict(family="gene", num_copies=2, onehot_lookup_kmers=True),
+    "k1_float32_kmers": dict(family="gene", num_copies=1, compute_kmers_in_bf16=False),
+    "simple_embeddings": dict(family="simple", num_copies=2, emit_embeddings=True, embedding_dim=3),
+    "profile": dict(family="profile"),
+}
+
+
+def _emitter(kind):
+    """An emitter of ``kind`` (:data:`EMITTERS`), its parameters moved off
+    their initial values by a fixed draw, and its (1, 4, 96, s) inputs."""
+    from hmm_layer_torch import models
+
+    cfg = dict(EMITTERS[kind])
+    family = cfg.pop("family")
+    rng = np.random.default_rng(8)
+    if family == "profile":
+        em = models.ProfileEmissions([20])
+        x = rng.dirichlet(np.ones(em.make_B().shape[-1] - 1), size=(1, 4, 96))
+    elif family == "gene":
+        em = models.GenePredEmissions(init=models.make_15_class_emission_kernel(num_copies=cfg["num_copies"]),
+                                      **CODONS, **cfg)
+        nuc = np.eye(5)[rng.integers(0, 5, size=(1, 4, 96))]
+        x = np.concatenate([rng.dirichlet(np.ones(15), size=(1, 4, 96)), nuc], axis=-1)
+    else:
+        em = models.SimpleGenePredEmissions(**cfg, generator=torch.Generator().manual_seed(1))
+        x = rng.uniform(0.1, 1.0, size=(1, 4, 96, em.num_states + cfg["embedding_dim"]))
+    with torch.no_grad():
+        for p in em.parameters():
+            p += torch.as_tensor(rng.normal(0, 0.3, size=p.shape), dtype=p.dtype)
+    return em, torch.as_tensor(x, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("kind", list(EMITTERS))
+@pytest.mark.parametrize("hints", [None, "sequence", "chunks"])
+def test_emitter_blocks_equal_the_global_emissions(kind, hints):
+    """Every rank's block of the meshes of this file — seq blocks at both
+    sequence ends and in the middle (the codon factors' two-position
+    halo), state column blocks (the shared intron columns, the multi-copy
+    factor columns, the last block cut at q) and row blocks — equals the
+    global emissions' block, with sequence-level or per-chunk (8 chunks of
+    12) end hints, within float32 rounding (the class products are
+    matmuls of other shapes)."""
+    from hmm_layer_torch.parallel.collectives import local_ranges
+
+    class _Mesh:
+        def __init__(self, shape, coords):
+            self.shape, self.coords = shape, coords
+
+        def index(self, axis):
+            return self.coords[axis]
+
+    em, x = _emitter(kind)
+    with torch.no_grad():
+        q = em.emissions(x).shape[-1]
+        rng = np.random.default_rng(9)
+        end_hints = None if hints is None else torch.as_tensor(
+            rng.uniform(0.2, 1.0, size=(1, 4, 2, q) if hints == "sequence" else (1, 4, 8, 2, q)), dtype=torch.float32)
+        full = em.emissions(x, end_hints=end_hints)
+        seen = set()
+        for spec in MESHES.values():
+            axes = list(spec)
+            for coords in np.ndindex(*spec.values()):
+                mesh = _Mesh(spec, dict(zip(axes, coords)))
+                data = "data" if "data" in spec else None
+                for route in ("seq", "edge"):
+                    if route == "seq" and "seq" not in spec or route == "edge" and "state" not in spec:
+                        continue
+                    r = local_ranges(mesh, route, full.shape, data_axis=data)
+                    block = em.emissions(x, end_hints=end_hints, block=r)
+                    assert block.shape == full[r.index].shape, (kind, r)
+                    torch.testing.assert_close(block, full[r.index], rtol=1e-6, atol=0, msg=f"{kind} {tuple(r)}")
+                    seen.add(tuple(r))
+        assert ((0, 4), (0, 24), (0, q)) in seen and ((0, 4), (72, 96), (0, q)) in seen  # both ends
+
+
+@pytest.mark.parametrize("kind", [k for k in EMITTERS if EMITTERS[k]["family"] != "profile"])
+def test_gene_emitter_state_blocks_at_every_cut(kind):
+    """Every state range ``[s0, s1)`` of a gene-pred emitter, cut anywhere
+    (inside a copy run of the shared introns, the multi-copy codon
+    classes and the exon factor), equals the global emissions' columns
+    within float32 rounding."""
+    em, x = _emitter(kind)
+    with torch.no_grad():
+        full = em.emissions(x)
+        q = full.shape[-1]
+        for s0 in range(q):
+            for s1 in range(s0 + 1, q + 1):
+                block = em.emissions(x, block=((0, 4), (0, 96), (s0, s1)))
+                torch.testing.assert_close(block, full[..., s0:s1], rtol=1e-6, atol=0, msg=f"{kind} {(s0, s1)}")
+
+
+def test_local_mode_needs_emitters_that_take_a_block():
+    """An emitter whose ``emissions`` takes no ``block`` computes no block:
+    ``emission_probs(block=...)`` raises and names the emitters."""
+    from hmm_layer_torch import HMMLayer, models
+
+    class Whole(torch.nn.Module):
+        def emissions(self, inputs, end_hints=None, training=False):
+            return inputs
+
+    layer = HMMLayer(models.SimpleGenePredTransitions(), Whole(), device="cpu")
+    x = torch.rand(1, 2, 6, 7)
+    assert torch.equal(layer.emission_probs(x), x)
+    with pytest.raises(NotImplementedError, match="Whole"):
+        layer.emission_probs(x, block=((0, 2), (0, 6), (0, 7)))
 
 
 def test_make_mesh_needs_enough_ranks():

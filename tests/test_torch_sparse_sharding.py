@@ -12,6 +12,11 @@ time out) on the meshes ``{"state": 4}`` and ``{"data": 2, "state": 2}``:
 32 over four state ranks and to 30 over two) and the simple family (q = 7)
 with an identity emitter. This file imports JAX only inside its fixtures
 and reference functions: the ranks load it without JAX.
+
+The JAX references run in one child process, each quantity its own jitted
+program (``tests/test_torch_sharding.py`` says why: concurrent sharded
+scans in one program can make XLA:CPU's all-reduce rendezvous abort the
+process).
 """
 
 import contextlib
@@ -82,6 +87,45 @@ def _sparse_layer(family, pr, **kwargs):
         t = SimpleGenePredTransitions(sparse_forward=True)
     t.load_state_dict(params_from_jax(pr["params"]))
     return HMMLayer(t, IdentityEmitter(), use_prior=False, device="cpu", **kwargs)
+
+
+CODONS = dict(
+    start_codons=[("ATG", 1.0)],
+    stop_codons=[("TAG", 0.34), ("TAA", 0.33), ("TGA", 0.33)],
+    intron_begin_pattern=[("NGT", 0.99), ("NGC", 0.005), ("NAT", 0.005)],
+    intron_end_pattern=[("AGN", 0.99), ("ACN", 0.01)],
+)
+
+
+def _gene_inputs(seed=11, q=29):
+    """15 class probabilities and one-hot ACGTN (b = 4, L = 40), labels
+    over the ``q`` states and a label mask."""
+    rng = np.random.default_rng(seed)
+    cls = rng.dirichlet(np.ones(15), size=(1, B, L))
+    nuc = np.eye(5)[rng.integers(0, 5, size=(1, B, L))]
+    x = np.concatenate([cls, nuc], axis=-1).astype(np.float32)
+    return x, rng.integers(0, q, size=(1, B, L)), (rng.uniform(size=(1, B, L)) > 0.3).astype(np.float32)
+
+
+def _gene_layer(**kwargs):
+    """Config 5's layer family at k = 2 (q = 29): sparse-forward
+    ``GenePredMultiTransitions`` and ``GenePredEmissions``, its parameters
+    from fixed seeds (the same on every rank)."""
+    from hmm_layer_torch import HMMLayer
+    from hmm_layer_torch.models import GenePredEmissions, GenePredMultiTransitions, make_15_class_emission_kernel
+
+    layer = HMMLayer(
+        GenePredMultiTransitions(k=2, sparse_forward=True, generator=torch.Generator().manual_seed(0)),
+        GenePredEmissions(num_copies=2, init=make_15_class_emission_kernel(num_copies=2), **CODONS),
+        num_seqs=100,
+        device="cpu",
+        **kwargs,
+    )
+    rng = np.random.default_rng(12)
+    with torch.no_grad():
+        for p in layer.parameters():
+            p += torch.as_tensor(rng.normal(0, 0.3, size=p.shape), dtype=p.dtype)
+    return layer
 
 
 def _grads(loss, tensors):
@@ -215,6 +259,57 @@ def _trainer_case(mesh, partition, pr):
     return {"before": before, "after": after, "params": {k: _np(v) for k, v in layer.state_dict().items()}}
 
 
+def _layer_local_cases(mesh, partition):
+    """The sparse layer's state route in the rank-local mode against its
+    global mode on the same rank and weights (config 5's family at k = 2):
+    log gamma, logliks, paths, the CE and MAP values and gradients, the
+    rank's block of E and every emitter call's output shape; then one SGD
+    step (lr 0.05) of each objective in both modes. Returned from every
+    rank."""
+    from hmm_layer_torch.training import Trainer
+
+    X, labels, mask = _gene_inputs()
+    layer = _gene_layer(mesh=mesh, partition=partition)
+    emitter, calls, shapes = layer.emissions[0], layer.emissions[0].emissions, []
+
+    @functools.wraps(calls)
+    def recording(*args, **kwargs):
+        out = calls(*args, **kwargs)
+        shapes.append(tuple(out.shape))
+        return out
+
+    out = {"global_shape": (1, B, L, layer.transitions.num_states)}
+    out["ranges"] = tuple(layer.local_ranges(out["global_shape"]))
+    params = list(layer.parameters())
+    objectives = {"ce": lambda **kw: layer.posterior_cross_entropy(X, labels, mask, **kw),
+                  "map": lambda **kw: layer.loss(X, **kw)}
+    for mode, kw in (("global", {}), ("local", {"local": True})):
+        if mode == "local":
+            emitter.emissions = recording
+        with torch.no_grad():
+            out[f"{mode}_lg"] = _np(layer.state_posterior_log_probs(X, **kw))
+            out[f"{mode}_ll"] = _np(layer.log_likelihood(X, **kw))
+            out[f"{mode}_path"] = layer.viterbi(X, **kw).numpy()
+            out[f"{mode}_E"] = _np(layer._local_ingredients(X, None, False)[2] if kw else layer.emission_probs(X))
+        for key, objective in objectives.items():
+            value = objective(**kw)
+            out[f"{mode}_{key}"], out[f"{mode}_g_{key}"] = float(value), _grads(value, params)
+    del emitter.emissions
+    out["emitter_shapes"] = sorted(set(shapes))
+    sgd = functools.partial(torch.optim.SGD, lr=0.05)
+    for mode, local in (("global", False), ("local", True)):
+        for key in ("ce", "map"):
+            trained = _gene_layer(mesh=mesh, partition=partition)
+            if key == "map":
+                loss_fn = lambda batch, i, l=trained, loc=local: l.loss(batch, indices=i, local=loc)  # noqa: E731
+            else:
+                loss_fn = lambda batch, _, l=trained, loc=local: l.posterior_cross_entropy(  # noqa: E731
+                    batch, labels, mask, local=loc)
+            Trainer(trained, optimizer=sgd, loss_fn=loss_fn).fit([X], log_every=100)
+            out[f"step_{key}_{mode}"] = {k: _np(v) for k, v in trained.state_dict().items()}
+    return _from_every_rank(out)
+
+
 def _ragged_case(mesh, pr):
     """b = 3 rows over two data ranks: the state route splits rows that must
     divide, and raises."""
@@ -238,6 +333,7 @@ def world_cases(problems):
         out[f"local_{name}"] = _local_function_cases(mesh, data, problems["k2"])
         out[f"layer_{name}"] = {f: _layer_cases(mesh, PARTITIONS[name], f, problems[f]) for f in FAMILIES}
         out[f"trainer_{name}"] = _trainer_case(mesh, PARTITIONS[name], problems["k2"])
+        out[f"layer_local_{name}"] = _layer_local_cases(mesh, PARTITIONS[name])
     out["ragged"] = _ragged_case(meshes["data2state2"], problems["k2"])
     return out
 
@@ -267,8 +363,31 @@ def _one_torch_thread():
 # ---------------------------------------------------------------------------
 
 
+def _fetch(fn, *args):
+    """``fn(*args)`` as its own jitted program, run and fetched (numpy)
+    before the caller starts another."""
+    import jax
+
+    return jax.tree.map(np.asarray, jax.jit(fn)(*args))
+
+
 @functools.lru_cache(maxsize=None)
+def _jax_refs():
+    """The JAX references of this file, made in one child process."""
+    from test_torch_sharding import _jax_in_child
+
+    return _jax_in_child(_jax_references)
+
+
+def _jax_references():
+    return {name: _jax_function_values(name) for name in MESHES}
+
+
 def _jax_functions(name):
+    return _jax_refs()[name]
+
+
+def _jax_function_values(name):
     import jax
     import jax.numpy as jnp
     from hmm_layer_tpu.parallel import sharding as J
@@ -278,26 +397,24 @@ def _jax_functions(name):
     kw = dict(data_axis="data" if "data" in MESHES[name] else None)
     pr = _problems()["k2"]
     idx = pr["indices"]
+    args = (pr["init"], pr["probs"], pr["E"])
 
-    def f(init, probs, E, W):
-        out = {"ll": JS.edge_sharded_log_likelihood(init, idx, probs, E, mesh, **kw)}
-        out["lg"], out["post_ll"] = JS.edge_sharded_posterior(init, idx, probs, E, mesh, **kw)
-        out["lg_nl"] = JS.edge_sharded_posterior(init, idx, probs, E, mesh, no_loglik=True, **kw)[0]
-        out["path"] = JS.edge_sharded_viterbi(init, idx, probs, E, mesh, **kw)
-        out["g_ll"] = jax.grad(
-            lambda *a: JS.edge_sharded_log_likelihood(a[0], idx, a[1], a[2], mesh, **kw).sum(), argnums=(0, 1, 2)
-        )(init, probs, E)
+    def post_obj(i, p, e, W, no_loglik):
+        lg, ll = JS.edge_sharded_posterior(i, idx, p, e, mesh, no_loglik=no_loglik, **kw)
+        return jnp.sum(lg * W) + jnp.sum(ll)
 
-        def post_obj(i, p, e, no_loglik):
-            lg, ll = JS.edge_sharded_posterior(i, idx, p, e, mesh, no_loglik=no_loglik, **kw)
-            return jnp.sum(lg * W) + jnp.sum(ll)
-
-        for key, no_loglik in (("g_post", False), ("g_post_nl", True)):
-            out[key] = jax.grad(functools.partial(post_obj, no_loglik=no_loglik), argnums=(0, 1, 2))(init, probs, E)
-        return out
-
-    out = jax.jit(f)(pr["init"], pr["probs"], pr["E"], pr["W"])
-    return jax.tree.map(np.asarray, out)
+    out = {"ll": _fetch(lambda i, p, e: JS.edge_sharded_log_likelihood(i, idx, p, e, mesh, **kw), *args)}
+    out["lg"], out["post_ll"] = _fetch(lambda i, p, e: JS.edge_sharded_posterior(i, idx, p, e, mesh, **kw), *args)
+    out["lg_nl"] = _fetch(
+        lambda i, p, e: JS.edge_sharded_posterior(i, idx, p, e, mesh, no_loglik=True, **kw)[0], *args
+    )
+    out["path"] = _fetch(lambda i, p, e: JS.edge_sharded_viterbi(i, idx, p, e, mesh, **kw), *args)
+    out["g_ll"] = _fetch(jax.grad(
+        lambda i, p, e: JS.edge_sharded_log_likelihood(i, idx, p, e, mesh, **kw).sum(), argnums=(0, 1, 2)), *args)
+    for key, no_loglik in (("g_post", False), ("g_post_nl", True)):
+        out[key] = _fetch(jax.grad(functools.partial(post_obj, no_loglik=no_loglik), argnums=(0, 1, 2)),
+                          *args, pr["W"])
+    return out
 
 
 def _assert_grads_scaled(got, ref, atol):
@@ -472,6 +589,47 @@ def test_trainer_trains_the_state_route(world, name):
     for other in world[1:]:
         for key, value in r["params"].items():
             np.testing.assert_array_equal(other[f"trainer_{name}"]["params"][key], value)
+
+
+# The tolerances of ``tests/test_torch_sharding.py``'s local-mode layer
+# tests: E's block comes from matmuls of other shapes than the global
+# mode's, so the two modes agree to float32 rounding, not bit for bit.
+LOCAL_LG_TOL, LOCAL_GRAD_TOL = 1e-4, 5e-5
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+def test_layer_local_mode_returns_the_global_blocks(results, name):
+    """Under ``local=True`` each rank's log gamma (its real states: config
+    5's column blocks of ``ceil(q / n)``, the last cut at q), logliks and
+    paths are its block of the global layer call; E's block is the global
+    E's, computed alone by the emitter (no call returned the global
+    shape)."""
+    for rank, r in enumerate(results[f"layer_local_{name}"]):
+        rows, positions, states = r["ranges"]
+        assert r["emitter_shapes"] == [(1, rows[1] - rows[0], L, states[1] - states[0])], r["emitter_shapes"]
+        np.testing.assert_allclose(r["local_E"], _block(r["global_E"], r["ranges"]), rtol=1e-6, atol=0)
+        np.testing.assert_allclose(r["local_lg"], _block(r["global_lg"], r["ranges"]), rtol=0, atol=LOCAL_LG_TOL,
+                                   err_msg=f"rank {rank}")
+        np.testing.assert_allclose(r["local_ll"], _block(r["global_ll"], r["ranges"]), rtol=1e-6)
+        np.testing.assert_array_equal(r["local_path"], _block(r["global_path"], r["ranges"]))
+
+
+@pytest.mark.parametrize("name", list(MESHES))
+@pytest.mark.parametrize("objective", ["ce", "map"])
+def test_layer_local_mode_objectives_gradients_and_steps(results, name, objective):
+    """The local objective is the whole batch's value, its parameter
+    gradients the global mode's (within float32 rounding) and the same on
+    every rank; one SGD step leaves every rank with the same parameters,
+    the global mode's step within rtol 1e-5, atol 1e-6."""
+    ranks = results[f"layer_local_{name}"]
+    for rank, r in enumerate(ranks):
+        np.testing.assert_allclose(r[f"local_{objective}"], r[f"global_{objective}"], rtol=1e-6)
+        _assert_grads_scaled(r[f"local_g_{objective}"], r[f"global_g_{objective}"], atol=LOCAL_GRAD_TOL)
+        for got, first in zip(r[f"local_g_{objective}"], ranks[0][f"local_g_{objective}"]):
+            np.testing.assert_array_equal(got, first)
+        for key, value in r[f"step_{objective}_global"].items():
+            np.testing.assert_allclose(r[f"step_{objective}_local"][key], value, rtol=1e-5, atol=1e-6)
+            np.testing.assert_array_equal(r[f"step_{objective}_local"][key], ranks[0][f"step_{objective}_local"][key])
 
 
 def test_ragged_rows_raise(results):
