@@ -345,24 +345,37 @@ def decode_contig(viterbi_fn, enc, cls, window: int, batch: int, overlap: int):
     ``viterbi_fn`` maps inputs (1, batch, window, 20) to paths
     (1, batch, window) (``HMMLayer.viterbi``); windows overlap by
     ``overlap`` positions and each later window's first ``overlap``
-    positions are taken from the window before it.
+    positions are taken from the window before it. Under a profiler each
+    batch opens the spans ``hmm.predict.windows`` (building its inputs),
+    ``hmm.predict.decode`` (``viterbi_fn`` and the paths' copy to the host)
+    and ``hmm.predict.stitch``, and the generator's end one more
+    ``hmm.predict.windows``.
     """
     import numpy as np
 
     from . import data
+    from .utils.profiling import span
 
     L = enc.shape[0]
     track = np.zeros(L, np.int32)
-    for wins, starts in data.window_batches(enc, window, batch, overlap):
-        cls_win = np.stack([_window_cls(cls, st, window) for st in starts])
-        x = np.concatenate([cls_win, wins], axis=-1)[None]
-        paths = np.asarray(viterbi_fn(x)[0].cpu())
-        for i, st in enumerate(starts):
-            if st < 0:
-                continue
-            end = min(st + window, L)
-            lo = st + overlap if st > 0 else st
-            track[lo:end] = paths[i, lo - st : end - st]
+    batches = data.window_batches(enc, window, batch, overlap)
+    while True:
+        with span("hmm.predict.windows"):  # the generator's step to the batch, or its end
+            item = next(batches, None)
+            if item is None:
+                break
+            wins, starts = item
+            cls_win = np.stack([_window_cls(cls, st, window) for st in starts])
+            x = np.concatenate([cls_win, wins], axis=-1)[None]
+        with span("hmm.predict.decode"):
+            paths = np.asarray(viterbi_fn(x)[0].cpu())
+        with span("hmm.predict.stitch"):
+            for i, st in enumerate(starts):
+                if st < 0:
+                    continue
+                end = min(st + window, L)
+                lo = st + overlap if st > 0 else st
+                track[lo:end] = paths[i, lo - st : end - st]
     return track
 
 

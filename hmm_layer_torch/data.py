@@ -32,6 +32,8 @@ from typing import Iterable, Iterator
 
 import numpy as np
 
+from .utils.profiling import span
+
 __all__ = [
     "read_fasta",
     "read_fasta_encoded",
@@ -126,6 +128,7 @@ def revcomp(seq: str) -> str:
 _RC_PERM_DNA = np.array([3, 2, 1, 0, 4])
 
 
+@span("hmm.data.revcomp")
 def revcomp_onehot(encoded: np.ndarray) -> np.ndarray:
     """Reverse complement of an :func:`encode_dna` output: reverse the
     positions, permute the channels.

@@ -80,6 +80,7 @@ from torch import nn
 
 from .ops import plan7, recursion, sampling
 from .ops import sparse as sparse_ops
+from .utils.profiling import span
 
 __all__ = ["HMMLayer"]
 
@@ -330,10 +331,12 @@ class HMMLayer(nn.Module):
     def _tensor(self, x):
         if x is None:
             return None
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        with span("hmm.layer.inputs"):  # a host array's copy to the device
+            return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     # -- building blocks -------------------------------------------------------
 
+    @span("hmm.layer.emissions")
     def emission_probs(self, inputs, end_hints=None, training=False, block=None):
         """Product of all emitters' per-state probabilities; (m, b, L, q),
         or with ``block`` (rows, positions, states ranges, e.g.
@@ -355,7 +358,8 @@ class HMMLayer(nn.Module):
         return probs
 
     def _ingredients(self, inputs, end_hints, training):
-        init, A = self.transitions.matrices()
+        with span("hmm.layer.transitions"):
+            init, A = self.transitions.matrices()
         return init, A, self.emission_probs(inputs, end_hints, training)
 
     # -- rank-local mode ---------------------------------------------------------
@@ -657,6 +661,7 @@ class HMMLayer(nn.Module):
         init, A, E = self._ingredients(inputs, end_hints, training)
         return self._dispatch_log_likelihood(init, A, E)
 
+    @span("hmm.layer.viterbi")
     def viterbi(self, inputs, end_hints=None, local=False):
         """Most likely state paths; (m, b, L) int32, or under ``local`` this
         rank's rows (m, b_l, L) (``state``) or rows and positions (m, b_l,
@@ -741,6 +746,7 @@ class HMMLayer(nn.Module):
         for em in self.emissions:
             em.reset_parameters(input_dim, generator)
 
+    @span("hmm.layer.prior")
     def compute_prior(self, scaled: bool = True):
         """Summed parameter prior per model; (m,)."""
         prior = self.transitions.prior_log_density()
@@ -780,6 +786,7 @@ class HMMLayer(nn.Module):
             loglik = loglik.mean()
         return loglik
 
+    @span("hmm.layer.loss")
     def loss(self, inputs, indices=None, training=True, end_hints=None, local=False):
         """Negative (MAP) training objective, scalar: mean weighted loglik
         + scaled prior − aux losses, negated. ``end_hints`` clamp

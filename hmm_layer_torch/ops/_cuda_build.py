@@ -19,6 +19,8 @@ import subprocess
 import threading
 from pathlib import Path
 
+from ..utils.profiling import span
+
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "sum_product": _PKG / "csrc" / "sum_product.cu",
@@ -127,9 +129,10 @@ def load(name: str = "sum_product") -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(str(build(name)))
-            for fn, argtypes in SIGNATURES[name].items():
-                getattr(lib, fn).argtypes = argtypes
-                getattr(lib, fn).restype = ctypes.c_int
+            with span("hmm.cuda.load"):
+                lib = ctypes.CDLL(str(build(name)))
+                for fn, argtypes in SIGNATURES[name].items():
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
         return lib

@@ -44,6 +44,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils.profiling import span
 from . import cuda_adjoint, cuda_forward, cuda_mxu, cuda_viterbi
 from .semiring import EPS, logmatmul, logmatvec, maxargmatvec, maxmatmul
 
@@ -712,6 +713,7 @@ class _LoglikChunked(torch.autograd.Function):
         return _loglik_from_C(init, C)
 
     @staticmethod
+    @span("hmm.recursion.loglik_vjp")
     def backward(ctx, ct):
         init, A, E, C = ctx.saved_tensors
         if C is None:
@@ -730,6 +732,7 @@ class _LoglikSeq(torch.autograd.Function):
         return _forward_seq(init, A, E)[1]
 
     @staticmethod
+    @span("hmm.recursion.loglik_vjp")
     def backward(ctx, ct):
         init, A, E = ctx.saved_tensors
         la, ll = _forward_seq(init, A, E)
@@ -902,6 +905,7 @@ class _PosteriorChunked(torch.autograd.Function):
         return lg, ll
 
     @staticmethod
+    @span("hmm.recursion.posterior_vjp")
     def backward(ctx, ct, ct_ll):
         init, A, E, la, lg, ll = ctx.saved_tensors
         grads = _posterior_analytic_vjp(
@@ -1060,13 +1064,16 @@ def _viterbi_chunked_plain(init, A, E, P):
     backtrace, conditional delta passes and within-chunk backtraces."""
     m, b, L, q = E.shape
     log_init, log_A = torch.log(_clamped(init)), torch.log(_clamped(A))
-    Ec, _ = _split_chunks(torch.log(_clamped(E)), P)  # (m, bP, c, q)
-    Et = Ec.movedim(2, 0)  # (c, m, bP, q)
-    C_T = _viterbi_chunk_summaries(log_A, Et, P)
-    T = _viterbi_boundaries(log_init, C_T)
-    j_end = _boundary_backtrace(T, C_T)
-    first_start = log_init[:, None, :].expand(m, b, q)
-    return _viterbi_outputs(first_start, log_A, Et, j_end, P)
+    with span("hmm.recursion.viterbi.summaries"):
+        Ec, _ = _split_chunks(torch.log(_clamped(E)), P)  # (m, bP, c, q)
+        Et = Ec.movedim(2, 0)  # (c, m, bP, q)
+        C_T = _viterbi_chunk_summaries(log_A, Et, P)
+    with span("hmm.recursion.viterbi.boundaries"):
+        T = _viterbi_boundaries(log_init, C_T)
+        j_end = _boundary_backtrace(T, C_T)
+    with span("hmm.recursion.viterbi.paths"):
+        first_start = log_init[:, None, :].expand(m, b, q)
+        return _viterbi_outputs(first_start, log_A, Et, j_end, P)
 
 
 def _use_seq_viterbi_kernels(E) -> bool:
@@ -1093,18 +1100,21 @@ def _viterbi_chunked_kernels(init, A, E, P):
     and chunk-level backtrace, then K7 + K8 from the conditional starts."""
     m, b, L, q = E.shape
     log_init, log_A = torch.log(_clamped(init)), torch.log(_clamped(A)).contiguous()
-    log_E_T = torch.log(_kernel_chunk_inputs(E, P))  # (m, c, q, R)
-    C_T = cuda_viterbi.maxplus_chunk_summaries(log_A, log_E_T, P)  # (m, R, q, q)
-    C_T = C_T.reshape(m, b, P, q, q).movedim(2, 0)
-    T = _viterbi_boundaries(log_init, C_T)
-    j_end = _boundary_backtrace(T, C_T)
-    first_start = log_init[:, None, :].expand(m, b, q)
-    r0, last_state = _conditional_viterbi_starts(first_start, log_A, j_end)
-    delta0 = (r0.transpose(-1, -2) + log_E_T[:, 0]).contiguous()  # (m, q, R)
-    states = cuda_viterbi.maxplus_decode(
-        log_A, log_E_T, delta0, last_state.to(torch.int32).contiguous()
-    )  # (m, c, R)
-    return states.transpose(-1, -2).reshape(m, b, L)
+    with span("hmm.recursion.viterbi.summaries"):
+        log_E_T = torch.log(_kernel_chunk_inputs(E, P))  # (m, c, q, R)
+        C_T = cuda_viterbi.maxplus_chunk_summaries(log_A, log_E_T, P)  # (m, R, q, q)
+        C_T = C_T.reshape(m, b, P, q, q).movedim(2, 0)
+    with span("hmm.recursion.viterbi.boundaries"):
+        T = _viterbi_boundaries(log_init, C_T)
+        j_end = _boundary_backtrace(T, C_T)
+    with span("hmm.recursion.viterbi.paths"):
+        first_start = log_init[:, None, :].expand(m, b, q)
+        r0, last_state = _conditional_viterbi_starts(first_start, log_A, j_end)
+        delta0 = (r0.transpose(-1, -2) + log_E_T[:, 0]).contiguous()  # (m, q, R)
+        states = cuda_viterbi.maxplus_decode(
+            log_A, log_E_T, delta0, last_state.to(torch.int32).contiguous()
+        )  # (m, c, R)
+        return states.transpose(-1, -2).reshape(m, b, L)
 
 
 # ---------------------------------------------------------------------------
@@ -1161,6 +1171,7 @@ def backward(init, A, E, parallel_factor: int = 1) -> torch.Tensor:
     return _BackwardChunked.apply(init, A, E, parallel_factor)
 
 
+@span("hmm.recursion.loglik")
 def log_likelihood(
     init, A, E, parallel_factor: int = 1, analytic_vjp: bool = True
 ) -> torch.Tensor:
@@ -1180,6 +1191,7 @@ def log_likelihood(
     return _LoglikChunked.apply(init, A, E, parallel_factor)
 
 
+@span("hmm.recursion.posterior")
 def posterior(init, A, E, parallel_factor: int = 1, no_loglik: bool = False):
     """State posterior log-probabilities ``log P(s_t = j | x)``.
 
@@ -1198,6 +1210,7 @@ def posterior(init, A, E, parallel_factor: int = 1, no_loglik: bool = False):
 
 
 @torch.no_grad()
+@span("hmm.recursion.viterbi")
 def viterbi(init, A, E, parallel_factor: int = 1) -> torch.Tensor:
     """Most likely state path, shape (m, b, L) int32.
 
@@ -1222,9 +1235,11 @@ def viterbi(init, A, E, parallel_factor: int = 1) -> torch.Tensor:
     ``torch.no_grad``.
     """
     if _use_seq_viterbi_kernels(E):
-        return _viterbi_seq_kernels(init, A, E)
+        with span("hmm.recursion.viterbi.paths"):
+            return _viterbi_seq_kernels(init, A, E)
     if parallel_factor == 1:
-        return _viterbi_seq(init, A, E)
+        with span("hmm.recursion.viterbi.paths"):
+            return _viterbi_seq(init, A, E)
     if _use_kernels(E):
         return _viterbi_chunked_kernels(init, A, E, parallel_factor)
     return _viterbi_chunked_plain(init, A, E, parallel_factor)

@@ -53,6 +53,7 @@ import torch
 from .layer import HMMLayer
 from .utils import checkpoint as ckpt
 from .utils.metrics import MetricsLogger, Throughput
+from .utils.profiling import span
 from .utils.resilience import HangWatchdog
 
 __all__ = [
@@ -79,6 +80,7 @@ def _first_leaf(tree):
     return tree
 
 
+@span("hmm.train.backward")
 def _grads(loss, params):
     """d loss / d params, zeros for a parameter the loss does not use (as
     ``jax.grad`` gives)."""
@@ -259,11 +261,13 @@ class Trainer:
     def _trainable(self):
         return [p for p in self.layer.parameters() if p.requires_grad]
 
+    @span("hmm.train.forward")
     def _objective(self, batch, indices):
         if self.loss_fn is not None:
             return self.loss_fn(batch, indices)
         return self.layer.loss(batch, indices=indices)
 
+    @span("hmm.train.step")
     def _step(self, batch, indices):
         params = self._trainable()
         if self.microbatch:
@@ -285,11 +289,12 @@ class Trainer:
             loss = self._objective(batch, indices)
             grads = _grads(loss, params)
             loss = loss.detach()
-        for p, g in zip(params, grads):
-            p.grad = g
-        self.optimizer.step()
-        for p in params:
-            p.grad = None
+        with span("hmm.train.optimizer"):
+            for p, g in zip(params, grads):
+                p.grad = g
+            self.optimizer.step()
+            for p in params:
+                p.grad = None
         return loss
 
     def fit(
@@ -322,17 +327,18 @@ class Trainer:
             # not multiply the count).
             meter.update(_first_leaf(batch).shape[1])
             if step_idx % log_every == 0:
-                if watchdog is not None:
-                    with watchdog:
+                with span("hmm.train.log"):
+                    if watchdog is not None:
+                        with watchdog:
+                            loss_val = float(loss)  # host sync
+                        if watchdog.fired:
+                            raise RuntimeError(
+                                f"training step {step_idx} exceeded {hang_timeout_s}s "
+                                "(stacks dumped); restart from the latest checkpoint"
+                            )
+                    else:
                         loss_val = float(loss)  # host sync
-                    if watchdog.fired:
-                        raise RuntimeError(
-                            f"training step {step_idx} exceeded {hang_timeout_s}s "
-                            "(stacks dumped); restart from the latest checkpoint"
-                        )
-                else:
-                    loss_val = float(loss)  # host sync
-                self.metrics.log(step_idx, loss=loss_val, seqs_per_sec=meter.seqs_per_sec)
+                    self.metrics.log(step_idx, loss=loss_val, seqs_per_sec=meter.seqs_per_sec)
             if self.checkpoint_dir and step_idx and step_idx % self.checkpoint_every == 0:
                 # Full training state: parameters AND optimizer state, so a
                 # resumed run continues with intact moments and counters.
