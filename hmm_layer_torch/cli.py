@@ -325,50 +325,54 @@ def _class_probs_fn(npz_path):
     return load
 
 
-def _window_cls(cls, st, window):
-    """Class probabilities of the window starting at ``st``, padded with a
-    uniform row past the contig's end (and entirely for a fill window)."""
-    import numpy as np
-
-    if st < 0:
-        return np.full((window, 15), 1.0 / 15.0, np.float32)
-    chunk = cls[st : st + window]
-    if chunk.shape[0] < window:
-        pad = np.full((window - chunk.shape[0], 15), 1.0 / 15.0, np.float32)
-        chunk = np.concatenate([chunk, pad])
-    return chunk
-
-
-def decode_contig(viterbi_fn, enc, cls, window: int, batch: int, overlap: int):
+def decode_contig(viterbi_fn, enc, cls, window: int, batch: int, overlap: int, device=None):
     """The decoded state track (L,) int32 of one encoded contig.
 
     ``viterbi_fn`` maps inputs (1, batch, window, 20) to paths
     (1, batch, window) (``HMMLayer.viterbi``); windows overlap by
     ``overlap`` positions and each later window's first ``overlap``
-    positions are taken from the window before it. Under a profiler each
-    batch opens the spans ``hmm.predict.windows`` (building its inputs),
-    ``hmm.predict.decode`` (``viterbi_fn`` and the paths' copy to the host)
-    and ``hmm.predict.stitch``, and the generator's end one more
-    ``hmm.predict.windows``.
+    positions are taken from the window before it. The windows and their
+    padding are those of :func:`~hmm_layer_torch.data.window_batches`, with
+    the class probabilities ``cls`` (L, 15) before the nucleotides ``enc``
+    (L, 5) and a uniform class row past the contig's end. Each batch's
+    inputs are put together on ``device`` (CUDA where there is a GPU, else
+    the CPU, when ``None``): the batch's contiguous rows are copied there
+    once and its overlapping windows cut from them as a strided view.
+    Under a profiler each batch opens the spans ``hmm.predict.windows``
+    (building its inputs) with the child ``hmm.predict.upload`` (the rows'
+    copy to ``device``), ``hmm.predict.decode`` (``viterbi_fn`` and the
+    paths' copy to the host) and ``hmm.predict.stitch``.
     """
     import numpy as np
+    import torch
 
-    from . import data
     from .utils.profiling import span
 
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
     L = enc.shape[0]
     track = np.zeros(L, np.int32)
-    batches = data.window_batches(enc, window, batch, overlap)
-    while True:
-        with span("hmm.predict.windows"):  # the generator's step to the batch, or its end
-            item = next(batches, None)
-            if item is None:
-                break
-            wins, starts = item
-            cls_win = np.stack([_window_cls(cls, st, window) for st in starts])
-            x = np.concatenate([cls_win, wins], axis=-1)[None]
+    if L == 0:
+        return track
+    stride = window - overlap
+    all_starts = range(0, max(L - overlap, 1), stride)
+    rows = (batch - 1) * stride + window
+    pad = torch.tensor([1.0 / 15.0] * 15 + [0.0] * 5, dtype=torch.float32, device=device)
+    for b0 in range(0, len(all_starts), batch):
+        with span("hmm.predict.windows"):
+            starts = list(all_starts[b0 : b0 + batch])
+            real, st0 = len(starts), starts[0]
+            n = min(L - st0, rows)
+            buf = torch.empty((rows, 20), dtype=torch.float32, device=device)
+            buf[n:] = pad
+            with span("hmm.predict.upload"):
+                buf[:n, :15] = torch.from_numpy(np.ascontiguousarray(cls[st0 : st0 + n], np.float32))
+                buf[:n, 15:] = torch.from_numpy(np.ascontiguousarray(enc[st0 : st0 + n], np.float32))
+            x = buf.as_strided((batch, window, 20), (stride * 20, 20, 1)).contiguous()
+            x[real:] = pad  # fill windows are all padding; their view reaches the tail's rows
+            starts += [-1] * (batch - real)
         with span("hmm.predict.decode"):
-            paths = np.asarray(viterbi_fn(x)[0].cpu())
+            paths = np.asarray(viterbi_fn(x[None])[0].cpu())
         with span("hmm.predict.stitch"):
             for i, st in enumerate(starts):
                 if st < 0:
@@ -398,7 +402,7 @@ def _predict(args) -> int:
     class_probs_for = _class_probs_fn(args.class_probs)
 
     def decode(enc, cls):
-        return decode_contig(layer.viterbi, enc, cls, window, args.batch, overlap)
+        return decode_contig(layer.viterbi, enc, cls, window, args.batch, overlap, device=layer.device)
 
     genes_by_seq = {}
     with torch.inference_mode():

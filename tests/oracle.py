@@ -100,3 +100,38 @@ def random_hmm(rng, q, L, b=1, peaked=False):
     else:
         E = rng.uniform(0.05, 1.0, size=(b, L, q))
     return init.astype(np.float32), A.astype(np.float32), E.astype(np.float32)
+
+
+def window_inputs_np(enc, cls, window, batch, overlap):
+    """Per window batch of a contig, the (1, batch, window, 20) inputs and
+    the window starts, built on the host from ``data.window_batches``: the
+    class rows ``cls`` (L, 15), padded with a uniform row past the contig's
+    end and in fill windows, before the nucleotide windows of ``enc``."""
+    from hmm_layer_torch import data
+
+    out = []
+    for wins, starts in data.window_batches(enc, window, batch, overlap):
+        rows = []
+        for st in starts:
+            chunk = cls[st : st + window] if st >= 0 else cls[:0]
+            pad = np.full((window - len(chunk), 15), 1.0 / 15.0, np.float32)
+            rows.append(np.concatenate([chunk, pad]))
+        out.append((np.concatenate([np.stack(rows), wins], -1)[None], starts))
+    return out
+
+
+def stitched_track_np(viterbi_fn, enc, cls, window, batch, overlap):
+    """The (L,) state track of a contig decoded from
+    :func:`window_inputs_np`'s batches, each later window's first
+    ``overlap`` positions taken from the window before it."""
+    L = enc.shape[0]
+    track = np.zeros(L, np.int32)
+    for x, starts in window_inputs_np(enc, cls, window, batch, overlap):
+        paths = np.asarray(viterbi_fn(x)[0].cpu())
+        for i, st in enumerate(starts):
+            if st < 0:
+                continue
+            end = min(st + window, L)
+            lo = st + overlap if st > 0 else st
+            track[lo:end] = paths[i, lo - st : end - st]
+    return track

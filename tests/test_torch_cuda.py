@@ -5,7 +5,9 @@ K9 log-likelihood) and the auxiliary inference on them (path sampling,
 EM, the streaming filter, chunked forward/backward) against their plain
 routes, the launch counts and the refusals; and the sparse edge-list
 engine (no kernel of its own) on the card against the same calls on the
-CPU, its refusal of CUDA edge indices and its determinism.
+CPU, its refusal of CUDA edge indices and its determinism; and
+``cli.decode_contig``'s window batches cut on the card against batches
+built on the host.
 
 Every test here needs a CUDA device and skips where there is none. The file
 imports no JAX, so it runs where JAX is not installed:
@@ -26,7 +28,7 @@ from hmm_layer_torch.models import (
     make_15_class_emission_kernel,
 )
 from hmm_layer_torch.ops import cuda_adjoint, cuda_forward, cuda_mxu, cuda_viterbi, em, recursion
-from oracle import random_hmm
+from oracle import random_hmm, stitched_track_np
 
 pytestmark = pytest.mark.gpu
 
@@ -1001,3 +1003,31 @@ def test_edge_sharded_routes_equal_the_sparse_engine(cuda):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
     for module in (cuda_forward, cuda_adjoint, cuda_viterbi, cuda_mxu):
         assert not any(module.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("strand", ["+", "-"])
+def test_decode_contig_cuda_windows_equal_the_host_built_batches(cuda, strand):
+    """A 3-batch contig (the last batch with fill windows) decoded through
+    ``cli.decode_contig``'s CUDA route gives the track that the host-built
+    ``data.window_batches`` inputs give through the same layer, bit for
+    bit, and opens ``hmm.predict.upload`` once a batch."""
+    from hmm_layer_torch import cli, data
+    from hmm_layer_torch.utils import profiling
+
+    window, batch, overlap = 400, 4, 64
+    L = 10 * (window - overlap) + overlap - 5  # 10 windows
+    rng = np.random.default_rng(6)
+    enc = data.encode_dna("".join(rng.choice(list("ACGT"), L)))
+    enc = data.revcomp_onehot(enc) if strand == "-" else enc
+    cls = rng.dirichlet(np.ones(15) * 0.3, L).astype(np.float32)
+    layer = cli._gene_pred_layer(8, cuda)
+    with torch.inference_mode():
+        ref = stitched_track_np(layer.viterbi, enc, cls, window, batch, overlap)
+        with profiling.span("hmm.test"):  # opened with the profiler off: ends the older session
+            pass
+        with torch.profiler.profile():
+            got = cli.decode_contig(layer.viterbi, enc, cls, window, batch, overlap)
+    names = [r.name for r in profiling.recorded_spans()]
+    assert names.count("hmm.predict.upload") == names.count("hmm.predict.decode") == 3
+    assert len(set(got.tolist())) > 1
+    np.testing.assert_array_equal(got, ref)

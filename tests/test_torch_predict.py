@@ -23,6 +23,7 @@ from hmm_layer_torch import cli, data
 from hmm_layer_torch.models import annotation
 from hmm_layer_torch.models.initializers import make_15_class_emission_kernel
 from hmm_layer_torch.utils import checkpoint
+from oracle import stitched_track_np, window_inputs_np
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -90,6 +91,52 @@ def test_window_batches_match_jax(L, window, batch, overlap):
         np.testing.assert_array_equal(gs, rs)
     with pytest.raises(ValueError, match="overlap"):
         list(data.window_batches(enc, 8, 2, 8))
+
+
+# (L, window, batch, overlap, strand): a contig shorter than a window, one
+# an exact multiple of the stride, and last batches with fill windows (with
+# overlap 64, a fill window's rows reach into the contig's tail).
+DECODE_WINDOW_CASES = [
+    pytest.param(50, 64, 2, 8, "+", id="L-below-window"),
+    pytest.param(336, 64, 3, 8, "+", id="L-multiple-of-stride"),
+    pytest.param(400, 64, 4, 0, "+", id="fill-windows-overlap-0"),
+    pytest.param(1000, 200, 3, 64, "+", id="fill-windows-overlap-64"),
+    pytest.param(1000, 200, 3, 64, "-", id="reverse-strand"),
+]
+
+
+@pytest.mark.parametrize("L,window,batch,overlap,strand", DECODE_WINDOW_CASES)
+def test_decode_contig_batches_equal_the_window_batches(L, window, batch, overlap, strand):
+    rng = np.random.default_rng(L + overlap)
+    enc = data.encode_dna(_random_dna(rng, L, "ACGTN"))
+    enc = data.revcomp_onehot(enc) if strand == "-" else enc
+    cls = rng.dirichlet(np.ones(15), L).astype(np.float32)
+    got = []
+
+    def viterbi_fn(x):
+        got.append(x.clone())
+        return torch.zeros(x.shape[:3], dtype=torch.int32)
+
+    cli.decode_contig(viterbi_fn, enc, cls, window, batch, overlap)
+    ref = [x for x, _ in window_inputs_np(enc, cls, window, batch, overlap)]
+    assert len(got) == len(ref) > 0
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape
+        assert torch.equal(g, torch.from_numpy(r))
+
+
+@pytest.mark.parametrize("strand", ["+", "-"])
+def test_decode_contig_track_equals_the_numpy_batches_track(strand):
+    rng = np.random.default_rng(4)
+    enc = data.encode_dna(_random_dna(rng, 1000))
+    enc = data.revcomp_onehot(enc) if strand == "-" else enc
+    cls = rng.dirichlet(np.ones(15) * 0.3, 1000).astype(np.float32)
+    layer = cli._gene_pred_layer(4, "cpu")
+    with torch.inference_mode():
+        got = cli.decode_contig(layer.viterbi, enc, cls, 200, 3, 64)
+        ref = stitched_track_np(layer.viterbi, enc, cls, 200, 3, 64)
+    assert len(set(got.tolist())) > 1
+    np.testing.assert_array_equal(got, ref)
 
 
 # ---------------------------------------------------------------------------

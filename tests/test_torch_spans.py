@@ -21,9 +21,10 @@ from hmm_layer_torch.utils import profiling
 
 # Each span of a decode and of a MAP step, with the span that encloses it
 # (None: a root). A decode batch records the first group; a reverse strand's
-# reverse complement and the windows generator's end one span each.
+# reverse complement one span.
 DECODE_PARENTS = {
     "hmm.predict.windows": None,
+    "hmm.predict.upload": "hmm.predict.windows",
     "hmm.predict.decode": None,
     "hmm.layer.viterbi": "hmm.predict.decode",
     "hmm.layer.transitions": "hmm.layer.viterbi",
@@ -205,8 +206,8 @@ def _spans_a_batch(layer, enc, cls, window):
     records = profiling.recorded_spans()
     batches = sum(r.name == "hmm.predict.decode" for r in records)
     assert batches >= 2
-    # Less the strand's reverse complement and its windows generator's end.
-    return (len(records) - 2) / batches
+    # Less the strand's reverse complement.
+    return (len(records) - 1) / batches
 
 
 def test_spans_a_batch_and_a_step_stay_few_and_fixed(contig):
