@@ -925,23 +925,29 @@ _NEG = cuda_viterbi.NEG
 
 
 def _viterbi_seq(init, A, E):
-    """Max-plus Viterbi with backpointers. Returns paths (m, b, L) int32."""
+    """Max-plus Viterbi with backpointers. Returns paths (m, b, L) int32.
+
+    Under a profiler the forward max-plus loop opens the span
+    ``hmm.recursion.viterbi.deltas`` and the pointer walk
+    ``hmm.recursion.viterbi.backtrace``, once each a call."""
     log_A = torch.log(_clamped(A))
     log_E = torch.log(_clamped(E))
     log_init = torch.log(_clamped(init))
     L = E.shape[2]
-    delta = log_init[:, None, :] + log_E[:, :, 0]  # (m, b, q)
-    backptrs = []
-    for t in range(1, L):
-        best, arg = maxargmatvec(delta, log_A[:, None])
-        delta = best + log_E[:, :, t]
-        backptrs.append(arg)
-    state = delta.argmax(dim=-1)  # (m, b)
-    path = [state]
-    for bp in reversed(backptrs):
-        state = torch.gather(bp, -1, state[..., None])[..., 0]
-        path.append(state)
-    return torch.stack(path[::-1], dim=-1).to(torch.int32)
+    with span("hmm.recursion.viterbi.deltas"):
+        delta = log_init[:, None, :] + log_E[:, :, 0]  # (m, b, q)
+        backptrs = []
+        for t in range(1, L):
+            best, arg = maxargmatvec(delta, log_A[:, None])
+            delta = best + log_E[:, :, t]
+            backptrs.append(arg)
+    with span("hmm.recursion.viterbi.backtrace"):
+        state = delta.argmax(dim=-1)  # (m, b)
+        path = [state]
+        for bp in reversed(backptrs):
+            state = torch.gather(bp, -1, state[..., None])[..., 0]
+            path.append(state)
+        return torch.stack(path[::-1], dim=-1).to(torch.int32)
 
 
 def _viterbi_chunk_summaries(log_A, Et, P, first_chunk_identity=True):
