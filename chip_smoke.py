@@ -55,7 +55,12 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    P=303) and q=127 (b=4, P=33), warm and cold. ``HMMLayer.viterbi``
    serves 3 requests (K7b, K8b once each per request; paths identical to
    the glue on the plain versions, valid and score-equal to the sequential
-   decode), ms/batch and the profiler's busy share;
+   decode), ms/batch and the profiler's busy share. Config 5 (k = 36,
+   q = 505, b=32, L=9999): K7c's pointers and last delta bit-equal to its
+   plain version and K8c's paths equal to its plain walk, warm and cold,
+   beside their bounds; ``HMMLayer.viterbi`` serves 3 requests (K7c, K8c
+   once each per request; paths identical to ``_viterbi_seq``'s),
+   ms/batch and the profiler's busy share;
    ``HMMLayer.log_likelihood`` serves 3 requests with the K9 gate off,
    then on (K9 once per request, K1 never; equal to the gate-off result
    and, on a small input, to the sequential recursion), ms/batch for both,
@@ -113,8 +118,8 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    route's loss and gradients against the dense route's, 5 ``Trainer``
    MAP steps with Adam(0.05) (loss falling, every trainable parameter
    moving, the frozen insertion kernels not), gradients against float64
-   autograd (m=2, b=4, L=100), and the q=155 model's decode (valid, float64
-   scores equal to a CPU copy's); ms/batch, ms/step and the profiler's busy
+   autograd (m=2, b=4, L=100), and the q=155 model's decode (K7c and K8c
+   once each; valid, float64 scores equal to a CPU copy's); ms/batch, ms/step and the profiler's busy
    share. Then ``python -m hmm_layer_torch align`` in-process on a planted
    family (Lm=24, 64 sequences): K7b and K8b once each in its final decode
    and no other kernel, the paths equal to the glue on the plain versions,
@@ -225,6 +230,8 @@ SOURCES = {
     "maxplus_deltas_blocked": "hmm_layer_torch/csrc/max_plus.cu",
     "maxplus_backtrace_blocked": "hmm_layer_torch/csrc/max_plus.cu",
     "sum_chunk_summaries_mxu": "hmm_layer_torch/csrc/mxu.cu",
+    "maxplus_deltas_wide": "hmm_layer_torch/csrc/max_plus_wide.cu",
+    "maxplus_backtrace_wide": "hmm_layer_torch/csrc/max_plus_wide.cu",
 }
 REPLACES = {
     "sum_chunk_summaries": "hmm_layer_tpu/ops/pallas_forward.py:112",
@@ -238,6 +245,9 @@ REPLACES = {
     "maxplus_deltas_blocked": "hmm_layer_tpu/ops/pallas_viterbi.py:279",
     "maxplus_backtrace_blocked": "hmm_layer_tpu/ops/pallas_viterbi.py:317",
     "sum_chunk_summaries_mxu": "hmm_layer_tpu/ops/pallas_mxu.py:147",
+    # The JAX package's q > 64 sequential decode is lax.scan: no TPU kernel.
+    "maxplus_deltas_wide": "none (hmm_layer_tpu/ops/recursion.py _viterbi_seq, lax.scan)",
+    "maxplus_backtrace_wide": "none (hmm_layer_tpu/ops/recursion.py _viterbi_seq, lax.scan)",
 }
 # The q <= 16 decode kernels; the blocked bodies K7b/K8b count separately.
 DECODE_Q16 = ("maxplus_chunk_summaries", "maxplus_deltas", "maxplus_backtrace")
@@ -252,7 +262,8 @@ PER_REQUEST = {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs
 # show that).
 COLD = ("sum_chunk_summaries", "sum_fwd_outputs", "beta_bwd_outputs", "affine_chunk_composites",
         "affine_reverse_outputs", "maxplus_chunk_summaries", "maxplus_deltas", "maxplus_backtrace",
-        "maxplus_deltas_blocked", "maxplus_backtrace_blocked", "sum_chunk_summaries_mxu")
+        "maxplus_deltas_blocked", "maxplus_backtrace_blocked", "sum_chunk_summaries_mxu",
+        "maxplus_deltas_wide", "maxplus_backtrace_wide")
 # K7b's chain floor, a model in SM cycles a step (not a measurement): the
 # term's add, a ceil(log2 q)-deep max tree and the emission's add at 4
 # cycles each, a shared-memory store and load of delta (30) and a barrier
@@ -1245,6 +1256,8 @@ def train_cli_phase(fasta, npz, gff, cuda_forward, cuda_adjoint, tmp):
 
 MC_K = 2  # the multi-copy cell: k = 2 copies, q = 29
 BLOCKED_KEYS = ("maxplus_deltas_blocked", "maxplus_backtrace_blocked")
+WIDE_KEYS = ("maxplus_deltas_wide", "maxplus_backtrace_wide")
+WIDE_K = 36  # config 5 and genepred-q505-predict: k = 36 copies, q = 505
 
 
 def build_multicopy_layer(HMMLayer, models, k):
@@ -1446,6 +1459,78 @@ def multicopy_decode_phase(layer, make, recursion, cuda_viterbi):
             torch.cuda.synchronize()
             decode_ms.append(1e3 * (time.perf_counter() - t0))
     return launches, decode_ms
+
+
+def wide_kernel_phase(HMMLayer, models, make, recursion, cuda_viterbi, peak_bytes, peak_flops):
+    """K7c and K8c against their plain versions (K7c's pointers and last
+    delta bit-equal, K8c's paths equal) at config 5's decode (k = 36, q =
+    505, b=32, L=9999, the genepred-q505-predict cell's batch), warm and
+    cold, beside their bounds; then ``HMMLayer.viterbi`` serving 3 requests
+    (K7c, K8c once each per request; paths equal to ``_viterbi_seq``'s on
+    the card), ms/batch and the profiler's busy share."""
+    layer = build_multicopy_layer(HMMLayer, models, WIDE_K)
+    records = {}
+    with torch.inference_mode():
+        log_A, log_E, delta0 = seq_decode_inputs(layer, make(SEED + 70, B, L))
+        m, R, c, q = log_E.shape
+        bp, last = cuda_viterbi.maxplus_deltas_wide(log_A, log_E, delta0)
+        bp_p, last_p = cuda_viterbi.maxplus_deltas_wide_plain(log_A, log_E, delta0)
+        states = cuda_viterbi.maxplus_backtrace_wide(bp_p, last_p)
+        states_p = cuda_viterbi.maxplus_backtrace_wide_plain(bp_p, last_p)
+        torch.cuda.synchronize()
+        bp_bytes, path_bytes = 2 * m * R * (c - 1) * q, 4 * m * R * c
+        cases = {
+            # Operations: one add and one max per (k, j) term of a step.
+            "maxplus_deltas_wide": (
+                lambda: cuda_viterbi.maxplus_deltas_wide(log_A, log_E, delta0),
+                lambda: cuda_viterbi.maxplus_deltas_wide_plain(log_A, log_E, delta0),
+                torch.equal(bp, bp_p) and torch.equal(last, last_p),
+                4 * m * q * q + 4 * m * R * c * q + 4 * m * R * q + bp_bytes + 4 * m * R * q,
+                m * R * (c - 1) * 2 * q * q,
+            ),
+            "maxplus_backtrace_wide": (
+                lambda: cuda_viterbi.maxplus_backtrace_wide(bp_p, last_p),
+                lambda: cuda_viterbi.maxplus_backtrace_wide_plain(bp_p, last_p),
+                torch.equal(states, states_p),
+                bp_bytes + 4 * m * R * q + path_bytes,
+                m * R * (c - 1),
+            ),
+        }
+        for name, (kern, plain, equal, nbytes, nops) in cases.items():
+            rec = measure(name, kern, plain, 0.0 if equal else float("nan"), nbytes, nops, peak_bytes,
+                          peak_flops, reps=1, plain_samples=1)
+            records[name] = rec
+            log(f"phase 9 {name} q={q} (b={R}, L={c}): {'equal' if equal else 'MISMATCH'} "
+                f"(bit-equality required) {timing_text(rec, nbytes, nops)}{cold_text(name, kern, rec)}")
+            if not equal:
+                raise AssertionError(f"{name} differs from its plain version at q={q}")
+        del bp, last, bp_p, last_p, log_E
+
+        requests = [make(SEED + 71 + i, B, L) for i in range(N_REQUESTS)]
+        layer.viterbi(requests[0])  # warm-up, not counted
+        torch.cuda.synchronize()
+        cuda_viterbi.reset_launches()
+        paths = [layer.viterbi(X) for X in requests]
+        torch.cuda.synchronize()
+        launches = dict(cuda_viterbi.LAUNCHES)
+        log(f"phase 9 launches over {N_REQUESTS} config 5 decode requests: {launches}")
+        expect(launches, **{k: N_REQUESTS for k in WIDE_KEYS})
+        for i, (X, path) in enumerate(zip(requests, paths)):
+            init, A = layer.transitions.matrices()
+            same = torch.equal(path, recursion._viterbi_seq(init, A, layer.emission_probs(X)))
+            log(f"phase 9 config 5 request {i}: paths {'identical to' if same else 'DIFFER FROM'} _viterbi_seq's")
+            if not same:
+                raise AssertionError(f"config 5 request {i}: K7c + K8c paths differ from _viterbi_seq's")
+        decode_ms = []
+        for X in requests * 3:
+            decode_ms.append(synced_ms(lambda: layer.viterbi(X))[1])
+    med = statistics.median(decode_ms)
+    log(f"phase 9 config 5 decode (q={q}): {med:.3f} ms/batch median of {len(decode_ms)} "
+        f"[{min(decode_ms):.3f}, {max(decode_ms):.3f}], {B / (med / 1e3):.1f} seqs/sec (b={B}, L={L}, "
+        f"sequential decode through K7c + K8c)")
+    profile_request("phase 9 config 5 decode", lambda: layer.viterbi(requests[0]), "K7c-K8c",
+                    ("deltas_wide_kernel", "backtrace_wide_"))
+    return records, launches
 
 
 def multicopy_loglik_phase(layer, make, recursion, cuda_mxu, cuda_forward):
@@ -2103,7 +2188,8 @@ def config5_viterbi(layer, twin, X, counters):
         same = float((path == path_d).float().mean())
     log(f"phase 11 config 5 viterbi: every transition on an edge with A > 0; float64 path scores vs the dense "
         f"decode max abs {err:.3e} (rtol 1e-5; mean score {float(score.mean()):.2f}); paths equal at "
-        f"{100 * same:.3f}% of positions; launches none; sparse {ms:.3f} ms/batch, dense sequential {ms_d:.3f}")
+        f"{100 * same:.3f}% of positions; launches none; sparse {ms:.3f} ms/batch, dense sequential (K7c + K8c) "
+        f"{ms_d:.3f}")
     if not ok:
         raise AssertionError("config 5 sparse decode scores below the dense decode")
     return {"c5_viterbi_ms": ms, "c5_dense_viterbi_ms": ms_d}, path
@@ -2645,8 +2731,9 @@ def config4_precision(layer, recursion, X):
 
 
 def config4_viterbi(HMMLayer, layer, counters, X):
-    """The q = 155 model (select_models) decodes b=64, L=400: no kernel;
-    valid paths, float64 scores equal to the same decode on a CPU copy."""
+    """The q = 155 model (select_models) decodes b=64, L=400: K7c and K8c
+    once each; valid paths, float64 scores equal to the same decode on a
+    CPU copy."""
     import copy
 
     from hmm_layer_torch.training import select_models
@@ -2658,7 +2745,7 @@ def config4_viterbi(HMMLayer, layer, counters, X):
         sel.viterbi(x1)  # warm-up
         reset_kernels(counters)
         paths, ms = synced_ms(lambda: sel.viterbi(x1))
-        no_kernels("config 4 decode", counters)
+        expect(kernel_counts(counters), **{k: 1 for k in WIDE_KEYS})
         init, A = sel.transitions.matrices()
         E = sel.emission_probs(x1)
         cpu = copy.deepcopy(sel).to("cpu")
@@ -2667,7 +2754,7 @@ def config4_viterbi(HMMLayer, layer, counters, X):
         s_cpu, _ = path_score64(init, A, E, paths_cpu.to(paths.device))
     q = sel.transitions.num_states[0]
     err, ok = within(s, s_cpu, 1e-5, 0.0)
-    log(f"phase 12 config 4 decode (q={q}, b={PROFILE_B}, L={PROFILE_L}, sequential max-plus scan, "
+    log(f"phase 12 config 4 decode (q={q}, b={PROFILE_B}, L={PROFILE_L}, sequential decode, K7c + K8c, "
         f"launches {kernel_counts(counters)}): valid {bool(used.all())}; float64 path scores vs the CPU "
         f"copy's decode max abs {err:.3e} (rtol 1e-5), positions differing {int((paths.cpu() != paths_cpu).sum())}; "
         f"{ms:.3f} ms/batch")
@@ -4262,6 +4349,9 @@ def main() -> int:
                                         peak_bytes, peak_flops, sm_mhz))
     records.update(mxu_kernel_phase(mc, make, recursion, cuda_mxu, peak_bytes, peak_flops))
     mc_decode_launches, mc_decode_ms = multicopy_decode_phase(mc[MC_K], make, recursion, cuda_viterbi)
+    wide_records, wide_launches = wide_kernel_phase(HMMLayer, models, make, recursion, cuda_viterbi,
+                                                    peak_bytes, peak_flops)
+    records.update(wide_records)
     med = statistics.median(mc_decode_ms)
     log(f"phase 9 decode (q={1 + 14 * MC_K}): {med:.3f} ms/batch median of {len(mc_decode_ms)} "
         f"[{min(mc_decode_ms):.3f}, {max(mc_decode_ms):.3f}], {B / (med / 1e3):.1f} seqs/sec "
@@ -4306,6 +4396,7 @@ def main() -> int:
     launches.update({k: v for k, v in decode_launches.items() if k in DECODE_Q16})
     launches.update({k: train_launches[k] for k in cuda_adjoint.LAUNCHES})
     launches.update({k: mc_decode_launches[k] for k in BLOCKED_KEYS})
+    launches.update({k: wide_launches[k] for k in WIDE_KEYS})
     launches["sum_chunk_summaries_mxu"] = mc_ll_launches["sum_chunk_summaries_mxu"]
     for name, rec in records.items():
         rec["launches"] = launches[name]

@@ -7,7 +7,7 @@ Submodules: :mod:`.semiring`, :mod:`.kmer`, :mod:`.recursion`,
 recursions over COO edge lists, for large multi-copy models),
 :mod:`.cuda_forward`
 (kernels K1–K3), :mod:`.cuda_adjoint` (kernels K4–K5),
-:mod:`.cuda_viterbi` (kernels K6–K8b), :mod:`.cuda_mxu` (K9) and
+:mod:`.cuda_viterbi` (kernels K6–K8b, K7c–K8c), :mod:`.cuda_mxu` (K9) and
 :mod:`._cuda_build` (their build). The names in ``__all__`` (the JAX
 package's ``ops`` namespace: functions, constants and submodules) load
 their modules on first access.

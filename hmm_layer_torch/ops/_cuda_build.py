@@ -27,6 +27,7 @@ SOURCES = {
     "max_plus": _PKG / "csrc" / "max_plus.cu",
     "affine": _PKG / "csrc" / "affine.cu",
     "mxu": _PKG / "csrc" / "mxu.cu",
+    "max_plus_wide": _PKG / "csrc" / "max_plus_wide.cu",
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -55,6 +56,10 @@ SIGNATURES = {
     },
     "mxu": {
         "hmm_sum_chunk_summaries_mxu": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "max_plus_wide": {
+        "hmm_maxplus_deltas_wide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "hmm_maxplus_backtrace_wide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

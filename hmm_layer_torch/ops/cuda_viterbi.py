@@ -1,5 +1,5 @@
-"""Max-plus Viterbi kernels K6–K8, K7b, K8b: CUDA wrappers, plain versions,
-counters.
+"""Max-plus Viterbi kernels K6–K8, K7b, K8b, K7c, K8c: CUDA wrappers, plain
+versions, counters.
 
 Port of ``hmm_layer_tpu/ops/pallas_viterbi.py``. Each kernel of
 ``csrc/max_plus.cu`` has here
@@ -39,6 +39,16 @@ The sequential decode at 16 < q <= 64 (``recursion._viterbi_seq_kernels``)
 calls :func:`maxplus_decode_seq` on log E (m, b, L, q): K7b and K8b with
 no layout change.
 
+The sequential decode at 64 < q <= :data:`MAX_WIDE_Q`
+(``recursion._viterbi_wide_kernels``) runs K7c, :func:`maxplus_deltas_wide`
+(uint16 backpointers (m, b, L - 1, q) and the last delta (m, b, q)), then
+K8c, :func:`maxplus_backtrace_wide` (the lowest argmax of the last delta
+and the pointer walk: paths (m, b, L) int32), both in
+``csrc/max_plus_wide.cu`` and counted under ``maxplus_deltas_wide`` and
+``maxplus_backtrace_wide``. They replace no TPU kernel: the JAX package
+leaves that decode to ``lax.scan``; their plain versions are the scan's
+arithmetic (``recursion._viterbi_seq``) with the pointers kept as uint16.
+
 Decoding has no gradient: on CUDA the float-valued launches are wrapped in
 an ``autograd.Function`` whose backward raises, so none is silently
 dropped.
@@ -49,6 +59,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda_build
+from .semiring import maxargmatvec
 from .cuda_forward import (
     KERNEL_MAX_Q,
     _check,
@@ -70,6 +81,11 @@ __all__ = [
     "maxplus_deltas_seq",
     "maxplus_backtrace_seq",
     "maxplus_decode_seq",
+    "MAX_WIDE_Q",
+    "maxplus_deltas_wide",
+    "maxplus_backtrace_wide",
+    "maxplus_deltas_wide_plain",
+    "maxplus_backtrace_wide_plain",
     "maxplus_chunk_summaries_plain",
     "maxplus_deltas_plain",
     "maxplus_backtrace_plain",
@@ -82,6 +98,12 @@ NEG = -1e30
 # Largest state count of the blocked delta/backtrace bodies (the JAX
 # ``pallas_viterbi.MAX_BLOCKED_Q``); K6 keeps q <= 16.
 MAX_BLOCKED_Q = 64
+# Largest state count of K7c/K8c: a cluster of 8 blocks holds log A in
+# registers, 64 columns x 512 rows a block (csrc/max_plus_wide.cu).
+MAX_WIDE_Q = 512
+# Pointer rows a tile of K8c (WIDE_T in csrc/max_plus_wide.cu, which checks
+# it); it sizes the walk's scratch.
+_TRACE_TILE = 32
 
 LAUNCHES = {
     "maxplus_chunk_summaries": 0,
@@ -89,6 +111,8 @@ LAUNCHES = {
     "maxplus_backtrace": 0,
     "maxplus_deltas_blocked": 0,
     "maxplus_backtrace_blocked": 0,
+    "maxplus_deltas_wide": 0,
+    "maxplus_backtrace_wide": 0,
 }
 
 
@@ -159,6 +183,35 @@ def maxplus_backtrace_seq_plain(log_A, deltas, last_state):
     (m, b, L) int32 from deltas (m, b, L, q) and ``last_state`` (m, b)."""
     states = maxplus_backtrace_plain(log_A, deltas.permute(0, 2, 3, 1), last_state)
     return states.transpose(1, 2).contiguous()
+
+
+def maxplus_deltas_wide_plain(log_A, log_E, delta0):
+    """K7c's plain version, the delta loop of ``recursion._viterbi_seq``
+    (the sequential decode at any q): backpointers (m, b, L - 1, q) uint16
+    (int32 past q = 65,536), ``bp[:, :, t - 1, j]`` the lowest k maximising
+    ``delta_{t-1}[k] + log_A[k, j]``, and the last delta (m, b, q), from
+    log E (m, b, L, q) and delta0 (m, b, q)."""
+    m, b, L, q = log_E.shape
+    dtype = torch.uint16 if q <= 1 << 16 else torch.int32
+    bp = torch.empty((m, b, max(L - 1, 0), q), dtype=dtype, device=log_E.device)
+    delta = delta0
+    for t in range(1, L):
+        best, arg = maxargmatvec(delta, log_A[:, None])
+        delta = best + log_E[:, :, t]
+        bp[:, :, t - 1] = arg
+    return bp, delta
+
+
+def maxplus_backtrace_wide_plain(bp, last_delta):
+    """K8c's plain version, the walk of ``recursion._viterbi_seq``: paths
+    (m, b, L) int32 from the lowest argmax of ``last_delta`` (m, b, q)
+    back through ``bp`` (m, b, L - 1, q)."""
+    state = last_delta.argmax(dim=-1)
+    path = [state]
+    for t in range(bp.shape[2] - 1, -1, -1):
+        state = torch.gather(bp[:, :, t].long(), -1, state[..., None])[..., 0]
+        path.append(state)
+    return torch.stack(path[::-1], dim=-1).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -296,6 +349,87 @@ def maxplus_decode_seq(log_A, log_E, delta0):
     deltas = maxplus_deltas_seq(log_A, log_E, delta0)
     last = deltas[:, :, -1].argmax(dim=-1).to(torch.int32)
     return maxplus_backtrace_seq(log_A, deltas, last)
+
+
+def _wide_shapes(name, log_A, x):
+    """(m, b, L, q) of K7c's or K8c's sequence-major input ``x``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {x.device} have no kernel")
+    m, R, c, q = x.shape
+    if not MAX_BLOCKED_Q < q <= MAX_WIDE_Q:
+        raise ValueError(f"{name}: the kernel takes {MAX_BLOCKED_Q} < q <= {MAX_WIDE_Q}, got q={q}")
+    if log_A is not None and tuple(log_A.shape) != (m, q, q):
+        raise ValueError(f"{name}: log_A has shape {tuple(log_A.shape)}, expected {(m, q, q)}")
+    if min(m, R) < 1:
+        raise ValueError(f"{name}: empty input {tuple(x.shape)}")
+    return m, R, c, q
+
+
+def maxplus_deltas_wide(log_A, log_E, delta0):
+    """K7c: the sequential delta pass for 64 < q <= 512, keeping only what
+    the walk needs: backpointers (m, b, L - 1, q) uint16 and the last delta
+    (m, b, q), bit-equal to :func:`maxplus_deltas_wide_plain`.
+
+    Args:
+        log_A: (m, q, q) log transition matrices.
+        log_E: (m, b, L, q) log emissions, sequence-major.
+        delta0: (m, b, q) the value at each sequence's first position
+            (start plus first emission).
+    """
+    if log_E.device.type == "cpu":
+        return maxplus_deltas_wide_plain(log_A, log_E, delta0)
+    name = "maxplus_deltas_wide"
+    m, R, c, q = _wide_shapes(name, log_A, log_E)
+    if c < 1:
+        raise ValueError(f"{name}: empty input {tuple(log_E.shape)}")
+    _check(name, log_E.device, log_A=log_A, log_E=log_E, delta0=delta0)
+    if tuple(delta0.shape) != (m, R, q):
+        raise ValueError(f"{name}: delta0 {tuple(delta0.shape)} does not match "
+                         f"log_E {tuple(log_E.shape)}")
+    lib = _cuda_build.load("max_plus_wide")
+
+    def launch(log_A, log_E, delta0):
+        bp = torch.empty((m, R, c - 1, q), dtype=torch.uint16, device=log_E.device)
+        last = torch.empty((m, R, q), dtype=torch.float32, device=log_E.device)
+        device, stream = _launch_args(log_E.device)
+        _raise_on(name, lib.hmm_maxplus_deltas_wide(
+            log_A.data_ptr(), log_E.data_ptr(), delta0.data_ptr(), bp.data_ptr(), last.data_ptr(),
+            m, c, q, R, device, stream,
+        ))
+        return bp, last
+
+    bp, last = _NoGradient.apply(launch, log_A, log_E, delta0)
+    LAUNCHES[name] += 1
+    return bp, last
+
+
+def maxplus_backtrace_wide(bp, last_delta):
+    """K8c: decoded states (m, b, L) int32 for 64 < q <= 512 from K7c's
+    backpointers ``bp`` (m, b, L - 1, q) uint16 and last delta
+    ``last_delta`` (m, b, q): the lowest argmax of the last delta, then the
+    walk back, equal to :func:`maxplus_backtrace_wide_plain`."""
+    if bp.device.type == "cpu":
+        return maxplus_backtrace_wide_plain(bp, last_delta)
+    name = "maxplus_backtrace_wide"
+    m, R, rows, q = _wide_shapes(name, None, bp)
+    if bp.dtype != torch.uint16 or not bp.is_contiguous():
+        raise TypeError(f"{name}: bp must be a contiguous uint16 tensor, got {bp.dtype}")
+    _check(name, bp.device, last_delta=last_delta)
+    if tuple(last_delta.shape) != (m, R, q):
+        raise ValueError(f"{name}: last_delta {tuple(last_delta.shape)} does not match "
+                         f"bp {tuple(bp.shape)}")
+    c = rows + 1
+    tiles = -(-rows // _TRACE_TILE)
+    states = torch.empty((m, R, c), dtype=torch.int32, device=bp.device)
+    maps = torch.empty((m * R * tiles * q,), dtype=torch.uint16, device=bp.device)
+    border = torch.empty((m * R * tiles,), dtype=torch.int32, device=bp.device)
+    device, stream = _launch_args(bp.device)
+    _raise_on(name, _cuda_build.load("max_plus_wide").hmm_maxplus_backtrace_wide(
+        bp.data_ptr(), last_delta.data_ptr(), maps.data_ptr(), border.data_ptr(), states.data_ptr(),
+        m, c, q, R, tiles, device, stream,
+    ))
+    LAUNCHES[name] += 1
+    return states
 
 
 def maxplus_deltas(log_A, log_E_T, delta0):

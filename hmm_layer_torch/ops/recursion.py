@@ -46,7 +46,7 @@ import torch
 
 from ..utils.profiling import span
 from . import cuda_adjoint, cuda_forward, cuda_mxu, cuda_viterbi
-from .semiring import EPS, logmatmul, logmatvec, maxargmatvec, maxmatmul
+from .semiring import EPS, logmatmul, logmatvec, maxmatmul
 
 __all__ = [
     "forward",
@@ -924,30 +924,23 @@ class _PosteriorChunked(torch.autograd.Function):
 _NEG = cuda_viterbi.NEG
 
 
-def _viterbi_seq(init, A, E):
+def _viterbi_seq(init, A, E, deltas=cuda_viterbi.maxplus_deltas_wide_plain,
+                 backtrace=cuda_viterbi.maxplus_backtrace_wide_plain):
     """Max-plus Viterbi with backpointers. Returns paths (m, b, L) int32.
 
-    Under a profiler the forward max-plus loop opens the span
-    ``hmm.recursion.viterbi.deltas`` and the pointer walk
+    The max-plus loop and the pointer walk are ``deltas`` and
+    ``backtrace``: the plain versions of K7c and K8c, or the kernels
+    themselves from :func:`_viterbi_wide_kernels`. Under a profiler the
+    loop opens the span ``hmm.recursion.viterbi.deltas`` and the walk
     ``hmm.recursion.viterbi.backtrace``, once each a call."""
-    log_A = torch.log(_clamped(A))
-    log_E = torch.log(_clamped(E))
+    log_A = torch.log(_clamped(A)).contiguous()
+    log_E = torch.log(_clamped(E)).contiguous()
     log_init = torch.log(_clamped(init))
-    L = E.shape[2]
     with span("hmm.recursion.viterbi.deltas"):
-        delta = log_init[:, None, :] + log_E[:, :, 0]  # (m, b, q)
-        backptrs = []
-        for t in range(1, L):
-            best, arg = maxargmatvec(delta, log_A[:, None])
-            delta = best + log_E[:, :, t]
-            backptrs.append(arg)
+        delta0 = (log_init[:, None, :] + log_E[:, :, 0]).contiguous()  # (m, b, q)
+        bp, last = deltas(log_A, log_E, delta0)
     with span("hmm.recursion.viterbi.backtrace"):
-        state = delta.argmax(dim=-1)  # (m, b)
-        path = [state]
-        for bp in reversed(backptrs):
-            state = torch.gather(bp, -1, state[..., None])[..., 0]
-            path.append(state)
-        return torch.stack(path[::-1], dim=-1).to(torch.int32)
+        return backtrace(bp, last)
 
 
 def _viterbi_chunk_summaries(log_A, Et, P, first_chunk_identity=True):
@@ -1101,6 +1094,19 @@ def _viterbi_seq_kernels(init, A, E):
     return cuda_viterbi.maxplus_decode_seq(log_A, log_E, delta0)
 
 
+def _use_wide_viterbi_kernels(E) -> bool:
+    """The sequential decode K7c/K8c runs where the tensors are on CUDA and
+    64 < q <= ``cuda_viterbi.MAX_WIDE_Q``, at ``parallel_factor == 1``."""
+    return E.is_cuda and cuda_viterbi.MAX_BLOCKED_Q < E.shape[-1] <= cuda_viterbi.MAX_WIDE_Q
+
+
+def _viterbi_wide_kernels(init, A, E):
+    """:func:`_viterbi_seq` through K7c (the delta pass, uint16 pointers)
+    and K8c (the pointer walk) on the emissions' own layout (m, b, L, q):
+    the same paths, int32 (m, b, L), and the same spans."""
+    return _viterbi_seq(init, A, E, cuda_viterbi.maxplus_deltas_wide, cuda_viterbi.maxplus_backtrace_wide)
+
+
 def _viterbi_chunked_kernels(init, A, E, P):
     """Chunked Viterbi, kernel route: K6 summaries, the plain boundary fold
     and chunk-level backtrace, then K7 + K8 from the conditional starts."""
@@ -1237,14 +1243,19 @@ def viterbi(init, A, E, parallel_factor: int = 1) -> torch.Tensor:
     JAX package sends them to its blocked Pallas kernels on a TPU; the path
     is the sequential scan's. Off CUDA they route as the JAX package does
     off the TPU: the sequential scan for ``parallel_factor == 1``, the plain
-    chunked engine above. Decoding has no gradient; it runs under
-    ``torch.no_grad``.
+    chunked engine above. For 64 < q <= ``cuda_viterbi.MAX_WIDE_Q`` at
+    ``parallel_factor == 1`` a CUDA tensor takes K7c/K8c
+    (:func:`_viterbi_wide_kernels`), the sequential scan's paths; the JAX
+    package leaves that scan to XLA. Decoding has no gradient; it runs
+    under ``torch.no_grad``.
     """
     if _use_seq_viterbi_kernels(E):
         with span("hmm.recursion.viterbi.paths"):
             return _viterbi_seq_kernels(init, A, E)
     if parallel_factor == 1:
         with span("hmm.recursion.viterbi.paths"):
+            if _use_wide_viterbi_kernels(E):
+                return _viterbi_wide_kernels(init, A, E)
             return _viterbi_seq(init, A, E)
     if _use_kernels(E):
         return _viterbi_chunked_kernels(init, A, E, parallel_factor)

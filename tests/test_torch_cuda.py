@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1–K9 on the card: each against its plain
+"""The port's CUDA kernels K1–K9, K7c and K8c on the card: each against its plain
 PyTorch version, the layer's kernel routes (posterior, Viterbi, the
 gradients of the training objectives, the multi-copy decode and the gated
 K9 log-likelihood) and the auxiliary inference on them (path sampling,
@@ -345,6 +345,7 @@ def test_maxplus_kernels_equal_plain(cuda, m, c, R, P, gene_pred, q):
     assert cuda_viterbi.LAUNCHES == {
         "maxplus_chunk_summaries": 1, "maxplus_deltas": 1, "maxplus_backtrace": 1,
         "maxplus_deltas_blocked": 0, "maxplus_backtrace_blocked": 0,
+        "maxplus_deltas_wide": 0, "maxplus_backtrace_wide": 0,
     }
     assert torch.equal(C_T, cuda_viterbi.maxplus_chunk_summaries_plain(log_A, log_E_T, P))
     assert torch.equal(deltas, cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0))
@@ -402,6 +403,7 @@ def test_layer_viterbi_kernel_route_matches_plain_route(cuda, pf):
         assert cuda_viterbi.LAUNCHES == {
             "maxplus_chunk_summaries": 1, "maxplus_deltas": 1, "maxplus_backtrace": 1,
             "maxplus_deltas_blocked": 0, "maxplus_backtrace_blocked": 0,
+            "maxplus_deltas_wide": 0, "maxplus_backtrace_wide": 0,
         }
         init, A = layer.transitions.matrices()
         E = layer.emission_probs(X)
@@ -468,6 +470,7 @@ def test_blocked_maxplus_kernels_equal_plain(cuda, q, c, R):
     assert cuda_viterbi.LAUNCHES == {
         "maxplus_chunk_summaries": 0, "maxplus_deltas": 0, "maxplus_backtrace": 0,
         "maxplus_deltas_blocked": 1, "maxplus_backtrace_blocked": 1,
+        "maxplus_deltas_wide": 0, "maxplus_backtrace_wide": 0,
     }
     assert torch.equal(deltas, cuda_viterbi.maxplus_deltas_plain(log_A, log_E_T, delta0))
     assert torch.equal(states, cuda_viterbi.maxplus_backtrace_plain(log_A, deltas, last))
@@ -548,6 +551,7 @@ def test_multi_copy_viterbi_takes_blocked_kernels(cuda, monkeypatch, pf):
         assert cuda_viterbi.LAUNCHES == {
             "maxplus_chunk_summaries": 0, "maxplus_deltas": 0, "maxplus_backtrace": 0,
             "maxplus_deltas_blocked": 1, "maxplus_backtrace_blocked": 1,
+            "maxplus_deltas_wide": 0, "maxplus_backtrace_wide": 0,
         }
         init, A = layer.transitions.matrices()
         E = layer.emission_probs(X)
@@ -561,6 +565,151 @@ def test_multi_copy_viterbi_takes_blocked_kernels(cuda, monkeypatch, pf):
     s_s, used_s = _path_score64(init, A, E, seq)
     assert used_k[used_s.all(-1)].all()
     torch.testing.assert_close(s_k, s_s, rtol=1e-6, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# K7c–K8c (the sequential max-plus decode, 64 < q <= 512)
+# ---------------------------------------------------------------------------
+
+
+def _wide_inputs(seed, m, q, c, R, device):
+    """log A with structural zeros (log EPS), log E (m, R, c, q) and delta0
+    (m, R, q) as the decode builds them."""
+    rng = np.random.default_rng(seed)
+    A = rng.dirichlet(np.ones(q) * 0.5, size=(m, q))
+    A[:, :, q // 3] = 0.0
+    A /= A.sum(-1, keepdims=True)
+    E = rng.dirichlet(np.ones(q) * 0.3, size=(m, R, c))
+    init = rng.dirichlet(np.ones(q), size=m)
+    log = lambda x: torch.log(torch.from_numpy(np.ascontiguousarray(x, np.float32)).clamp_min(1e-16)).to(device)  # noqa: E731
+    log_A, log_E = log(A).contiguous(), log(E).contiguous()
+    delta0 = (log(init)[:, None, :] + log_E[:, :, 0]).contiguous()
+    return log_A, log_E, delta0
+
+
+def _seq_paths(log_A, log_E, delta0):
+    """``recursion._viterbi_seq``'s paths from log inputs: its loops on the
+    card (log of exp of a log input rounds, so the loops run here, not the
+    function)."""
+    bp, last = cuda_viterbi.maxplus_deltas_wide_plain(log_A, log_E, delta0)
+    return cuda_viterbi.maxplus_backtrace_wide_plain(bp, last)
+
+
+# q at the slice and block edges of K7c (4 slices of 32 rows to q = 128, 8
+# of 32 to 256, 8 of 64 to 512; blocks of 64 columns at q > 256, so a
+# cluster of 8 at 505 and 512), b not a multiple of anything, L = 1 and 2
+# and past K7c's 32-step emission tiles and K8c's 32-row pointer tiles.
+WIDE_CASES = [
+    pytest.param(2, q, c, 3, id=f"m2-q{q}-L{c}")
+    for q in (65, 127, 128, 129, 256, 257, 505, 512) for c in (1, 2, 66)
+] + [
+    pytest.param(1, 257, 33, 5, id="m1-q257-L33"),
+    pytest.param(1, 505, 97, 37, id="m1-q505-L97-b37"),
+]
+
+
+@pytest.mark.parametrize("m,q,c,R", WIDE_CASES)
+def test_wide_maxplus_kernels_equal_plain(cuda, m, q, c, R):
+    """K7c's pointers and last delta bit-equal to the plain version on the
+    card; K8c's paths equal to the plain walk and to the sequential scan's."""
+    log_A, log_E, delta0 = _wide_inputs(q * c + R, m, q, c, R, cuda)
+    cuda_viterbi.reset_launches()
+    bp, last = cuda_viterbi.maxplus_deltas_wide(log_A, log_E, delta0)
+    paths = cuda_viterbi.maxplus_backtrace_wide(bp, last)
+    assert cuda_viterbi.LAUNCHES == {
+        "maxplus_chunk_summaries": 0, "maxplus_deltas": 0, "maxplus_backtrace": 0,
+        "maxplus_deltas_blocked": 0, "maxplus_backtrace_blocked": 0,
+        "maxplus_deltas_wide": 1, "maxplus_backtrace_wide": 1,
+    }
+    bp_p, last_p = cuda_viterbi.maxplus_deltas_wide_plain(log_A, log_E, delta0)
+    assert bp.dtype == torch.uint16 and tuple(bp.shape) == (m, R, c - 1, q)
+    assert torch.equal(bp, bp_p)
+    assert torch.equal(last, last_p)
+    assert paths.dtype == torch.int32 and tuple(paths.shape) == (m, R, c)
+    assert torch.equal(paths, cuda_viterbi.maxplus_backtrace_wide_plain(bp_p, last_p))
+    assert torch.equal(paths, _seq_paths(log_A, log_E, delta0))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("q", [65, 129, 505])
+def test_wide_maxplus_ties_take_the_lowest_state(cuda, q):
+    """Two identical states k1 < k2 tie exactly at every step: no pointer
+    and no path takes k2. Flat inputs tie everywhere and take state 0, and
+    -0 terms (deltas and log A rows of -0 at even states) tie with +0."""
+    k1, k2 = 1, q - 1
+    log_A, log_E, delta0 = _wide_inputs(q, 2, q, 70, 5, cuda)
+    log_A[:, k2, :] = log_A[:, k1, :]
+    log_A[:, :, k2] = log_A[:, :, k1]
+    log_E[..., k2] = log_E[..., k1]
+    delta0[..., k2] = delta0[..., k1]
+    bp, last = cuda_viterbi.maxplus_deltas_wide(log_A, log_E, delta0)
+    paths = cuda_viterbi.maxplus_backtrace_wide(bp, last)
+    assert not (bp == k2).any() and not (paths == k2).any()
+    assert torch.equal(bp, cuda_viterbi.maxplus_deltas_wide_plain(log_A, log_E, delta0)[0])
+    assert torch.equal(paths, _seq_paths(log_A, log_E, delta0))
+
+    signed_A = torch.zeros((1, q, q), device=cuda)
+    signed_A[:, 0::2] = -0.0
+    signed0 = torch.zeros((1, 3, q), device=cuda)
+    signed0[..., 0::2] = -0.0
+    flat_E = torch.full((1, 3, 40, q), -0.0, device=cuda)
+    for log_A, delta0 in ((torch.full((1, q, q), -math.log(q), device=cuda), torch.zeros((1, 3, q), device=cuda)),
+                          (signed_A, signed0)):
+        bp, last = cuda_viterbi.maxplus_deltas_wide(log_A, flat_E, delta0)
+        paths = cuda_viterbi.maxplus_backtrace_wide(bp, last)
+        assert (bp == 0).all() and (paths == 0).all()
+        assert torch.equal(bp, cuda_viterbi.maxplus_deltas_wide_plain(log_A, flat_E, delta0)[0])
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("pf", [1, "auto"])
+def test_config5_viterbi_takes_wide_kernels(cuda, monkeypatch, pf):
+    """Config 5 (k = 36, q = 505) decodes through K7c + K8c once each at
+    P = 1 (``auto`` gives 1 for a decode at q > 16); the paths equal
+    ``_viterbi_seq``'s on the card."""
+    layer = _multi_copy_layer(36, pf, cuda)
+    X = _multi_copy_inputs(5, 3, 700)
+    with torch.inference_mode():
+        cuda_viterbi.reset_launches()
+        paths = layer.viterbi(X)
+        assert cuda_viterbi.LAUNCHES == {
+            "maxplus_chunk_summaries": 0, "maxplus_deltas": 0, "maxplus_backtrace": 0,
+            "maxplus_deltas_blocked": 0, "maxplus_backtrace_blocked": 0,
+            "maxplus_deltas_wide": 1, "maxplus_backtrace_wide": 1,
+        }
+        init, A = layer.transitions.matrices()
+        E = layer.emission_probs(X)
+        seq = recursion._viterbi_seq(init, A, E)
+    assert paths.dtype == torch.int32 and tuple(paths.shape) == (1, 3, 700)
+    assert torch.equal(paths, seq)
+
+
+def test_wide_maxplus_kernels_refuse_what_they_cannot_take(cuda):
+    log_A, log_E, delta0 = _wide_inputs(1, 1, 70, 9, 2, cuda)
+    for q in (64, cuda_viterbi.MAX_WIDE_Q + 1):
+        with pytest.raises(ValueError, match=f"64 < q <= {cuda_viterbi.MAX_WIDE_Q}"):
+            cuda_viterbi.maxplus_deltas_wide(torch.zeros((1, q, q), device=cuda),
+                                             torch.zeros((1, 2, 4, q), device=cuda),
+                                             torch.zeros((1, 2, q), device=cuda))
+        with pytest.raises(ValueError, match=f"64 < q <= {cuda_viterbi.MAX_WIDE_Q}"):
+            cuda_viterbi.maxplus_backtrace_wide(torch.zeros((1, 2, 3, q), dtype=torch.uint16, device=cuda),
+                                                torch.zeros((1, 2, q), device=cuda))
+    with pytest.raises(TypeError, match="float32"):
+        cuda_viterbi.maxplus_deltas_wide(log_A, log_E.double(), delta0)
+    with pytest.raises(ValueError, match="delta0"):
+        cuda_viterbi.maxplus_deltas_wide(log_A, log_E, delta0[:, :1].contiguous())
+    with pytest.raises(ValueError, match="log_A"):
+        cuda_viterbi.maxplus_deltas_wide(log_A[:, :69, :69].contiguous(), log_E, delta0)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_viterbi.maxplus_deltas_wide(log_A, log_E.transpose(1, 2), delta0)
+    bp, last = cuda_viterbi.maxplus_deltas_wide(log_A, log_E, delta0)
+    with pytest.raises(TypeError, match="uint16"):
+        cuda_viterbi.maxplus_backtrace_wide(bp.int(), last)
+    with pytest.raises(ValueError, match="last_delta"):
+        cuda_viterbi.maxplus_backtrace_wide(bp, last[:, :1].contiguous())
+    with pytest.raises(ValueError, match="last_delta is on cpu"):
+        cuda_viterbi.maxplus_backtrace_wide(bp, last.cpu())
+    torch.cuda.synchronize()
 
 
 def _mxu_inputs(seed, m, q, c, R, device):
