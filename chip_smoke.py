@@ -710,6 +710,18 @@ def stage_phase(layer, X, recursion, cuda_forward):
                     ("outputs_kernel", "chunk_summaries_rows_kernel"))
 
 
+def device_rows(prof):
+    """The profiler's device kernels and copies (``key_averages()`` rows);
+    the port's spans (``hmm.*``), which torch lists among the device rows
+    too, are left out."""
+
+    def annotation(e):
+        return getattr(e, "is_user_annotation", False) or e.key.startswith("hmm.")
+
+    return [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and not annotation(e)]
+
+
 def profile_request(phase, request, label, ours_keys, inference=True):
     """``torch.profiler`` over one synchronised request (with autograd on
     unless ``inference``): device busy time against the wall time, and the
@@ -730,7 +742,7 @@ def profile_request(phase, request, label, ours_keys, inference=True):
     def self_device_us(e):  # renamed from self_cuda_time_total in newer torch
         return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
 
-    rows = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    rows = device_rows(prof)
     dev_us = {e.key: self_device_us(e) for e in rows if self_device_us(e) > 0}
     if not dev_us:
         log(f"{phase} profiler: no device time recorded (device busy share not measured)")
@@ -2293,7 +2305,7 @@ def config5_training(layer, X, path, counters, sparse_ops, make):
 
 
 def sparse_ops_ce(layer, sparse_ops, X, labels, mask, block):
-    init, indices, probs, E = layer._sparse_ingredients(X, None, True)
+    init, (indices, probs), E, _, _ = layer._inputs(X, training=True)
     return sparse_ops.sparse_posterior_cross_entropy(init, indices, probs, E, labels, label_mask=mask,
                                                      backward_block=block)
 
@@ -2341,7 +2353,7 @@ def config5_em(layer, twin, X, d_gamma, counters, sparse_ops):
     from hmm_layer_torch.ops import em
 
     with torch.inference_mode():
-        init, indices, probs, E = layer._sparse_ingredients(X, None, False)
+        init, (indices, probs), E, _, _ = layer._inputs(X)
         A = twin.transitions.make_A()
         src = torch.as_tensor(indices[:, 0], device=E.device)
         dst = torch.as_tensor(indices[:, 1], device=E.device)
@@ -2394,7 +2406,7 @@ def config5_streaming(layer, X, ll_whole, counters):
     from hmm_layer_torch import streaming
 
     with torch.inference_mode():
-        init, indices, probs, E = layer._sparse_ingredients(X, None, False)
+        init, (indices, probs), E, _, _ = layer._inputs(X)
         blocks = [E[:, :, s:s + SPARSE_STREAM_BLOCK] for s in range(0, SPARSE_L, SPARSE_STREAM_BLOCK)]
         reset_kernels(counters)
 
@@ -2417,7 +2429,7 @@ def config5_streaming(layer, X, ll_whole, counters):
 
 def config5_determinism(layer, X, sparse_ops):
     with torch.inference_mode():
-        init, indices, probs, E = layer._sparse_ingredients(X, None, False)
+        init, (indices, probs), E, _, _ = layer._inputs(X)
         la, ll = sparse_ops.sparse_forward(init, indices, probs, E)
         la2, ll2 = sparse_ops.sparse_forward(init, indices, probs, E)
         equal = torch.equal(la, la2) and torch.equal(ll, ll2)
@@ -3312,7 +3324,8 @@ def state_local_calls(layer, X, mesh, pf):
     from hmm_layer_torch.parallel import sharding as S
 
     with torch.inference_mode():
-        init, A, E, _ = layer._pad_state(*layer._ingredients(X, None, False))
+        init, A, E, _, _ = layer._inputs(X)  # E padded to the state blocks
+        init, A = layer._pad_transitions(init, A)
     r = local_ranges(mesh, "state", E.shape)
     E_l = E[r.index].contiguous()
 
@@ -3723,7 +3736,7 @@ def busy_share(fn, inference=True):
     with torch.inference_mode() if inference else contextlib.nullcontext():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             _, ms = synced_ms(fn)
-    rows = [e for e in prof.key_averages() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    rows = device_rows(prof)
     busy = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)) for e in rows) / 1e3
     return busy / ms if busy > 0 else None
 
@@ -3778,7 +3791,7 @@ def edge_route_rank(lengths, labels, mask):
         "posterior": (lambda n: layer.state_posterior_log_probs(X[:, :, :n]), lengths["c5"], True),
         "loglik": (lambda n: layer.log_likelihood(X[:, :, :n]), lengths["c5"], True),
         "decode": (lambda n: layer.viterbi(X[:, :, :n]), lengths["c5"], True),
-        "map": (lambda n: with_ingredient_grads(layer, GLOBAL_INGREDIENTS, ingredient_grads.setdefault(n, {}),
+        "map": (lambda n: with_ingredient_grads(layer, ingredient_grads.setdefault(n, {}),
                                                 lambda: grads_of(layer.loss(X[:, :, :n]), pars)),
                 lengths["c5"], False),
         "ce": (lambda n: grads_of(layer.posterior_cross_entropy(X[:, :, :n], labels[:, :n], label_mask=mask[:, :n]),
@@ -3798,32 +3811,25 @@ def edge_route_rank(lengths, labels, mask):
     return out
 
 
-# Where the sparse layer's MAP step makes its ingredients (init, edge
-# probabilities, E or the rank's block of E), in the global and the
-# rank-local mode: the method, and the ingredients in what it returns.
-GLOBAL_INGREDIENTS = ("_sparse_ingredients", lambda out: {"init": out[0], "probs": out[2], "E": out[3]})
-LOCAL_INGREDIENTS = ("_local_ingredients", lambda out: {"init": out[0], "probs": out[1][1], "E": out[2]})
-
-
-def with_ingredient_grads(layer, ingredients, store, fn):
+def with_ingredient_grads(layer, store, fn):
     """``fn()`` with hooks that store the gradients of the sparse layer's
-    ingredients in ``store``; ``ingredients`` is :data:`GLOBAL_INGREDIENTS`
-    or :data:`LOCAL_INGREDIENTS`."""
-    method, pick = ingredients
-    original = getattr(layer, method)
+    ingredients (init, edge probabilities, and E or the rank's block of
+    it, in the global and the rank-local mode alike: ``HMMLayer._inputs``)
+    in ``store``."""
+    original = layer._inputs
 
-    def hooked(*args):
-        out = original(*args)
-        for name, t in pick(out).items():
+    def hooked(*args, **kwargs):
+        out = original(*args, **kwargs)
+        for name, t in {"init": out[0], "probs": out[1][1], "E": out[2]}.items():
             if t.requires_grad:
                 t.register_hook(lambda g, name=name: store.__setitem__(name, g))
         return out
 
-    setattr(layer, method, hooked)
+    layer._inputs = hooked
     try:
         return fn()
     finally:
-        delattr(layer, method)
+        del layer._inputs
 
 
 def edge_local_calls(layer, X, mesh, results, map_grads, wall):
@@ -3859,7 +3865,7 @@ def edge_local_calls(layer, X, mesh, results, map_grads, wall):
     equal["decode"] = torch.equal(path_l, results["decode"][:, slice(*r.rows)])
     local_grads = {}
     (loss_l, g_l), recs["map"] = measured_call(
-        lambda: with_ingredient_grads(layer, LOCAL_INGREDIENTS, local_grads,
+        lambda: with_ingredient_grads(layer, local_grads,
                                       lambda: grads_of(layer.loss(X, local=True), pars)), inference=False)
     equal["map loss"] = torch.equal(loss_l, results["map"][0])
     equal["map gradients of init, edge probs, E"] = (
@@ -3902,7 +3908,7 @@ def sparse_truth(layer, X, objective64):
     emissions), its gradients pulled back through the layer's float32
     Jacobian (:func:`pull_back`), plus the auxiliary loss."""
     pars = [p for p in layer.parameters() if p.requires_grad]
-    init, indices, probs, E = layer._sparse_ingredients(X, None, True)
+    init, (indices, probs), E, _, _ = layer._inputs(X, training=True)
     xs = [t.detach().double().requires_grad_() for t in (init, probs, E)]
     value = objective64(xs[0], indices, xs[1], xs[2])
     aux, grads = pull_back(layer, pars, [init, probs, E], torch.autograd.grad(value, xs))
@@ -3933,7 +3939,7 @@ def edge_routes_phase(HMMLayer, models, make, smi):
         return masked_ce(sparse_ops.sparse_posterior(i, idx, p, e, analytic_vjp=False)[0], labels[:, :n], mask[:, :n])
 
     def taped_ce_layer(n):
-        init, idx, probs, E = single._sparse_ingredients(X[:, :, :n], None, True)
+        init, (idx, probs), E, _, _ = single._inputs(X[:, :, :n], training=True)
         return grads_of(taped_ce(init, idx, probs, E) + single.aux_loss(), pars)
 
     _, w_init, w_idx, w_probs, w_E = wall_problem(models, X.device, WALL_L)

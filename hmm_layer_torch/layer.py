@@ -17,58 +17,59 @@ auxiliary loss.
 :meth:`HMMLayer.sample_paths` draws exact posterior paths (FFBS,
 :mod:`.ops.sampling`).
 
-Transitions built with ``sparse_forward=True`` route
-:meth:`~HMMLayer.state_posterior_log_probs`, :meth:`~HMMLayer.log_likelihood`
-(so :meth:`~HMMLayer.loss` and ``forward``), :meth:`~HMMLayer.viterbi`,
-:meth:`~HMMLayer.sample_paths` (sequential; ``parallel_factor`` ignored) and
-:meth:`~HMMLayer.posterior_cross_entropy` (the fused objective) through the
-sparse edge-list engine (:mod:`.ops.sparse`) over the transitions'
-``make_A_sparse``; the dense (q, q) matrix is never built. Under a
-``state`` partition the posterior, the log-likelihood and the decode take
-the edge-sharded functions of :mod:`.parallel.sparse_sharding`; there the
-cross-entropy is the unfused objective through the taped edge-sharded
-posterior, and ``sample_paths`` raises. ``forward_recursion`` and
-``backward_recursion`` keep the dense engine, as in the JAX layer.
+Routes: :meth:`~HMMLayer.state_posterior_log_probs`,
+:meth:`~HMMLayer.log_likelihood` (so :meth:`~HMMLayer.loss` and
+``forward``) and :meth:`~HMMLayer.viterbi` take their engine from one
+table, keyed by the route and by whether the transitions are built with
+``sparse_forward=True``:
 
-Profile-family transitions built with ``structured_forward=True`` route
-the sequential :meth:`~HMMLayer.log_likelihood` (so :meth:`~HMMLayer.loss`)
-through the structured O(L) Plan7 matvec (:mod:`.ops.plan7`).
-:meth:`HMMLayer.resize` re-targets a profile layer to new model lengths,
-carrying the trained parameters over (learnMSA's length adaptation).
+=======  ====================================  =========================================
+route    dense transitions                     sparse-forward transitions
+=======  ====================================  =========================================
+dense    :mod:`.ops.recursion`                 :mod:`.ops.sparse` (edge lists; no (q, q))
+data     the same, on each rank's rows         the same, on each rank's rows
+seq      ``parallel.sharding.seq_sharded_*``   raises
+state    ``parallel.sharding.state_sharded_*`` ``parallel.sparse_sharding.edge_sharded_*``
+=======  ====================================  =========================================
 
-Multi-device routes: with ``mesh`` (a :class:`hmm_layer_torch.parallel.Mesh`
-over the ranks of ``torch.distributed``) and ``partition`` the layer
-sends :meth:`~HMMLayer.loss`, :meth:`~HMMLayer.log_likelihood`,
-:meth:`~HMMLayer.state_posterior_log_probs` (so the cross-entropy) and
-:meth:`~HMMLayer.viterbi` through :mod:`hmm_layer_torch.parallel.sharding`
-(sparse-forward transitions: the ``batch`` route, and the ``state`` route
-of :mod:`hmm_layer_torch.parallel.sparse_sharding`). Every rank is given
-the whole batch and returns the whole result; under ``{"batch": axis}``
-each rank runs the layer's own engine (on CUDA its kernels) on its rows.
-The parameters are replicated and their gradients are those of the whole
-batch on every rank.
+The route is ``dense`` without a ``mesh``; with a
+:class:`hmm_layer_torch.parallel.Mesh` over the ranks of
+``torch.distributed`` and a ``partition``, ``state`` or ``seq`` where the
+partition names that axis, else ``data`` under ``{"batch": axis}``. The
+dense route's log-likelihood takes the structured O(L) Plan7 matvec
+(:mod:`.ops.plan7`) for profile transitions built with
+``structured_forward=True`` where the parallel factor is 1. The dense
+``state`` route pads q to a multiple of the state-axis size and trims the
+posterior back to q. The cross-entropy of sparse-forward transitions on
+the dense and data routes is the fused objective
+(:func:`~hmm_layer_torch.ops.sparse.sparse_posterior_cross_entropy`); every
+other cross-entropy picks the labels from the posterior.
+:meth:`~HMMLayer.sample_paths` takes the sparse FFBS for sparse-forward
+transitions; it, ``forward_recursion`` and ``backward_recursion`` (the dense
+engine, as in the JAX layer) have no ``seq`` or ``state`` form. Every rank
+is given the whole batch; the parameters are replicated and their
+gradients are those of the whole batch on every rank.
 
-Rank-local mode: :meth:`~HMMLayer.state_posterior_log_probs`,
-:meth:`~HMMLayer.log_likelihood`, :meth:`~HMMLayer.viterbi`,
-:meth:`~HMMLayer.loss`, :meth:`~HMMLayer.posterior_cross_entropy` and
-``forward`` take ``local=True``. Every rank is still given the whole
-inputs, but the emitters compute only the rank's block of ``E``
+Rank-local mode: the same methods, :meth:`~HMMLayer.loss`,
+:meth:`~HMMLayer.posterior_cross_entropy` and ``forward`` take
+``local=True``, which changes only the engine's inputs and its ``local``
+flag. The emitters compute only the rank's block of ``E``
 (:meth:`HMMLayer.local_ranges`: rows and states under ``state``, rows and
-positions under ``seq``), the sharded functions run in their ``local=True``
-mode, and the rank gets back its block: log gamma (m, b_l, L, q_l) or (m,
-b_l, L_l, q), logliks (m, b_l) and paths of its rows (and positions). No
-rank holds a global (m, b, L, q) tensor, as each device of the JAX
-layer's ``shard_map`` holds only its block. The losses are the global
-values on every rank (the cross-entropy's partial sums are summed over the
-ranks once; the log-likelihood is already the same on the ranks of a
-``state`` or ``seq`` axis), and the gradients are the global ones on
+positions under ``seq``), the sharded functions run in their
+``local=True`` mode, and the rank gets back its block: log gamma (m, b_l,
+L, q_l) or (m, b_l, L_l, q), logliks (m, b_l) and paths of its rows (and
+positions). No rank holds a global (m, b, L, q) tensor, as each device of
+the JAX layer's ``shard_map`` holds only its block. The losses are the
+global values on every rank (the cross-entropy's partial sums are summed
+over the ranks once; the log-likelihood is already the same on the ranks
+of a ``state`` or ``seq`` axis), and the gradients are the global ones on
 every rank: the emitters' parameters enter each rank's block through
 :func:`~hmm_layer_torch.parallel.collectives.replicated_many` (their
 gradients summed over the route's axes in one all-reduce), while ``init``
 and ``A`` (or the edge probabilities) come back global from the sharded
-functions and are not summed again. Under ``{"batch": ...}`` alone the
-emitters compute only the rank's rows and the results stay gathered, as
-in the global mode.
+functions and are not summed again. Under the data route the emitters
+compute only the rank's rows and the results stay gathered, as in the
+global mode.
 """
 
 from __future__ import annotations
@@ -220,6 +221,22 @@ class HMMLayer(nn.Module):
             return "data"
         return "dense"
 
+    def _sparse(self) -> bool:
+        """Whether the transitions ask for the sparse edge-list engines
+        (``sparse_forward``); they serve every route but ``seq``, which
+        raises."""
+        if not getattr(self.transitions, "sparse_forward", False):
+            return False
+        if self._route() == "seq":
+            raise NotImplementedError(
+                "sparse_forward does not compose with sequence sharding: the "
+                "cross-device boundary combine carries dense (q, q) chunk "
+                "summaries — O(q^2) memory/work per chunk, exactly what the "
+                "sparse engine exists to avoid at large q. Use state (+batch) "
+                "sharding for big-q models (partition={'state': ..., 'batch': ...})."
+            )
+        return True
+
     def _require_dense(self, what: str):
         if self._route() in ("seq", "state"):
             raise NotImplementedError(
@@ -245,22 +262,31 @@ class HMMLayer(nn.Module):
         rows = slice(*self._local_rows(total))
         return run_on_rows(call, tuple(replicated), (E, *(t[:, rows] for t in extra)), total, self.mesh, axis)
 
-    def _pad_state(self, init, A, E):
-        """Pad q up to a multiple of the state-axis size. Pad states have
-        zero init, all-zero A rows/columns and zero emissions: the EPS
-        clamps give them per-step mass ~1e-32 (invisible in float32 against
-        real normalisers) and max-plus scores ~-74 a step below any real
-        path, so they never change a result. Returns the original q too."""
-        q = E.shape[-1]
-        init, A = self._pad_transitions(init, A)
-        dp = init.shape[-1] - q
-        return init, A, (torch.nn.functional.pad(E, (0, dp)) if dp else E), q
+    def _rows(self, fn, init, trans, E, total):
+        """A one-device engine ``fn(init, trans, E)`` on this rank's rows
+        (:meth:`_on_rows`); the host edge indices of sparse-forward
+        transitions pass whole."""
+        if isinstance(trans, tuple):
+            indices, probs = trans
+            return self._on_rows(lambda i, p, e: fn(i, (indices, p), e), (init, probs), E, total=total)
+        return self._on_rows(fn, (init, trans), E, total=total)
+
+    def _q_pad(self, q: int) -> int:
+        """The states the engine takes: on the dense ``state`` route ``q``
+        rounded up to a multiple of the state-axis size (the edge-sharded
+        functions pad their own), elsewhere ``q``."""
+        if self._route() != "state" or self._sparse():
+            return q
+        n = self.mesh.shape[self.partition["state"]]
+        return -(-q // n) * n
 
     def _pad_transitions(self, init, A):
-        """``init`` and ``A`` padded as :meth:`_pad_state` pads them."""
-        n = self.mesh.shape[self.partition["state"]]
-        q = init.shape[-1]
-        dp = -(-q // n) * n - q
+        """``init`` and ``A`` padded to :meth:`_q_pad` states. Pad states
+        have zero init, all-zero A rows/columns and zero emissions: the EPS
+        clamps give them per-step mass ~1e-32 (invisible in float32 against
+        real normalisers) and max-plus scores ~-74 a step below any real
+        path, so they never change a result."""
+        dp = self._q_pad(init.shape[-1]) - init.shape[-1]
         if dp == 0:
             return init, A
         pad = torch.nn.functional.pad
@@ -273,60 +299,69 @@ class HMMLayer(nn.Module):
             "data_axis": self.partition.get("batch"),
         }
 
-    def _dispatch_log_likelihood(self, init, A, E, total=None):
-        route = self._route()
-        if route == "dense":
-            return recursion.log_likelihood(init, A, E, self._pf(E))
-        if route == "data":
-            return self._on_rows(
-                lambda i, a, e: recursion.log_likelihood(i, a, e, self._pf(e)), (init, A), E, total=total
-            )
-        from .parallel import sharding
+    def _engine(self, kind: str, inputs, end_hints, training, local, **kw):
+        """``kind`` — ``"posterior"`` ((log gamma, loglik); ``no_loglik`` in
+        ``kw``), ``"loglik"`` or ``"viterbi"`` — on :meth:`_inputs`, by the
+        engine of the one table of (route, sparse-forward transitions). The
+        global and the rank-local mode take the same entry and differ only
+        in the inputs and the ``local`` flag: the sharded functions take it
+        as their own ``local``, and the data route as this rank's rows of
+        the batch. Returns (result, the ranges of its block of the global
+        (m, b, L, q) — under the dense ``state`` route of q padded —, the
+        global (m, b, L, q))."""
+        from .parallel import sharding, sparse_sharding
 
-        if route == "state":
-            pf = self._pf(E)
-            init, A, E, _ = self._pad_state(init, A, E)
-            return sharding.state_sharded_log_likelihood(init, A, E, **self._axes("state"), parallel_factor=pf)
-        return sharding.seq_sharded_log_likelihood(init, A, E, **self._axes("seq"), local_parallel_factor=self._pf(E))
-
-    def _dispatch_posterior(self, init, A, E, no_loglik, total=None):
-        route = self._route()
-        if route == "dense":
-            return recursion.posterior(init, A, E, self._pf(E), no_loglik=no_loglik)
-        if route == "data":
-            return self._on_rows(
-                lambda i, a, e: recursion.posterior(i, a, e, self._pf(e), no_loglik=no_loglik), (init, A), E,
-                total=total,
-            )
-        from .parallel import sharding
-
-        if route == "state":
-            pf = self._pf(E)
-            init, A, E, q = self._pad_state(init, A, E)
-            lg, ll = sharding.state_sharded_posterior(
-                init, A, E, **self._axes("state"), no_loglik=no_loglik, parallel_factor=pf
-            )
-            return lg[..., :q], ll
-        return sharding.seq_sharded_posterior(
-            init, A, E, **self._axes("seq"), local_parallel_factor=self._pf(E), no_loglik=no_loglik
+        route, sparse, local = self._route(), self._sparse(), self._local(local)
+        structured = kind == "loglik" and route == "dense" and getattr(self.transitions, "structured_forward", False)
+        init, trans, E, r, shape = self._inputs(inputs, end_hints, training, local, "plan7" if structured else None)
+        pf = self._pf(shape, for_viterbi=kind == "viterbi")
+        ax, pad = self._axes, self._pad_transitions
+        seq = {"local_parallel_factor": pf, "local": local}
+        state = {"parallel_factor": pf, "local": local}
+        dense = (
+            lambda i, a, e: recursion.posterior(i, a, e, pf, **kw),
+            lambda i, a, e: self._plan7_log_likelihood(e, pf) if structured else recursion.log_likelihood(i, a, e, pf),
+            lambda i, a, e: recursion.viterbi(i, a, e, pf),
         )
-
-    def _dispatch_viterbi(self, init, A, E, total=None):
-        route = self._route()
-        if route == "dense":
-            return recursion.viterbi(init, A, E, self._pf(E, for_viterbi=True))
-        if route == "data":
-            return self._on_rows(
-                lambda i, a, e: recursion.viterbi(i, a, e, self._pf(e, for_viterbi=True)), (init, A), E, total=total
-            )
-        from .parallel import sharding
-
-        if route == "state":
-            init, A, E, _ = self._pad_state(init, A, E)
-            return sharding.state_sharded_viterbi(init, A, E, **self._axes("state"))
-        return sharding.seq_sharded_viterbi(
-            init, A, E, **self._axes("seq"), local_parallel_factor=self._pf(E, for_viterbi=True)
+        edges = (
+            lambda i, t, e: sparse_ops.sparse_posterior(i, *t, e, **kw),
+            lambda i, t, e: sparse_ops.sparse_log_likelihood(i, *t, e),
+            lambda i, t, e: sparse_ops.sparse_viterbi(i, *t, e),
         )
+        total = shape[1] if local else None
+        table = {  # (route, sparse-forward) -> (posterior, loglik, viterbi), each fn(init, trans, E)
+            ("dense", False): dense,
+            ("dense", True): edges,
+            ("data", False): tuple(lambda i, t, e, f=f: self._rows(f, i, t, e, total) for f in dense),
+            ("data", True): tuple(lambda i, t, e, f=f: self._rows(f, i, t, e, total) for f in edges),
+            ("seq", False): (
+                lambda i, a, e: sharding.seq_sharded_posterior(i, a, e, **ax("seq"), **seq, **kw),
+                lambda i, a, e: sharding.seq_sharded_log_likelihood(i, a, e, **ax("seq"), **seq),
+                lambda i, a, e: sharding.seq_sharded_viterbi(i, a, e, **ax("seq"), **seq),
+            ),
+            ("state", False): (
+                lambda i, a, e: sharding.state_sharded_posterior(*pad(i, a), e, **ax("state"), **state, **kw),
+                lambda i, a, e: sharding.state_sharded_log_likelihood(*pad(i, a), e, **ax("state"), **state),
+                lambda i, a, e: sharding.state_sharded_viterbi(*pad(i, a), e, **ax("state"), local=local),
+            ),
+            ("state", True): (
+                lambda i, t, e: sparse_sharding.edge_sharded_posterior(i, *t, e, **ax("state"), local=local, **kw),
+                lambda i, t, e: sparse_sharding.edge_sharded_log_likelihood(i, *t, e, **ax("state"), local=local),
+                lambda i, t, e: sparse_sharding.edge_sharded_viterbi(i, *t, e, **ax("state"), local=local),
+            ),
+        }
+        fn = table[route, sparse][("posterior", "loglik", "viterbi").index(kind)]
+        if route == "data":  # the rows' results come back gathered
+            r = r._replace(rows=(0, shape[1]))
+        return fn(init, trans, E), r, shape
+
+    def _plan7_log_likelihood(self, E, pf):
+        """The structured O(L) Plan7 log-likelihood where the parallel
+        factor is 1 (the implicit A is never built), the dense engine on
+        ``matrices()`` otherwise, as in the JAX layer."""
+        if pf == 1:
+            return plan7.structured_log_likelihood(self.transitions, E)
+        return recursion.log_likelihood(*self.transitions.matrices(), E, pf)
 
     def _tensor(self, x):
         if x is None:
@@ -357,10 +392,58 @@ class HMMLayer(nn.Module):
             probs = probs * em.emissions(inputs, **kwargs)
         return probs
 
-    def _ingredients(self, inputs, end_hints, training):
-        with span("hmm.layer.transitions"):
-            init, A = self.transitions.matrices()
-        return init, A, self.emission_probs(inputs, end_hints, training)
+    def _inputs(self, inputs, end_hints=None, training=False, local=False, form=None):
+        """The engine's inputs: (init, trans, E, ranges, the global (m, b,
+        L, q)).
+
+        ``trans`` takes the ``form`` the engine reads: ``"A"``, the dense
+        matrix; ``"edges"``, (host edge indices, edge probs); ``"plan7"``,
+        nothing (``init`` None too: the structured matvec reads the
+        transitions); None, the transitions' own (edges for sparse-forward
+        ones, A otherwise).
+
+        ``E`` is the whole emissions, on the dense ``state`` route padded
+        with zero columns to :meth:`_q_pad` states, and ``ranges`` covers
+        them. Under the rank-local mode (:meth:`_local`) ``E`` is the rank's
+        block (:meth:`local_ranges`), its real states computed by emitters
+        that read their parameters replicated, under the dense ``state``
+        route padded with zero columns to the block width (the last ranks'
+        pad states)."""
+        from .parallel.collectives import LocalRanges, replicated_many
+
+        form = form or ("edges" if self._sparse() else "A")
+        if form == "edges":
+            trans = self.transitions.make_A_sparse()
+            init = self.transitions.make_initial_distribution()
+        elif form == "A":
+            with span("hmm.layer.transitions"):
+                init, trans = self.transitions.matrices()
+        else:
+            init = trans = None
+        if self._local(local):
+            inputs = self._tensor(inputs)
+            shape = (*inputs.shape[:3], init.shape[-1])
+            r = self.local_ranges(shape)
+            q, (s0, s1) = shape[-1], r.states
+            # The emitters read their parameters through `replicated_many`:
+            # each rank's block gives them its share of their gradient,
+            # summed over the ranks in one all-reduce.
+            named = {name: p for name, p in self.emissions.named_parameters() if p.requires_grad}
+            replicas = replicated_many(list(named.values()), self.mesh, self._local_axes())
+            E = torch.func.functional_call(
+                _Call(self.emissions, self.emission_probs),
+                {f"inner.{name}": t for name, t in zip(named, replicas)},
+                (inputs, end_hints, training),
+                {"block": LocalRanges(r.rows, r.positions, (min(s0, q), min(s1, q)))},
+            )
+        else:
+            E = self.emission_probs(inputs, end_hints, training)
+            shape = tuple(E.shape)
+            r = LocalRanges((0, shape[1]), (0, shape[2]), (0, self._q_pad(shape[-1])))
+        pad = r.states[1] - r.states[0] - E.shape[-1]
+        if pad:
+            E = torch.nn.functional.pad(E, (0, pad))
+        return init, trans, E, r, shape
 
     # -- rank-local mode ---------------------------------------------------------
 
@@ -368,6 +451,13 @@ class HMMLayer(nn.Module):
         """Whether a call with ``local`` takes the rank-local mode (a mesh
         route; without one every result is the rank's already)."""
         return bool(local) and self._route() != "dense"
+
+    def _blocks(self, local: bool) -> bool:
+        """Whether a call with ``local`` returns the rank's block of the
+        results: the rank-local mode of the ``state`` and ``seq`` routes
+        (the data route gathers its rows' results, as in the global
+        mode)."""
+        return self._local(local) and self._route() != "data"
 
     def _local_axes(self):
         """The mesh axes over which the ranks split the emissions in the
@@ -412,87 +502,9 @@ class HMMLayer(nn.Module):
                 raise ValueError(f"L={L} not divisible by seq axis size {self.mesh.shape[axis]}")
             return ranges(self.mesh, "seq", shape, seq_axis=axis, data_axis=data)
         axis = self.partition["state"]
-        if self._sparse_state_route():
+        if self._sparse():
             return ranges(self.mesh, "edge", shape, state_axis=axis, data_axis=data)
-        n = self.mesh.shape[axis]
-        return ranges(self.mesh, "state", (m, b, L, -(-q // n) * n), state_axis=axis, data_axis=data)
-
-    def _local_ingredients(self, inputs, end_hints, training):
-        """The rank-local mode's ingredients: (init, the transitions — A,
-        or (edge indices, edge probs) for sparse-forward transitions —, the
-        rank's block of E, its ranges, the global (m, b, L, q)). The block
-        holds the real states; under the dense state route it is padded
-        with zero columns to the block width (the last ranks' pad states)."""
-        from .parallel.collectives import LocalRanges, replicated_many
-
-        inputs = self._tensor(inputs)
-        self._sparse_route()  # sparse-forward transitions under `seq` raise, as in the global mode
-        if getattr(self.transitions, "sparse_forward", False):
-            trans = self.transitions.make_A_sparse()
-            init = self.transitions.make_initial_distribution()
-        else:
-            init, trans = self.transitions.matrices()
-        m, b, L = inputs.shape[:3]
-        shape = (m, b, L, init.shape[-1])
-        r = self.local_ranges(shape)
-        q, (s0, s1) = shape[-1], r.states
-        real = (min(s0, q), min(s1, q))
-        # The emitters read their parameters through `replicated_many`: each
-        # rank's block gives them its share of their gradient, summed over
-        # the ranks in one all-reduce.
-        named = {name: p for name, p in self.emissions.named_parameters() if p.requires_grad}
-        replicas = replicated_many(list(named.values()), self.mesh, self._local_axes())
-        E = torch.func.functional_call(
-            _Call(self.emissions, self.emission_probs),
-            {f"inner.{name}": t for name, t in zip(named, replicas)},
-            (inputs, end_hints, training),
-            {"block": LocalRanges(r.rows, r.positions, real)},
-        )
-        pad = (s1 - s0) - (real[1] - real[0])
-        if pad:
-            E = torch.nn.functional.pad(E, (0, pad))
-        return init, trans, E, r, shape
-
-    def _local_call(self, kind, inputs, end_hints, training, no_loglik=False):
-        """The rank's block of ``kind`` — ``"posterior"`` (log gamma,
-        loglik), ``"loglik"`` or ``"viterbi"`` — in the rank-local mode,
-        and the block's ranges. Under the data route the results are
-        gathered, as in the global mode."""
-        from .parallel import sharding
-
-        init, trans, E, r, shape = self._local_ingredients(inputs, end_hints, training)
-        route = self._route()
-        sparse = getattr(self.transitions, "sparse_forward", False)
-        for_viterbi = kind == "viterbi"
-        if route == "data" and sparse:
-            fn = {"posterior": lambda *a: sparse_ops.sparse_posterior(*a, no_loglik=no_loglik),
-                  "loglik": sparse_ops.sparse_log_likelihood, "viterbi": sparse_ops.sparse_viterbi}[kind]
-            return self._sparse_call(fn, init, *trans, E, total=shape[1]), r
-        if route == "data":
-            if kind == "posterior":
-                return self._dispatch_posterior(init, trans, E, no_loglik, total=shape[1]), r
-            dispatch = self._dispatch_viterbi if for_viterbi else self._dispatch_log_likelihood
-            return dispatch(init, trans, E, total=shape[1]), r
-        if route == "seq":
-            kw = dict(self._axes("seq"), local_parallel_factor=self._pf(shape, for_viterbi), local=True)
-            if kind == "posterior":
-                return sharding.seq_sharded_posterior(init, trans, E, no_loglik=no_loglik, **kw), r
-            fn = sharding.seq_sharded_viterbi if for_viterbi else sharding.seq_sharded_log_likelihood
-            return fn(init, trans, E, **kw), r
-        if sparse:
-            name = {"posterior": "edge_sharded_posterior", "loglik": "edge_sharded_log_likelihood",
-                    "viterbi": "edge_sharded_viterbi"}[kind]
-            kw = {"no_loglik": no_loglik} if kind == "posterior" else {}
-            return self._edge_sharded(name, init, *trans, E, local=True, **kw), r
-        init, A = self._pad_transitions(init, trans)
-        if for_viterbi:
-            return sharding.state_sharded_viterbi(init, A, E, **self._axes("state"), local=True), r
-        kw = dict(self._axes("state"), parallel_factor=self._pf(shape), local=True)
-        if kind == "loglik":
-            return sharding.state_sharded_log_likelihood(init, A, E, **kw), r
-        lg, ll = sharding.state_sharded_posterior(init, A, E, no_loglik=no_loglik, **kw)
-        q, (s0, _) = shape[-1], r.states
-        return (lg[..., : max(min(q - s0, lg.shape[-1]), 0)], ll), r
+        return ranges(self.mesh, "state", (m, b, L, self._q_pad(q)), state_axis=axis, data_axis=data)
 
     def _local_mean(self, ll, indices, b: int):
         """The weighted mean log-likelihood of the whole batch
@@ -511,84 +523,12 @@ class HMMLayer(nn.Module):
 
     def _aggregate(self, ll, indices, local, b):
         """The weighted mean log-likelihood; ``ll`` is this rank's rows
-        under the rank-local mode of the ``state`` and ``seq`` routes."""
-        if self._local(local) and self._route() != "data":
+        when the call returns blocks (:meth:`_blocks`)."""
+        if self._blocks(local):
             return self._local_mean(ll, indices, b)
         return self.apply_sequence_weights(ll, indices, aggregate=True)
 
-    def _local_cross_entropy(self, inputs, labels, label_mask, end_hints, training, no_loglik):
-        """The mean posterior cross-entropy of the whole batch from this
-        rank's block of log gamma: the labels that fall in its states (and
-        positions) picked, their masked sum summed over the ranks once
-        (:func:`~hmm_layer_torch.parallel.collectives.sum_out`), over the
-        whole mask's sum. Each rank's cotangent reaches only its block;
-        the sharded function's backward does the rest."""
-        from .parallel.collectives import sum_out
-
-        (lg, _), r = self._local_call("posterior", inputs, end_hints, training, no_loglik)
-        m, b, L = self._tensor(inputs).shape[:3]
-        labels = torch.as_tensor(labels, device=lg.device).long()
-        if labels.dim() == 2:
-            labels = labels[None]
-        block = (slice(None), slice(*r.rows), slice(*r.positions))
-        labels = labels.expand(m, b, L)[block]
-        s0, width = r.states[0], lg.shape[-1]
-        inside = (labels >= s0) & (labels < s0 + width)
-        if width:
-            picked = torch.gather(lg, -1, (labels - s0).clamp(0, width - 1)[..., None])[..., 0]
-        else:  # a block past q: no label falls in it, but its graph stays connected
-            picked = lg.sum(-1)
-        ce = -torch.where(inside, picked, torch.zeros_like(picked))
-        if label_mask is None:
-            part, count = ce.sum(), m * b * L
-        else:
-            mask = torch.as_tensor(label_mask, dtype=ce.dtype, device=ce.device).expand(m, b, L)
-            part, count = (ce * mask[block]).sum(), mask.sum().clamp_min(1.0)
-        return sum_out(part, self.mesh, self._local_axes()) / count
-
     # -- inference -------------------------------------------------------------
-
-    def _sparse_route(self) -> bool:
-        """Whether the transitions ask for the sparse edge-list engine
-        (single device, or data parallel under ``{"batch": ...}``); the
-        ``state`` partition takes :meth:`_sparse_state_route`."""
-        if not getattr(self.transitions, "sparse_forward", False):
-            return False
-        route = self._route()
-        if route == "seq":
-            raise NotImplementedError(
-                "sparse_forward does not compose with sequence sharding: the "
-                "cross-device boundary combine carries dense (q, q) chunk "
-                "summaries — O(q^2) memory/work per chunk, exactly what the "
-                "sparse engine exists to avoid at large q. Use state (+batch) "
-                "sharding for big-q models (partition={'state': ..., 'batch': ...})."
-            )
-        return route != "state"
-
-    def _sparse_state_route(self) -> bool:
-        """Whether the edge-sharded state routes serve this layer
-        (sparse-forward transitions under a ``state`` partition)."""
-        return getattr(self.transitions, "sparse_forward", False) and self._route() == "state"
-
-    def _edge_sharded(self, name, *args, **kwargs):
-        """``parallel.sparse_sharding.<name>`` on this layer's mesh and
-        partition."""
-        from .parallel import sparse_sharding
-
-        return getattr(sparse_sharding, name)(*args, **self._axes("state"), **kwargs)
-
-    def _sparse_call(self, fn, init, indices, probs, E, *extra, total=None):
-        """A sparse engine function on the whole batch, or on this rank's
-        rows under the data route (``total``: see :meth:`_on_rows`)."""
-        if self._route() == "data":
-            return self._on_rows(lambda i, p, e, *x: fn(i, indices, p, e, *x), (init, probs), E, *extra, total=total)
-        return fn(init, indices, probs, E, *extra)
-
-    def _sparse_ingredients(self, inputs, end_hints, training):
-        """(init (m, q), host edge indices, edge probs (m, n), E)."""
-        indices, probs = self.transitions.make_A_sparse()
-        init = self.transitions.make_initial_distribution()
-        return init, indices, probs, self.emission_probs(inputs, end_hints, training)
 
     def _prior_and_aux(self):
         """(unscaled prior (m,), aux loss): what ``return_prior`` appends."""
@@ -597,16 +537,25 @@ class HMMLayer(nn.Module):
     def forward_recursion(self, inputs, end_hints=None, return_prior=False, training=False):
         """(log_forward (m, b, L, q), loglik (m, b)[, prior, aux_loss])."""
         self._require_dense("forward_recursion")
-        init, A, E = self._ingredients(inputs, end_hints, training)
+        init, A, E, _, _ = self._inputs(inputs, end_hints, training, form="A")
         la, ll = recursion.forward(init, A, E, self._pf(E))
         return (la, ll, *self._prior_and_aux()) if return_prior else (la, ll)
 
     def backward_recursion(self, inputs, end_hints=None, return_prior=False, training=False):
         """log_backward (m, b, L, q)[, prior, aux_loss]."""
         self._require_dense("backward_recursion")
-        init, A, E = self._ingredients(inputs, end_hints, training)
+        init, A, E, _, _ = self._inputs(inputs, end_hints, training, form="A")
         lb = recursion.backward(init, A, E, self._pf(E))
         return (lb, *self._prior_and_aux()) if return_prior else lb
+
+    def _posterior(self, inputs, end_hints, training, no_loglik, local):
+        """(log gamma on the real states, the ranges of E, the global (m, b,
+        L, q)): under the state route the pad states trimmed, globally
+        (``s0 = 0``) and from the rank's block alike."""
+        (lg, _), r, shape = self._engine("posterior", inputs, end_hints, training, local, no_loglik=no_loglik)
+        keep = max(min(shape[-1] - r.states[0], lg.shape[-1]), 0)
+        # A slice that keeps every state would still copy the whole cotangent in the backward.
+        return (lg[..., :keep] if keep < lg.shape[-1] else lg), r, shape
 
     def state_posterior_log_probs(
         self, inputs, end_hints=None, return_prior=False, training=False, no_loglik=False, local=False
@@ -616,20 +565,7 @@ class HMMLayer(nn.Module):
         prior (m,) and the auxiliary loss follow, as in the JAX layer.
         ``local``: the rank's block (:meth:`local_ranges`; the real
         states only) under a ``state`` or ``seq`` partition."""
-        if self._local(local):
-            (lg, _), _ = self._local_call("posterior", inputs, end_hints, training, no_loglik)
-        elif self._sparse_route():
-            lg, _ = self._sparse_call(
-                lambda *a: sparse_ops.sparse_posterior(*a, no_loglik=no_loglik),
-                *self._sparse_ingredients(inputs, end_hints, training),
-            )
-        elif self._sparse_state_route():
-            lg, _ = self._edge_sharded(
-                "edge_sharded_posterior", *self._sparse_ingredients(inputs, end_hints, training), no_loglik=no_loglik
-            )
-        else:
-            init, A, E = self._ingredients(inputs, end_hints, training)
-            lg, _ = self._dispatch_posterior(init, A, E, no_loglik)
+        lg = self._posterior(inputs, end_hints, training, no_loglik, local)[0]
         return (lg, *self._prior_and_aux()) if return_prior else lg
 
     def log_likelihood(self, inputs, end_hints=None, training=False, local=False):
@@ -642,26 +578,10 @@ class HMMLayer(nn.Module):
         parallel factor is 1, and the dense engine otherwise, as in the JAX
         layer; the implicit A is then never built.
         """
-        if self._local(local):
-            return self._local_call("loglik", inputs, end_hints, training)[0]
-        if getattr(self.transitions, "structured_forward", False) and self._route() == "dense":
-            E = self.emission_probs(inputs, end_hints, training)
-            P = self._pf(E)
-            if P == 1:
-                return plan7.structured_log_likelihood(self.transitions, E)
-            return recursion.log_likelihood(*self.transitions.matrices(), E, P)
-        if self._sparse_route():
-            return self._sparse_call(
-                sparse_ops.sparse_log_likelihood, *self._sparse_ingredients(inputs, end_hints, training)
-            )
-        if self._sparse_state_route():
-            return self._edge_sharded(
-                "edge_sharded_log_likelihood", *self._sparse_ingredients(inputs, end_hints, training)
-            )
-        init, A, E = self._ingredients(inputs, end_hints, training)
-        return self._dispatch_log_likelihood(init, A, E)
+        return self._engine("loglik", inputs, end_hints, training, local)[0]
 
     @span("hmm.layer.viterbi")
+    @torch.no_grad()
     def viterbi(self, inputs, end_hints=None, local=False):
         """Most likely state paths; (m, b, L) int32, or under ``local`` this
         rank's rows (m, b_l, L) (``state``) or rows and positions (m, b_l,
@@ -670,15 +590,7 @@ class HMMLayer(nn.Module):
         ``end_hints`` clamp chunk-border emissions as in
         :meth:`state_posterior_log_probs` (hint-constrained MAP decoding).
         """
-        if self._local(local):
-            with torch.no_grad():
-                return self._local_call("viterbi", inputs, end_hints, False)[0]
-        if self._sparse_route():
-            return self._sparse_call(sparse_ops.sparse_viterbi, *self._sparse_ingredients(inputs, end_hints, False))
-        if self._sparse_state_route():
-            return self._edge_sharded("edge_sharded_viterbi", *self._sparse_ingredients(inputs, end_hints, False))
-        init, A, E = self._ingredients(inputs, end_hints, False)
-        return self._dispatch_viterbi(init, A, E)
+        return self._engine("viterbi", inputs, end_hints, False, local)[0]
 
     @torch.no_grad()
     def sample_paths(self, inputs, num_samples: int = 1, end_hints=None, generator=None):
@@ -693,12 +605,12 @@ class HMMLayer(nn.Module):
         the edge support. Under the data route every rank samples the
         whole batch.
         """
-        if self._sparse_route():
-            init, indices, probs, E = self._sparse_ingredients(inputs, end_hints, False)
-            return sparse_ops.sparse_sample_paths(init, indices, probs, E, generator, num_samples)
+        sparse = self._sparse()
         self._require_dense("sample_paths")
-        init, A, E = self._ingredients(inputs, end_hints, False)
-        return sampling.sample_posterior(init, A, E, generator, num_samples, self._pf(E))
+        init, trans, E, _, _ = self._inputs(inputs, end_hints, False)
+        if sparse:
+            return sparse_ops.sparse_sample_paths(init, *trans, E, generator, num_samples)
+        return sampling.sample_posterior(init, trans, E, generator, num_samples, self._pf(E))
 
     # -- model surgery -----------------------------------------------------------
 
@@ -838,23 +750,23 @@ class HMMLayer(nn.Module):
         Returns:
           scalar loss: mean CE − scaled prior (if ``use_prior``) + aux.
         """
-        if self._local(local) and self._route() != "data":
-            loss = self._local_cross_entropy(inputs, labels, label_mask, end_hints, training, no_loglik)
-        elif self._sparse_route():
+        if self._fuses_cross_entropy():
             loss = self._sparse_cross_entropy(inputs, labels, label_mask, end_hints, training, no_loglik, local)
         else:
-            loss = self._dense_cross_entropy(inputs, labels, label_mask, end_hints, training, no_loglik, local)
+            loss = self._label_cross_entropy(inputs, labels, label_mask, end_hints, training, no_loglik, local)
         if self.use_prior:
             loss = loss - self.compute_prior().mean()
         return loss + self.aux_loss()
 
+    def _fuses_cross_entropy(self) -> bool:
+        """Whether the cross-entropy is the fused sparse objective:
+        sparse-forward transitions on the dense and data routes."""
+        return self._sparse() and self._route() in ("dense", "data")
+
     def _sparse_cross_entropy(self, inputs, labels, label_mask, end_hints, training, no_loglik, local=False):
-        local = self._local(local)
-        if local:  # the data route: this rank's rows of E
-            init, (indices, probs), E, _, (_, total, _, _) = self._local_ingredients(inputs, end_hints, training)
-        else:
-            init, indices, probs, E = self._sparse_ingredients(inputs, end_hints, training)
-            total = E.shape[1]
+        """The fused objective of the whole batch, or under the data route
+        of each rank's rows (in the rank-local mode the rank's rows of E)."""
+        init, (indices, probs), E, _, (_, total, _, _) = self._inputs(inputs, end_hints, training, local)
         if self._route() != "data":
             return sparse_ops.sparse_posterior_cross_entropy(
                 init, indices, probs, E, labels, label_mask=label_mask, no_loglik=no_loglik
@@ -877,21 +789,44 @@ class HMMLayer(nn.Module):
             return mean * msk.sum().clamp_min(1.0) * (total / e.shape[1])
 
         # the row-weighted mean of b/b_k * sum
-        summed = self._on_rows(local_sum, (init, probs), E, labels, mask, total=total if local else None)
+        summed = self._on_rows(local_sum, (init, probs), E, labels, mask, total=total if self._local(local) else None)
         return summed / mask.sum().clamp_min(1.0)
 
-    def _dense_cross_entropy(self, inputs, labels, label_mask, end_hints, training, no_loglik, local=False):
-        lg = self.state_posterior_log_probs(
-            inputs, end_hints=end_hints, training=training, no_loglik=no_loglik, local=local
-        )
+    def _label_cross_entropy(self, inputs, labels, label_mask, end_hints, training, no_loglik, local=False):
+        """The mean cross-entropy of the labels picked from the block of log
+        gamma the call returns. The whole tensor: their mean, or masked sum
+        over the mask's sum. The rank's block (:meth:`_blocks`): the labels
+        that fall in its states (and positions) picked, their masked sum
+        summed over the ranks once
+        (:func:`~hmm_layer_torch.parallel.collectives.sum_out`), over the
+        whole mask's sum; each rank's cotangent reaches only its block, and
+        the sharded function's backward does the rest."""
+        from .parallel.collectives import sum_out
+
+        lg, r, (m, b, L, _) = self._posterior(inputs, end_hints, training, no_loglik, local)
         labels = torch.as_tensor(labels, device=lg.device).long()
-        if labels.dim() == lg.dim() - 2:
-            labels = labels[None].expand(lg.shape[:-1])
-        ce = -torch.gather(lg, -1, labels[..., None])[..., 0]
-        if label_mask is not None:
-            mask = torch.as_tensor(label_mask, dtype=ce.dtype, device=ce.device).expand(ce.shape)
-            return (ce * mask).sum() / mask.sum().clamp_min(1.0)
-        return ce.mean()
+        if labels.dim() == 2:
+            labels = labels[None]
+        block = (slice(None), slice(*r.rows), slice(*r.positions))
+        labels = labels.expand(m, b, L)[block]
+        mask = None if label_mask is None else (
+            torch.as_tensor(label_mask, dtype=lg.dtype, device=lg.device).expand(m, b, L)
+        )
+        if not self._blocks(local):  # the whole tensor: nothing to sum over the ranks
+            ce = -torch.gather(lg, -1, labels[..., None])[..., 0]
+            return ce.mean() if mask is None else (ce * mask).sum() / mask.sum().clamp_min(1.0)
+        s0, width = r.states[0], lg.shape[-1]
+        inside = (labels >= s0) & (labels < s0 + width)
+        if width:
+            picked = torch.gather(lg, -1, (labels - s0).clamp(0, width - 1)[..., None])[..., 0]
+        else:  # a block past q: no label falls in it, but its graph stays connected
+            picked = lg.sum(-1)
+        ce = -torch.where(inside, picked, torch.zeros_like(picked))
+        if mask is None:
+            part, count = ce.sum(), m * b * L
+        else:
+            part, count = (ce * mask[block]).sum(), mask.sum().clamp_min(1.0)
+        return sum_out(part, self.mesh, self._local_axes()) / count
 
     def forward(self, inputs, indices=None, training=False, end_hints=None, local=False):
         """``layer(inputs)``: (loglik (m, b), aggregated loglik[, prior

@@ -168,3 +168,60 @@ def test_inputs_follow_the_layer_device():
     _, _, tl = _layers(4)
     out = tl.log_likelihood(torch.from_numpy(_inputs(6)).double())
     assert out.dtype == torch.float32 and out.device == tl.device
+
+
+def _route_case(name):
+    """(layer, inputs) of each model family the dense route serves."""
+    from hmm_layer_torch import models as tm
+    from hmm_layer_torch.models.initializers import make_15_class_emission_kernel
+
+    torch.manual_seed(0)
+    rng = np.random.default_rng(3)
+    if name.startswith("profile"):
+        lengths = [12, 16]  # the Plan7 matvec and the dense engine differ in float32 bits here
+        layer = HMMLayer(tm.ProfileTransitions(lengths, structured_forward=name.endswith("structured")),
+                         tm.ProfileEmissions(lengths), use_prior=True, num_seqs=50, device="cpu")
+        return layer, rng.dirichlet(np.ones(26), (len(lengths), 2, 60)).astype(np.float32)
+    pf = 1 if name.endswith("pf1") else "auto"
+    k = 2 if name.startswith("multicopy") else 1
+    transitions = (tm.GenePredMultiTransitions(k=k, sparse_forward=name.endswith("sparse")) if k > 1
+                   else GenePredTransitions())
+    emissions = GenePredEmissions(num_copies=k, init=make_15_class_emission_kernel(num_copies=k), **CODONS)
+    layer = HMMLayer(transitions, emissions, use_prior=False,
+                     parallel_factor=pf, device="cpu")
+    return layer, _inputs(4, b=2, L=600)
+
+
+@pytest.mark.parametrize(
+    "name", ["genepred-auto", "genepred-pf1", "multicopy-k2", "profile-structured", "profile-dense",
+             "multicopy-k2-sparse"]
+)
+def test_dense_route_is_the_engine(name):
+    """On the dense route (no mesh) the public methods are bit-equal to the
+    engine called directly on ``emission_probs(X)`` at the layer's parallel
+    factor: the recursions (the Plan7 matvec for a structured profile
+    log-likelihood), or the sparse engine for sparse-forward transitions."""
+    from hmm_layer_torch.ops import plan7, recursion
+    from hmm_layer_torch.ops import sparse as sparse_ops
+
+    layer, X = _route_case(name)
+    with torch.no_grad():
+        E = layer.emission_probs(X)
+        pf, pf_v = layer._pf(E), layer._pf(E, for_viterbi=True)
+        t = layer.transitions
+        if getattr(t, "sparse_forward", False):
+            init, (idx, probs) = t.make_initial_distribution(), t.make_A_sparse()
+            want = {"viterbi": sparse_ops.sparse_viterbi(init, idx, probs, E),
+                    "loglik": sparse_ops.sparse_log_likelihood(init, idx, probs, E),
+                    "posterior": sparse_ops.sparse_posterior(init, idx, probs, E)[0]}
+        else:
+            init, A = t.matrices()
+            structured = getattr(t, "structured_forward", False) and pf == 1
+            want = {"viterbi": recursion.viterbi(init, A, E, pf_v),
+                    "loglik": plan7.structured_log_likelihood(t, E) if structured
+                    else recursion.log_likelihood(init, A, E, pf),
+                    "posterior": recursion.posterior(init, A, E, pf)[0]}
+        got = {"viterbi": layer.viterbi(X), "loglik": layer.log_likelihood(X),
+               "posterior": layer.state_posterior_log_probs(X)}
+    for key in want:
+        assert torch.equal(got[key], want[key]), key

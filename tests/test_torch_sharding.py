@@ -434,7 +434,7 @@ def _layer_local_cases(mesh, partition, family="simple"):
                 out[f"local_{key}"] = _np(call(X, end_hints=hints, local=True))
         out["E"] = _np(layer.emission_probs(X, end_hints=hints))
         with _emitter_shapes(layer, shapes):
-            out["local_E"] = _np(layer._local_ingredients(X, hints, False)[2])
+            out["local_E"] = _np(layer._inputs(X, hints, False, local=True)[2])
     params = list(layer.parameters())
     for key, objective in (("ce", lambda **kw: layer.posterior_cross_entropy(X, labels, mask, end_hints=hints, **kw)),
                            ("map", lambda **kw: layer.loss(X, end_hints=hints, **kw))):

@@ -290,7 +290,7 @@ def _layer_local_cases(mesh, partition):
             out[f"{mode}_lg"] = _np(layer.state_posterior_log_probs(X, **kw))
             out[f"{mode}_ll"] = _np(layer.log_likelihood(X, **kw))
             out[f"{mode}_path"] = layer.viterbi(X, **kw).numpy()
-            out[f"{mode}_E"] = _np(layer._local_ingredients(X, None, False)[2] if kw else layer.emission_probs(X))
+            out[f"{mode}_E"] = _np(layer._inputs(X, None, False, local=True)[2] if kw else layer.emission_probs(X))
         for key, objective in objectives.items():
             value = objective(**kw)
             out[f"{mode}_{key}"], out[f"{mode}_g_{key}"] = float(value), _grads(value, params)
