@@ -106,17 +106,24 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
    gradients against the dense chunked ones (b=2, L=1200). k = 1000 (q =
    14,001, 22,001 edges, b=2, L=2000): ``sparse_log_likelihood`` against the
    dense sequential engine (A: 784 MB), both timed.
-12. The profile-HMM family (no kernel of its own; every item prints its
-   launches of K1–K9). Config 4 (``benchmarks/profile_train_bench.py``):
+12. The profile-HMM family (every item prints its launches of the
+   kernels). K2c and K3c against their plain versions (within the float32
+   log-scale bound) at the profile-m5-train cell's shape (config 4 below,
+   q padded to 155, b=64, L=400) and at config 5's (q=505, b=32, L=9999),
+   warm and cold, beside their bounds, K2c with and without log alpha, and
+   one MAP loss and backward of config 4 (K2c twice, K3c once). Config 4
+   (``benchmarks/profile_train_bench.py``):
    ``ProfileTransitions([60, 64, 68, 72, 76])`` + ``ProfileEmissions``
    (q up to 155), the port's default initializers from a seeded generator,
    ``use_prior``, ``num_seqs=1000``, ``parallel_factor="auto"`` (= 1), b=64,
    L=400, one-hot residues over 26 channels: 3 log-likelihood + posterior
    requests (log gamma normalised over each model's real states, the
-   log-likelihood equal to ``structured_log_likelihood``; none of K1–K9),
+   log-likelihood equal to ``structured_log_likelihood``; K2c once a
+   log-likelihood and no other kernel),
    ``set_dp_precision("high")`` bit-equal to "highest", the structured
    route's loss and gradients against the dense route's, 5 ``Trainer``
-   MAP steps with Adam(0.05) (loss falling, every trainable parameter
+   MAP steps with Adam(0.05) (K2c twice and K3c once a step, loss falling,
+   every trainable parameter
    moving, the frozen insertion kernels not), gradients against float64
    autograd (m=2, b=4, L=100), and the q=155 model's decode (K7c and K8c
    once each; valid, float64 scores equal to a CPU copy's); ms/batch, ms/step and the profiler's busy
@@ -232,6 +239,8 @@ SOURCES = {
     "sum_chunk_summaries_mxu": "hmm_layer_torch/csrc/mxu.cu",
     "maxplus_deltas_wide": "hmm_layer_torch/csrc/max_plus_wide.cu",
     "maxplus_backtrace_wide": "hmm_layer_torch/csrc/max_plus_wide.cu",
+    "sum_forward_wide": "hmm_layer_torch/csrc/sum_product_wide.cu",
+    "sum_backward_wide": "hmm_layer_torch/csrc/sum_product_wide.cu",
 }
 REPLACES = {
     "sum_chunk_summaries": "hmm_layer_tpu/ops/pallas_forward.py:112",
@@ -248,6 +257,9 @@ REPLACES = {
     # The JAX package's q > 64 sequential decode is lax.scan: no TPU kernel.
     "maxplus_deltas_wide": "none (hmm_layer_tpu/ops/recursion.py _viterbi_seq, lax.scan)",
     "maxplus_backtrace_wide": "none (hmm_layer_tpu/ops/recursion.py _viterbi_seq, lax.scan)",
+    # ... and so are its sequential sum-product passes.
+    "sum_forward_wide": "none (hmm_layer_tpu/ops/recursion.py _forward_seq, lax.scan)",
+    "sum_backward_wide": "none (hmm_layer_tpu/ops/recursion.py _backward_seq, lax.scan)",
 }
 # The q <= 16 decode kernels; the blocked bodies K7b/K8b count separately.
 DECODE_Q16 = ("maxplus_chunk_summaries", "maxplus_deltas", "maxplus_backtrace")
@@ -255,6 +267,8 @@ TRAIN_STEPS, MAP_STEPS, CLI_STEPS = 5, 2, 10
 # Kernel-only launches per request: the posterior runs K1, K2 and K3 once,
 # the log-likelihood K1 once more.
 PER_REQUEST = {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1}
+# The sequential passes at 64 < q <= 512 (K2c, K3c); no flagship call runs them.
+SUM_WIDE_KEYS = ("sum_forward_wide", "sum_backward_wide")
 # Kernels timed cold as well as warm in phases 3 and 9: K1's and K6's 19–20
 # MB, K8's 21 MB, K2's, K3's and K7's 38 MB, K8b's 38 MB and K9's 41 MB (q=29)
 # of inputs and outputs stay in the 50 MB L2 over back-to-back launches
@@ -263,7 +277,7 @@ PER_REQUEST = {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs
 COLD = ("sum_chunk_summaries", "sum_fwd_outputs", "beta_bwd_outputs", "affine_chunk_composites",
         "affine_reverse_outputs", "maxplus_chunk_summaries", "maxplus_deltas", "maxplus_backtrace",
         "maxplus_deltas_blocked", "maxplus_backtrace_blocked", "sum_chunk_summaries_mxu",
-        "maxplus_deltas_wide", "maxplus_backtrace_wide")
+        "maxplus_deltas_wide", "maxplus_backtrace_wide", "sum_forward_wide", "sum_backward_wide")
 # K7b's chain floor, a model in SM cycles a step (not a measurement): the
 # term's add, a ceil(log2 q)-deep max tree and the emission's add at 4
 # cycles each, a shared-memory store and load of delta (30) and a barrier
@@ -607,7 +621,7 @@ def e2e_phase(layer, recursion, cuda_forward, make):
             results.append((lg, ll))
         launches = dict(cuda_forward.LAUNCHES)
         log(f"phase 4 launches over {N_REQUESTS} requests: {launches}")
-        expected = {k: N_REQUESTS * v for k, v in PER_REQUEST.items()}
+        expected = {k: N_REQUESTS * PER_REQUEST.get(k, 0) for k in launches}
         if launches != expected:
             raise AssertionError(f"launch counts {launches}, expected {expected}")
 
@@ -1030,7 +1044,7 @@ def training_phase(layer, make, recursion, cuda_forward, cuda_adjoint, smi):
         launches = all_launches(cuda_forward, cuda_adjoint)
         losses.append(float(loss))
         log(f"phase 8 CE step {i + 1}: loss {losses[-1]:.6f}, {step_ms[-1]:.3f} ms, launches {launches}")
-        if any(v != 1 for v in launches.values()):
+        if any(v != (k not in SUM_WIDE_KEYS) for k, v in launches.items()):
             raise AssertionError(f"CE step {i + 1}: launch counts {launches}, expected 1 each of K1-K5")
         for k, v in launches.items():
             total[k] = total.get(k, 0) + v
@@ -1058,6 +1072,7 @@ def training_phase(layer, make, recursion, cuda_forward, cuda_adjoint, smi):
         launches = all_launches(cuda_forward, cuda_adjoint)
         log(f"phase 8 MAP step {i + 1}: loss {float(loss):.3f}, {map_ms[-1]:.3f} ms, launches {launches}")
         expected = {"sum_chunk_summaries": 1, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1,
+                    "sum_forward_wide": 0, "sum_backward_wide": 0,
                     "affine_chunk_composites": 0, "affine_reverse_outputs": 0}
         if launches != expected or not np.isfinite(float(loss)):
             raise AssertionError(f"MAP step {i + 1}: launch counts {launches}, expected {expected}")
@@ -1249,8 +1264,8 @@ def train_cli_phase(fasta, npz, gff, cuda_forward, cuda_adjoint, tmp):
     wall = time.perf_counter() - t0
     launches = all_launches(cuda_forward, cuda_adjoint)
     log(f"phase 8 train CLI launches: {launches} ({CLI_STEPS} steps)")
-    if launches != {k: CLI_STEPS for k in launches}:
-        raise AssertionError(f"train launch counts {launches}, expected {CLI_STEPS} each")
+    if launches != {k: 0 if k in SUM_WIDE_KEYS else CLI_STEPS for k in launches}:
+        raise AssertionError(f"train launch counts {launches}, expected {CLI_STEPS} each of K1-K5")
     bp = CLI_STEPS * batch * window
     log(f"phase 8 train CLI: {CLI_STEPS} steps of {batch} x {window} bp = {bp} bp in {wall:.3f} s "
         f"(whole command: FASTA, GFF3 and class probabilities read, windows and labels built): "
@@ -2579,7 +2594,8 @@ PROFILE_STEPS, PROFILE_LR = 5, 0.05  # align's default learning rate
 # The planted family of benchmarks/msa_quality_bench.py.
 PLANTED_LM, PLANTED_S, PLANTED_SEQS, ALIGN_STEPS = 24, 25, 64, 300
 # Profiler names of the port's kernels K1-K9 (none should run in phase 12).
-OUR_KERNEL_KEYS = ("chunk_summaries", "outputs_kernel", "affine_", "deltas", "backtrace", "mxu_summary")
+OUR_KERNEL_KEYS = ("chunk_summaries", "outputs_kernel", "affine_", "deltas", "backtrace", "mxu_summary",
+                   "sum_wide_kernel")
 
 
 def build_config4(HMMLayer, models, structured_forward=False):
@@ -2600,6 +2616,79 @@ def profile_inputs(seed, b, length, m, device):
     rng = np.random.default_rng(seed)
     x = np.eye(PROFILE_S, dtype=np.float32)[rng.integers(0, 25, size=(b, length))]
     return torch.from_numpy(x).to(device)[None].expand(m, b, length, PROFILE_S)
+
+
+def wide_sum_kernel_phase(HMMLayer, models, make, cuda_forward, peak_bytes, peak_flops):
+    """K2c and K3c against their plain versions at the profile-m5-train
+    cell's shape (config 4: m=5, q=155 padded, b=64, L=400; the records)
+    and at config 5's (q=505, b=32, L=9999), warm and cold, beside their
+    bounds; K2c with log alpha (the VJP's rerun) and without (the loss).
+    Then one MAP loss and backward of config 4: K2c twice, K3c once.
+    Returns (records, launches of that step)."""
+    records = {}
+    c4 = build_config4(HMMLayer, models)
+    shapes = (
+        ("config 4", c4, profile_inputs(SEED + 140, PROFILE_B, PROFILE_L, len(PROFILE_LENGTHS), c4.device)),
+        ("config 5", build_multicopy_layer(HMMLayer, models, WIDE_K), make(SEED + 141, B, L)),
+    )
+    for tag, layer, X in shapes:
+        with torch.inference_mode():
+            init, A = (x.contiguous() for x in layer.transitions.matrices())
+            E = layer.emission_probs(X).contiguous()
+            m, b, c, q = E.shape
+            la, ll = cuda_forward.sum_forward_wide(init, A, E, True)
+            ll_only = cuda_forward.sum_forward_wide(init, A, E, False)[1]
+            lb = cuda_forward.sum_backward_wide(A, E)
+            la_p, ll_p = cuda_forward.sum_forward_wide_plain(init, A, E, True)
+            lb_p = cuda_forward.sum_backward_wide_plain(A, E)
+            torch.cuda.synchronize()
+            # ll: the log-scale's float32 rounding; log alpha and log beta
+            # add their normalised carry's (1e-4 in its log).
+            bound = f32_log_bound(ll_p, c)
+            ll_err, ll_ok = within(ll, ll_p, 0.0, bound)
+            la_err, la_ok = within(la, la_p, 0.0, bound + 1e-4)
+            lb_err, lb_ok = within(lb, lb_p, 0.0, bound + 1e-4)
+            ok = ll_ok and la_ok and lb_ok and torch.equal(ll, ll_only)
+            log(f"phase 12 K2c/K3c {tag} (m={m}, q={q}, b={b}, L={c}) vs the plain versions: ll max abs {ll_err:.3e}, "
+                f"log alpha {la_err:.3e}, log beta {lb_err:.3e} (bound {bound:.3e} + 1e-4 for the logs); K2c's ll "
+                f"without log alpha bit-equal: {torch.equal(ll, ll_only)}")
+            if not ok:
+                raise AssertionError(f"K2c/K3c at {tag} disagree with their plain versions")
+            del la, lb, la_p, lb_p
+            # A pass: 2 q^2 operations a step and sequence (the padded q);
+            # A and E in, log alpha or log beta out.
+            nops = m * b * (c - 1) * 2 * q * q
+            io = 4 * m * q * q + 4 * m * b * c * q
+            reps = 10 if c < 1000 else 1
+            cases = {
+                "sum_forward_wide": (lambda: cuda_forward.sum_forward_wide(init, A, E, True),
+                                     lambda: cuda_forward.sum_forward_wide_plain(init, A, E, True),
+                                     ll_err, io + 4 * m * q + 4 * m * b * c * q + 4 * m * b),
+                "sum_backward_wide": (lambda: cuda_forward.sum_backward_wide(A, E),
+                                      lambda: cuda_forward.sum_backward_wide_plain(A, E),
+                                      lb_err, io + 4 * m * b * c * q),
+            }
+            for name, (kern, plain, err, nbytes) in cases.items():
+                rec = measure(name, kern, plain, err, nbytes, nops, peak_bytes, peak_flops, reps=reps,
+                              plain_samples=1)
+                log(f"phase 12 {name} {tag} (m={m}, q={q}, b={b}, L={c}): {timing_text(rec, nbytes, nops)}"
+                    f"{cold_text(name, kern, rec)}")
+                if tag == "config 4":
+                    records[name] = rec
+            ll_ms = median_ms(lambda: cuda_forward.sum_forward_wide(init, A, E, False), samples=20, reps=reps)
+            log(f"phase 12 sum_forward_wide {tag} without log alpha (the loss's pass): {ll_ms:.4f} ms")
+        del E
+    X = shapes[0][2]
+    pars = [p for p in c4.parameters() if p.requires_grad]
+    cuda_forward.reset_launches()
+    grads = torch.autograd.grad(c4.loss(X), pars)
+    torch.cuda.synchronize()
+    launches = dict(cuda_forward.LAUNCHES)
+    log(f"phase 12 config 4 MAP loss and backward: launches {launches}")
+    expect(launches, sum_forward_wide=2, sum_backward_wide=1)
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("config 4 MAP step through K2c/K3c: gradients not finite")
+    return records, launches
 
 
 def config4_serving(layer, plan7, counters, make_x):
@@ -2627,7 +2716,7 @@ def config4_serving(layer, plan7, counters, make_x):
                 raise AssertionError(f"config 4 request {i}: loglik or posterior wrong")
         launches = kernel_counts(counters)
     log(f"phase 12 config 4 launches over {N_REQUESTS} loglik + posterior requests: {launches}")
-    no_kernels("config 4 serving", counters)
+    expect(launches, sum_forward_wide=N_REQUESTS)
     profile_request("phase 12 config 4 posterior", lambda: layer.state_posterior_log_probs(requests[0]),
                     "K1-K9", OUR_KERNEL_KEYS)
     return {"config4_loglik_ms": statistics.median(t_ll), "config4_posterior_ms": statistics.median(t_post)}
@@ -2650,7 +2739,7 @@ def config4_training(layer, counters, X):
         step_ms.append(ms)
         log(f"phase 12 config 4 MAP step {i + 1}: loss {losses[-1]:.4f}, {ms:.3f} ms, launches "
             f"{kernel_counts(counters)}")
-        no_kernels(f"config 4 MAP step {i + 1}", counters)
+        expect(kernel_counts(counters), sum_forward_wide=2, sum_backward_wide=1)
     moved = {n: not torch.equal(p.detach(), before[n]) for n, p in layer.named_parameters()}
     wrong = [n for n, p in layer.named_parameters() if moved[n] != p.requires_grad]
     frozen = sorted({n.rsplit(".", 1)[0] for n, p in layer.named_parameters() if not p.requires_grad})
@@ -2668,7 +2757,7 @@ def config4_training(layer, counters, X):
         layer.loss(X).backward()
         opt.step()
 
-    profile_request("phase 12 config 4 MAP step", step, "K1-K9", OUR_KERNEL_KEYS, inference=False)
+    profile_request("phase 12 config 4 MAP step", step, "K2c-K3c", OUR_KERNEL_KEYS, inference=False)
     return {"config4_map_step_ms": med}
 
 
@@ -4382,6 +4471,9 @@ def main() -> int:
     sparse_phase(HMMLayer, models, make, recursion, counters, smi)
 
     # 12. The profile-HMM family and align
+    sum_records, sum_launches = wide_sum_kernel_phase(HMMLayer, models, make, cuda_forward, peak_bytes,
+                                                      peak_flops)
+    records.update(sum_records)
     profile_phase(HMMLayer, models, recursion, cuda_viterbi, counters, smi)
 
     # 13. The host side and the multi-device routes
@@ -4403,6 +4495,7 @@ def main() -> int:
     launches.update({k: train_launches[k] for k in cuda_adjoint.LAUNCHES})
     launches.update({k: mc_decode_launches[k] for k in BLOCKED_KEYS})
     launches.update({k: wide_launches[k] for k in WIDE_KEYS})
+    launches.update({k: sum_launches[k] for k in SUM_WIDE_KEYS})
     launches["sum_chunk_summaries_mxu"] = mc_ll_launches["sum_chunk_summaries_mxu"]
     for name, rec in records.items():
         rec["launches"] = launches[name]

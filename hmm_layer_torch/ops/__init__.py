@@ -6,7 +6,7 @@ Submodules: :mod:`.semiring`, :mod:`.kmer`, :mod:`.recursion`,
 :mod:`.scan` (scan loops for custom cells), :mod:`.sparse` (the
 recursions over COO edge lists, for large multi-copy models),
 :mod:`.cuda_forward`
-(kernels K1–K3), :mod:`.cuda_adjoint` (kernels K4–K5),
+(kernels K1–K3, K2c–K3c), :mod:`.cuda_adjoint` (kernels K4–K5),
 :mod:`.cuda_viterbi` (kernels K6–K8b, K7c–K8c), :mod:`.cuda_mxu` (K9) and
 :mod:`._cuda_build` (their build). The names in ``__all__`` (the JAX
 package's ``ops`` namespace: functions, constants and submodules) load

@@ -28,6 +28,7 @@ SOURCES = {
     "affine": _PKG / "csrc" / "affine.cu",
     "mxu": _PKG / "csrc" / "mxu.cu",
     "max_plus_wide": _PKG / "csrc" / "max_plus_wide.cu",
+    "sum_product_wide": _PKG / "csrc" / "sum_product_wide.cu",
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -60,6 +61,10 @@ SIGNATURES = {
     "max_plus_wide": {
         "hmm_maxplus_deltas_wide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         "hmm_maxplus_backtrace_wide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
+    "sum_product_wide": {
+        "hmm_sum_forward_wide": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "hmm_sum_backward_wide": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
 }
 

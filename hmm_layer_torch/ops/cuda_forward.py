@@ -1,4 +1,5 @@
-"""Sum-product chunk kernels K1–K3: CUDA wrappers, plain versions, counters.
+"""Sum-product kernels K1–K3, K2c and K3c: CUDA wrappers, plain versions,
+counters.
 
 Port of ``hmm_layer_tpu/ops/pallas_forward.py``. Each kernel of
 ``csrc/sum_product.cu`` has here
@@ -18,6 +19,16 @@ Layouts (R = b·P chunk elements, lane ``r`` = sequence ``r // P``, chunk
 * ``C`` (m, R, q, q) with ``C[:, r, i, j] = log P(chunk emissions, right
   border j | left border i)``.
 * log alpha / log beta (m, c, q, R).
+
+The sequential passes at 64 < q <= :data:`MAX_WIDE_Q` (``recursion._LoglikSeq``
+on CUDA) run K2c, :func:`sum_forward_wide` (the scaled forward pass: the
+log-likelihood (m, b) and, when asked, log alpha (m, b, L, q)), and K3c,
+:func:`sum_backward_wide` (log beta (m, b, L, q)), both in
+``csrc/sum_product_wide.cu`` on the sequence-major layout of E (m, b, L, q),
+counted under ``sum_forward_wide`` and ``sum_backward_wide``. They replace
+no TPU kernel: the JAX package leaves those passes to ``lax.scan``; their
+plain versions are the scan's arithmetic, which ``recursion._forward_seq``
+and ``recursion._backward_seq`` run.
 
 The kernels have no backward of their own: on CUDA each launch is wrapped
 in an ``autograd.Function`` whose backward raises, so no gradient is
@@ -44,15 +55,26 @@ __all__ = [
     "sum_chunk_summaries_plain",
     "sum_fwd_outputs_plain",
     "beta_bwd_outputs_plain",
+    "MIN_WIDE_Q",
+    "MAX_WIDE_Q",
+    "sum_forward_wide",
+    "sum_backward_wide",
+    "sum_forward_wide_plain",
+    "sum_backward_wide_plain",
 ]
 
 KERNEL_MAX_Q = 16  # states a thread carries in registers (MAXQ in csrc)
 _TINY = 1e-30  # normaliser floor (no 0/0 in dead rows)
+# States of K2c/K3c: above the eager loop's q <= 64, up to the A that a
+# cluster of 8 blocks holds in shared memory (csrc/sum_product_wide.cu).
+MIN_WIDE_Q, MAX_WIDE_Q = 65, 512
 
 LAUNCHES = {
     "sum_chunk_summaries": 0,
     "sum_fwd_outputs": 0,
     "beta_bwd_outputs": 0,
+    "sum_forward_wide": 0,
+    "sum_backward_wide": 0,
 }
 
 
@@ -120,6 +142,44 @@ def beta_bwd_outputs_plain(A, E_T, beta0, ll0):
         LL = LL + torch.log(z)
         outs.append(torch.log(torch.clamp_min(be, _TINY)) + LL)
     return torch.stack(outs[::-1], dim=1).transpose(-1, -2)
+
+
+def sum_forward_wide_plain(init, A, E, write_alpha: bool):
+    """K2c's plain version, the scaled sequential forward loop
+    (``recursion._forward_seq``): (log alpha (m, b, L, q), or None without
+    ``write_alpha``; the log-likelihood (m, b))."""
+    L = E.shape[2]
+    s = torch.clamp_min(E[:, :, 0], EPS) * torch.clamp_min(init, EPS)[:, None, :]
+    z = s.sum(-1, keepdim=True)
+    alpha, ll = s / z, torch.log(z[..., 0])
+    outs = [torch.log(alpha) + ll[..., None]] if write_alpha else None
+    for t in range(1, L):
+        s = torch.clamp_min(E[:, :, t], EPS) * torch.clamp_min(torch.matmul(alpha, A), EPS)
+        z = s.sum(-1, keepdim=True)
+        alpha, ll = s / z, ll + torch.log(z[..., 0])
+        if write_alpha:
+            outs.append(torch.log(alpha) + ll[..., None])
+    return (torch.stack(outs, dim=2) if write_alpha else None), ll
+
+
+def sum_backward_wide_plain(A, E):
+    """K3c's plain version, the scaled sequential backward loop
+    (``recursion._backward_seq``): log beta (m, b, L, q), rescaled by the
+    row max each step.
+
+    beta_L = 1; beta_t(i) = sum_j A[i, j] * E_{t+1}(j) * beta_{t+1}(j).
+    """
+    m, b, L, q = E.shape
+    beta = torch.ones((m, b, q), dtype=E.dtype, device=E.device)
+    ll = torch.zeros((m, b), dtype=E.dtype, device=E.device)
+    A_T = A.transpose(-1, -2)
+    outs = [torch.zeros_like(beta)]
+    for t in range(L - 1, 0, -1):  # consume e_t, produce beta_{t-1}
+        s = torch.clamp_min(torch.matmul(torch.clamp_min(E[:, :, t], EPS) * beta, A_T), EPS)
+        z = s.amax(-1, keepdim=True)
+        beta, ll = s / z, ll + torch.log(z[..., 0])
+        outs.append(torch.log(beta) + ll[..., None])
+    return torch.stack(outs[::-1], dim=2)
 
 
 # ---------------------------------------------------------------------------
@@ -270,5 +330,94 @@ def beta_bwd_outputs(A, E_T, beta0, ll0):
         return out
 
     out = _KernelOnly.apply(launch, A, E_T, beta0, ll0)
+    LAUNCHES[name] += 1
+    return out
+
+
+def _wide_shapes(name, A, E):
+    """(m, b, L, q) of K2c's or K3c's emissions E (m, b, L, q)."""
+    if E.dim() != 4:
+        raise ValueError(f"{name}: E must be (m, b, L, q), got {tuple(E.shape)}")
+    m, b, L, q = E.shape
+    if not MIN_WIDE_Q <= q <= MAX_WIDE_Q:
+        raise ValueError(f"{name}: the kernel takes {MIN_WIDE_Q - 1} < q <= {MAX_WIDE_Q}, got q={q}")
+    if tuple(A.shape) != (m, q, q):
+        raise ValueError(f"{name}: A has shape {tuple(A.shape)}, expected {(m, q, q)}")
+    if min(m, b, L) < 1:
+        raise ValueError(f"{name}: empty input E {tuple(E.shape)}")
+    return m, b, L, q
+
+
+def _cuda_only(name, E):
+    if E.device.type != "cuda":
+        raise ValueError(f"{name}: tensors on {E.device} have no kernel")
+
+
+def sum_forward_wide(init, A, E, write_alpha: bool):
+    """K2c: the scaled sequential forward pass for 64 < q <= 512, as
+    :func:`sum_forward_wide_plain` within float32 rounding (the division
+    by the scale follows the product; the sums run in another order).
+
+    Args:
+        init: (m, q) linear initial distributions.
+        A: (m, q, q) linear transition matrices.
+        E: (m, b, L, q) linear emissions, sequence-major.
+        write_alpha: also return log alpha (m, b, L, q) (``log(alpha_t) +
+            ll_t`` as the plain version); else None in its place.
+
+    Returns:
+        (log alpha or None, the log-likelihood (m, b)).
+    """
+    if E.device.type == "cpu":
+        return sum_forward_wide_plain(init, A, E, write_alpha)
+    name = "sum_forward_wide"
+    m, b, L, q = _wide_shapes(name, A, E)
+    _check(name, E.device, init=init, A=A, E=E)
+    if tuple(init.shape) != (m, q):
+        raise ValueError(f"{name}: init has shape {tuple(init.shape)}, expected {(m, q)}")
+    _cuda_only(name, E)
+    lib = _cuda_build.load("sum_product_wide")
+
+    def launch(init, A, E):
+        ll = torch.empty((m, b), dtype=torch.float32, device=E.device)
+        la = torch.empty(E.shape, dtype=torch.float32, device=E.device) if write_alpha else None
+        device, stream = _launch_args(E.device)
+        _raise_on(name, lib.hmm_sum_forward_wide(
+            init.data_ptr(), A.data_ptr(), E.data_ptr(), None if la is None else la.data_ptr(),
+            ll.data_ptr(), m, b, L, q, device, stream,
+        ))
+        return (la, ll) if write_alpha else ll
+
+    res = _KernelOnly.apply(launch, init, A, E)
+    LAUNCHES[name] += 1
+    return res if write_alpha else (None, res)
+
+
+def sum_backward_wide(A, E):
+    """K3c: log beta (m, b, L, q) of the scaled sequential backward pass
+    for 64 < q <= 512, as :func:`sum_backward_wide_plain` within float32
+    rounding.
+
+    Args:
+        A: (m, q, q) linear transition matrices.
+        E: (m, b, L, q) linear emissions, sequence-major.
+    """
+    if E.device.type == "cpu":
+        return sum_backward_wide_plain(A, E)
+    name = "sum_backward_wide"
+    m, b, L, q = _wide_shapes(name, A, E)
+    _check(name, E.device, A=A, E=E)
+    _cuda_only(name, E)
+    lib = _cuda_build.load("sum_product_wide")
+
+    def launch(A, E):
+        out = torch.empty(E.shape, dtype=torch.float32, device=E.device)
+        device, stream = _launch_args(E.device)
+        _raise_on(name, lib.hmm_sum_backward_wide(
+            A.data_ptr(), E.data_ptr(), out.data_ptr(), m, b, L, q, device, stream,
+        ))
+        return out
+
+    out = _KernelOnly.apply(launch, A, E)
     LAUNCHES[name] += 1
     return out

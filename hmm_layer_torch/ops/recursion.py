@@ -23,7 +23,10 @@ combine are plain torch ops in both. At 16 < q <= 64 on CUDA,
 K7b/K8b whatever the ``parallel_factor``; at 16 < q <= 128 the summary
 pass of the log-likelihood, ``forward`` and ``backward`` runs K9
 (:mod:`.cuda_mxu`) when its opt-in gate ``HMM_PALLAS_MXU=1`` is set, as in
-the JAX package.
+the JAX package. At 64 < q <= 512 on CUDA the sequential log-likelihood
+(``parallel_factor == 1``) and its VJP run their passes through K2c and K3c
+(:func:`.cuda_forward.sum_forward_wide`, :func:`.cuda_forward.sum_backward_wide`),
+one launch a pass; the JAX package leaves those scans to XLA.
 
 Gradients at ``parallel_factor`` > 1 come from analytic VJPs
 (``torch.autograd.Function``s, the JAX ``custom_vjp``\\ s), not from taping
@@ -112,36 +115,15 @@ def _clamped(x):
 
 
 def _forward_seq(init, A, E):
-    """Scaled sequential forward. Returns (log_alpha (m,b,L,q), loglik (m,b))."""
-    L = E.shape[2]
-    s = _clamped(E[:, :, 0]) * _clamped(init)[:, None, :]
-    z = s.sum(-1, keepdim=True)
-    alpha, ll = s / z, torch.log(z[..., 0])
-    outs = [torch.log(alpha) + ll[..., None]]
-    for t in range(1, L):
-        s = _clamped(E[:, :, t]) * _clamped(torch.matmul(alpha, A))
-        z = s.sum(-1, keepdim=True)
-        alpha, ll = s / z, ll + torch.log(z[..., 0])
-        outs.append(torch.log(alpha) + ll[..., None])
-    return torch.stack(outs, dim=2), ll
+    """Scaled sequential forward. Returns (log_alpha (m,b,L,q), loglik (m,b)):
+    the loop of K2c's plain version."""
+    return cuda_forward.sum_forward_wide_plain(init, A, E, True)
 
 
 def _backward_seq(A, E):
-    """Scaled sequential backward. Returns log_beta (m, b, L, q).
-
-    beta_L = 1; beta_t(i) = sum_j A[i, j] * E_{t+1}(j) * beta_{t+1}(j).
-    """
-    m, b, L, q = E.shape
-    beta = torch.ones((m, b, q), dtype=E.dtype, device=E.device)
-    ll = torch.zeros((m, b), dtype=E.dtype, device=E.device)
-    A_T = A.transpose(-1, -2)
-    outs = [torch.zeros_like(beta)]
-    for t in range(L - 1, 0, -1):  # consume e_t, produce beta_{t-1}
-        s = _clamped(torch.matmul(_clamped(E[:, :, t]) * beta, A_T))
-        z = s.amax(-1, keepdim=True)
-        beta, ll = s / z, ll + torch.log(z[..., 0])
-        outs.append(torch.log(beta) + ll[..., None])
-    return torch.stack(outs[::-1], dim=2)
+    """Scaled sequential backward. Returns log_beta (m, b, L, q): the loop
+    of K3c's plain version."""
+    return cuda_forward.sum_backward_wide_plain(A, E)
 
 
 # ---------------------------------------------------------------------------
@@ -722,21 +704,47 @@ class _LoglikChunked(torch.autograd.Function):
         return (*_loglik_bw_stats(init, A, E, la, lb, ll, ct), None)
 
 
+def _use_wide_loglik_kernels(E) -> bool:
+    """K2c and K3c take the sequential log-likelihood and its VJP for a CUDA
+    float32 E at 64 < q <= ``cuda_forward.MAX_WIDE_Q``."""
+    return (E.is_cuda and E.dtype == torch.float32
+            and cuda_forward.MIN_WIDE_Q <= E.shape[-1] <= cuda_forward.MAX_WIDE_Q)
+
+
+def _seq_passes(init, A, E):
+    """The forward and backward passes of :class:`_LoglikSeq` and their
+    inputs: K2c and K3c (contiguous inputs) where
+    :func:`_use_wide_loglik_kernels`, else their plain versions."""
+    if _use_wide_loglik_kernels(E):
+        return (cuda_forward.sum_forward_wide, cuda_forward.sum_backward_wide,
+                init.contiguous(), A.contiguous(), E.contiguous())
+    return cuda_forward.sum_forward_wide_plain, cuda_forward.sum_backward_wide_plain, init, A, E
+
+
 class _LoglikSeq(torch.autograd.Function):
     """Sequential log-likelihood with the analytic Baum-Welch VJP: one
-    forward + one backward pass instead of a taped L-step scan."""
+    forward + one backward pass instead of a taped L-step scan. On CUDA at
+    64 < q <= 512 the passes are K2c and K3c (:func:`_seq_passes`). Under a
+    profiler each forward pass opens the span
+    ``hmm.recursion.loglik.alphas`` and the backward pass
+    ``hmm.recursion.loglik.betas``."""
 
     @staticmethod
     def forward(ctx, init, A, E):
         ctx.save_for_backward(init, A, E)
-        return _forward_seq(init, A, E)[1]
+        fwd, _, *args = _seq_passes(init, A, E)
+        with span("hmm.recursion.loglik.alphas"):
+            return fwd(*args, False)[1]
 
     @staticmethod
     @span("hmm.recursion.loglik_vjp")
     def backward(ctx, ct):
         init, A, E = ctx.saved_tensors
-        la, ll = _forward_seq(init, A, E)
-        lb = _backward_seq(A, E)
+        fwd, bwd, *args = _seq_passes(init, A, E)
+        with span("hmm.recursion.loglik.alphas"):
+            la, ll = fwd(*args, True)
+        with span("hmm.recursion.loglik.betas"):
+            lb = bwd(*args[1:])
         return _loglik_bw_stats(init, A, E, la, lb, ll, ct)
 
 
@@ -1192,7 +1200,7 @@ def log_likelihood(
     The training-loss path. Gradients are analytic Baum-Welch VJPs at every
     ``parallel_factor`` (chunked: :class:`_LoglikChunked`; sequential:
     :class:`_LoglikSeq`, one forward + one backward pass instead of a taped
-    scan). ``analytic_vjp=False`` at ``parallel_factor == 1`` differentiates
+    scan, through K2c and K3c on CUDA at 64 < q <= 512). ``analytic_vjp=False`` at ``parallel_factor == 1`` differentiates
     the sequential scan by autograd instead (forward-mode differentiation
     needs it).
     """

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels K1–K9, K7c and K8c on the card: each against its plain
+"""The port's CUDA kernels K1–K9, K7c and K8c on the card (K2c and K3c:
+``tests/test_torch_loglik_wide.py``): each against its plain
 PyTorch version, the layer's kernel routes (posterior, Viterbi, the
 gradients of the training objectives, the multi-copy decode and the gated
 K9 log-likelihood) and the auxiliary inference on them (path sampling,
@@ -133,7 +134,8 @@ def test_layer_kernel_route_matches_plain_route(cuda, pf):
         lg = layer.state_posterior_log_probs(X)
         ll = layer.log_likelihood(X)
         assert cuda_forward.LAUNCHES == {
-            "sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1
+            "sum_chunk_summaries": 2, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1,
+            "sum_forward_wide": 0, "sum_backward_wide": 0,
         }
         init, A = layer.transitions.matrices()
         E = layer.emission_probs(X)
@@ -265,9 +267,11 @@ def test_kernel_route_gradients_match_plain_route(cuda, monkeypatch, objective):
     launches = {**cuda_forward.LAUNCHES, **cuda_adjoint.LAUNCHES}
     if objective == "ce":
         assert launches == {"sum_chunk_summaries": 1, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1,
+                            "sum_forward_wide": 0, "sum_backward_wide": 0,
                             "affine_chunk_composites": 1, "affine_reverse_outputs": 1}
     else:  # C is saved: the backward runs K2 and K3 only
         assert launches == {"sum_chunk_summaries": 1, "sum_fwd_outputs": 1, "beta_bwd_outputs": 1,
+                            "sum_forward_wide": 0, "sum_backward_wide": 0,
                             "affine_chunk_composites": 0, "affine_reverse_outputs": 0}
     monkeypatch.setattr(recursion, "_use_kernels", lambda E: False)
     monkeypatch.setattr(recursion, "_use_affine_kernels", lambda x: False)
@@ -839,7 +843,8 @@ def test_sample_paths_kernel_route_valid(cuda, monkeypatch):
     cuda_forward.reset_launches()
     paths = layer.sample_paths(X, num_samples=8, generator=torch.Generator(cuda).manual_seed(0))
     assert dict(cuda_forward.LAUNCHES) == {"sum_chunk_summaries": 1, "sum_fwd_outputs": 0,
-                                           "beta_bwd_outputs": 0}
+                                           "beta_bwd_outputs": 0, "sum_forward_wide": 0,
+                                           "sum_backward_wide": 0}
     monkeypatch.setattr(recursion, "_use_kernels", lambda x: False)
     plain = layer.sample_paths(X, num_samples=8, generator=torch.Generator(cuda).manual_seed(0))
     for p in (paths, plain):
@@ -858,7 +863,8 @@ def test_em_step_kernel_route_matches_plain(cuda, monkeypatch):
     cuda_forward.reset_launches()
     new_init, new_A, ll = em.em_step(init, A, E, parallel_factor=P)
     assert dict(cuda_forward.LAUNCHES) == {"sum_chunk_summaries": 1, "sum_fwd_outputs": 1,
-                                           "beta_bwd_outputs": 1}
+                                           "beta_bwd_outputs": 1, "sum_forward_wide": 0,
+                                           "sum_backward_wide": 0}
     monkeypatch.setattr(recursion, "_use_kernels", lambda x: False)
     ref_init, ref_A, ref_ll = em.em_step(init, A, E, parallel_factor=P)
     torch.testing.assert_close(ll, ref_ll, rtol=1e-5, atol=0)
@@ -889,7 +895,8 @@ def test_chunked_forward_backward_take_k2_k3(cuda, monkeypatch):
     la, ll = recursion.forward(init, A, E, 4)
     lb = recursion.backward(init, A, E, 4)
     assert dict(cuda_forward.LAUNCHES) == {"sum_chunk_summaries": 2, "sum_fwd_outputs": 1,
-                                           "beta_bwd_outputs": 1}
+                                           "beta_bwd_outputs": 1, "sum_forward_wide": 0,
+                                           "sum_backward_wide": 0}
     monkeypatch.setattr(recursion, "_use_kernels", lambda x: False)
     la_p, ll_p = recursion.forward(init, A, E, 4)
     lb_p = recursion.backward(init, A, E, 4)
@@ -1005,8 +1012,10 @@ def _protein_inputs(seed, m, b, L):
 def test_profile_config4_loglik_and_gradients_match_cpu(cuda):
     """Config 4's widths (5 models, q up to 155) at b = 4, L = 100: the
     log-likelihood and its gradients on the card equal those of a CPU copy
-    (scale-normalised 1e-4), the MAP loss's within 5e-3; no kernel launches
-    (the sequential engine at q > 16). The prior's hit term,
+    (scale-normalised 1e-4), the MAP loss's within 5e-3; of the kernels
+    only K2c and K3c launch (the sequential log-likelihood at 64 < q <=
+    512): K2c for the log-likelihood, and for each objective K2c for its
+    value and K2c and K3c in its VJP. The prior's hit term,
     ``(1e9 - 1) log(p_rf + p_t)``, has a gradient with respect to the end
     kernels proportional to ``1 - p_rf - p_t`` ~ 5e-5, which float32 gives
     to ~1e-3 on either device."""
@@ -1028,7 +1037,9 @@ def test_profile_config4_loglik_and_gradients_match_cpu(cuda):
         for a, b in zip(*grads):
             scale = float(b.abs().max()) or 1.0
             np.testing.assert_allclose(a.cpu().numpy() / scale, b.numpy() / scale, atol=atol)
-    for module in (cuda_forward, cuda_adjoint, cuda_viterbi, cuda_mxu):
+    assert cuda_forward.LAUNCHES == {"sum_chunk_summaries": 0, "sum_fwd_outputs": 0, "beta_bwd_outputs": 0,
+                                     "sum_forward_wide": 5, "sum_backward_wide": 2}
+    for module in (cuda_adjoint, cuda_viterbi, cuda_mxu):
         assert not any(module.LAUNCHES.values())
 
 
@@ -1111,7 +1122,8 @@ def test_data_route_runs_the_layer_kernels(cuda):
         path = routed.viterbi(X)
     loss = routed.posterior_cross_entropy(X, labels)
     g = torch.autograd.grad(loss, list(routed.parameters()))
-    assert cuda_forward.LAUNCHES == {"sum_chunk_summaries": 2, "sum_fwd_outputs": 2, "beta_bwd_outputs": 2}
+    assert cuda_forward.LAUNCHES == {"sum_chunk_summaries": 2, "sum_fwd_outputs": 2, "beta_bwd_outputs": 2,
+                                     "sum_forward_wide": 0, "sum_backward_wide": 0}
     assert cuda_adjoint.LAUNCHES == {"affine_chunk_composites": 1, "affine_reverse_outputs": 1}
     assert all(cuda_viterbi.LAUNCHES[k] == 1 for k in ("maxplus_chunk_summaries", "maxplus_deltas", "maxplus_backtrace"))
     with torch.inference_mode():

@@ -412,7 +412,7 @@ def test_new_modules_import_no_jax_and_no_cuda():
         "assert not any(m.startswith('hmm_layer_tpu') for m in sys.modules)\n"
         "assert not torch.cuda.is_initialized(), 'CUDA initialised at import'\n"
         "assert not _cuda_build._libs, 'kernels loaded at import'\n"
-        "assert set(_cuda_build.SOURCES) == {'sum_product', 'max_plus', 'affine', 'mxu', 'max_plus_wide'}\n"
+        "assert set(_cuda_build.SOURCES) == {'sum_product', 'max_plus', 'affine', 'mxu', 'max_plus_wide', 'sum_product_wide'}\n"
     )
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

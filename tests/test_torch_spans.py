@@ -48,6 +48,8 @@ STEP_PARENTS = {
     "hmm.layer.prior": "hmm.layer.loss",
     "hmm.train.backward": "hmm.train.step",
     "hmm.recursion.loglik_vjp": "hmm.train.backward",  # the CPU's backward runs on the calling thread
+    "hmm.recursion.loglik.alphas": ("hmm.recursion.loglik", "hmm.recursion.loglik_vjp"),
+    "hmm.recursion.loglik.betas": "hmm.recursion.loglik_vjp",
     "hmm.train.optimizer": "hmm.train.step",
     "hmm.train.log": None,
 }
