@@ -28,7 +28,12 @@ log-likelihood (m, b) and, when asked, log alpha (m, b, L, q)), and K3c,
 counted under ``sum_forward_wide`` and ``sum_backward_wide``. They replace
 no TPU kernel: the JAX package leaves those passes to ``lax.scan``; their
 plain versions are the scan's arithmetic, which ``recursion._forward_seq``
-and ``recursion._backward_seq`` run.
+and ``recursion._backward_seq`` run. The kernel picks its cut from q: A's
+columns in the shared memory of one block (q <= 160) or of a cluster of up
+to 8 (q <= 512); above that the register cut, 96 columns a block of a
+cluster of ceil(q / 96), a third of them in registers (q = 647: seven
+blocks, ~2.9 us a step of a cluster on an H100, a pass at m = 5, b = 64,
+L = 400 in ~6.8 ms).
 
 The kernels have no backward of their own: on CUDA each launch is wrapped
 in an ``autograd.Function`` whose backward raises, so no gradient is
@@ -66,8 +71,10 @@ __all__ = [
 KERNEL_MAX_Q = 16  # states a thread carries in registers (MAXQ in csrc)
 _TINY = 1e-30  # normaliser floor (no 0/0 in dead rows)
 # States of K2c/K3c: above the eager loop's q <= 64, up to the A that a
-# cluster of 8 blocks holds in shared memory (csrc/sum_product_wide.cu).
-MIN_WIDE_Q, MAX_WIDE_Q = 65, 512
+# cluster of 8 blocks holds on chip (csrc/sum_product_wide.cu): in shared
+# memory to q = 512, above that a third of each block's columns in
+# registers, 44 states a warp's slice (16 x 44 = 704).
+MIN_WIDE_Q, MAX_WIDE_Q = 65, 704
 
 LAUNCHES = {
     "sum_chunk_summaries": 0,
@@ -354,7 +361,7 @@ def _cuda_only(name, E):
 
 
 def sum_forward_wide(init, A, E, write_alpha: bool):
-    """K2c: the scaled sequential forward pass for 64 < q <= 512, as
+    """K2c: the scaled sequential forward pass for 64 < q <= 704, as
     :func:`sum_forward_wide_plain` within float32 rounding (the division
     by the scale follows the product; the sums run in another order).
 
@@ -395,7 +402,7 @@ def sum_forward_wide(init, A, E, write_alpha: bool):
 
 def sum_backward_wide(A, E):
     """K3c: log beta (m, b, L, q) of the scaled sequential backward pass
-    for 64 < q <= 512, as :func:`sum_backward_wide_plain` within float32
+    for 64 < q <= 704, as :func:`sum_backward_wide_plain` within float32
     rounding.
 
     Args:

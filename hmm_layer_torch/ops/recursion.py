@@ -23,7 +23,7 @@ combine are plain torch ops in both. At 16 < q <= 64 on CUDA,
 K7b/K8b whatever the ``parallel_factor``; at 16 < q <= 128 the summary
 pass of the log-likelihood, ``forward`` and ``backward`` runs K9
 (:mod:`.cuda_mxu`) when its opt-in gate ``HMM_PALLAS_MXU=1`` is set, as in
-the JAX package. At 64 < q <= 512 on CUDA the sequential log-likelihood
+the JAX package. At 64 < q <= 704 on CUDA the sequential log-likelihood
 (``parallel_factor == 1``) and its VJP run their passes through K2c and K3c
 (:func:`.cuda_forward.sum_forward_wide`, :func:`.cuda_forward.sum_backward_wide`),
 one launch a pass; the JAX package leaves those scans to XLA.
@@ -706,7 +706,9 @@ class _LoglikChunked(torch.autograd.Function):
 
 def _use_wide_loglik_kernels(E) -> bool:
     """K2c and K3c take the sequential log-likelihood and its VJP for a CUDA
-    float32 E at 64 < q <= ``cuda_forward.MAX_WIDE_Q``."""
+    float32 E at 64 < q <= ``cuda_forward.MAX_WIDE_Q`` (704): A in shared
+    memory to q = 512, the register cut above (the kernel picks the cut
+    from q; at q = 647, ~2.9 us a step on an H100)."""
     return (E.is_cuda and E.dtype == torch.float32
             and cuda_forward.MIN_WIDE_Q <= E.shape[-1] <= cuda_forward.MAX_WIDE_Q)
 
@@ -724,7 +726,9 @@ def _seq_passes(init, A, E):
 class _LoglikSeq(torch.autograd.Function):
     """Sequential log-likelihood with the analytic Baum-Welch VJP: one
     forward + one backward pass instead of a taped L-step scan. On CUDA at
-    64 < q <= 512 the passes are K2c and K3c (:func:`_seq_passes`). Under a
+    64 < q <= 704 the passes are K2c and K3c (:func:`_seq_passes`), one
+    launch each (a MAP step of learnMSA's q = 647 models: three launches of
+    ~6.8 ms for three 400-step loops of ~3,700 launches each). Under a
     profiler each forward pass opens the span
     ``hmm.recursion.loglik.alphas`` and the backward pass
     ``hmm.recursion.loglik.betas``."""
@@ -1200,7 +1204,7 @@ def log_likelihood(
     The training-loss path. Gradients are analytic Baum-Welch VJPs at every
     ``parallel_factor`` (chunked: :class:`_LoglikChunked`; sequential:
     :class:`_LoglikSeq`, one forward + one backward pass instead of a taped
-    scan, through K2c and K3c on CUDA at 64 < q <= 512). ``analytic_vjp=False`` at ``parallel_factor == 1`` differentiates
+    scan, through K2c and K3c on CUDA at 64 < q <= 704). ``analytic_vjp=False`` at ``parallel_factor == 1`` differentiates
     the sequential scan by autograd instead (forward-mode differentiation
     needs it).
     """
