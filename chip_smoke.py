@@ -109,9 +109,11 @@ csrc`` and imports nothing of JAX. Phases, each printed as it ends:
 12. The profile-HMM family (every item prints its launches of the
    kernels). K2c and K3c against their plain versions (within the float32
    log-scale bound) at the profile-m5-train cell's shape (config 4 below,
-   q padded to 155, b=64, L=400) and at config 5's (q=505, b=32, L=9999),
-   warm and cold, beside their bounds, K2c with and without log alpha, and
-   one MAP loss and backward of config 4 (K2c twice, K3c once). Config 4
+   q padded to 155, b=64, L=400), at the profile-m5-n320-train cell's
+   (lengths 318-322, q padded to 647: the register cut) and at config 5's
+   (q=505, b=32, L=9999), warm and cold, beside their bounds, K2c with and
+   without log alpha, and one MAP loss and backward of config 4 and of the
+   n320 family (K2c twice, K3c once each). Config 4
    (``benchmarks/profile_train_bench.py``):
    ``ProfileTransitions([60, 64, 68, 72, 76])`` + ``ProfileEmissions``
    (q up to 155), the port's default initializers from a seeded generator,
@@ -2589,6 +2591,9 @@ def sparse_phase(HMMLayer, models, make, recursion, counters, smi):
 
 # Config 4 (benchmarks/profile_train_bench.py): 5 models, q up to 155.
 PROFILE_LENGTHS = [60, 64, 68, 72, 76]
+# learnMSA's own model lengths at ~400 residues (q = 639-647, padded to
+# 647): the register cut of K2c/K3c, at config 4's batch and length.
+N320_LENGTHS = [318, 319, 320, 321, 322]
 PROFILE_B, PROFILE_L, PROFILE_S = 64, 400, 26
 PROFILE_STEPS, PROFILE_LR = 5, 0.05  # align's default learning rate
 # The planted family of benchmarks/msa_quality_bench.py.
@@ -2598,13 +2603,13 @@ OUR_KERNEL_KEYS = ("chunk_summaries", "outputs_kernel", "affine_", "deltas", "ba
                    "sum_wide_kernel")
 
 
-def build_config4(HMMLayer, models, structured_forward=False):
-    """Config 4 with the port's default initializers drawn from a seeded
-    generator."""
+def build_config4(HMMLayer, models, structured_forward=False, lengths=PROFILE_LENGTHS):
+    """Config 4 (or its family at other model lengths) with the port's
+    default initializers drawn from a seeded generator."""
     gen = torch.Generator().manual_seed(SEED + 4)
     return HMMLayer(
-        models.ProfileTransitions(PROFILE_LENGTHS, generator=gen, structured_forward=structured_forward),
-        models.ProfileEmissions(PROFILE_LENGTHS, input_dim=PROFILE_S),
+        models.ProfileTransitions(lengths, generator=gen, structured_forward=structured_forward),
+        models.ProfileEmissions(lengths, input_dim=PROFILE_S),
         use_prior=True,
         num_seqs=1000,
         parallel_factor="auto",
@@ -2620,15 +2625,20 @@ def profile_inputs(seed, b, length, m, device):
 
 def wide_sum_kernel_phase(HMMLayer, models, make, cuda_forward, peak_bytes, peak_flops):
     """K2c and K3c against their plain versions at the profile-m5-train
-    cell's shape (config 4: m=5, q=155 padded, b=64, L=400; the records)
-    and at config 5's (q=505, b=32, L=9999), warm and cold, beside their
-    bounds; K2c with log alpha (the VJP's rerun) and without (the loss).
-    Then one MAP loss and backward of config 4: K2c twice, K3c once.
-    Returns (records, launches of that step)."""
+    cell's shape (config 4: m=5, q=155 padded, b=64, L=400; the records),
+    at the profile-m5-n320-train cell's (n320: lengths 318-322, q=647
+    padded, the register cut) and at config 5's (q=505, b=32, L=9999),
+    warm and cold, beside their bounds; K2c with log alpha (the VJP's
+    rerun) and without (the loss). Then one MAP loss and backward of
+    config 4 and of n320: K2c twice, K3c once each. Returns (records,
+    launches of config 4's step)."""
     records = {}
     c4 = build_config4(HMMLayer, models)
+    n320 = build_config4(HMMLayer, models, lengths=N320_LENGTHS)
+    profile_x = profile_inputs(SEED + 140, PROFILE_B, PROFILE_L, len(PROFILE_LENGTHS), c4.device)
     shapes = (
-        ("config 4", c4, profile_inputs(SEED + 140, PROFILE_B, PROFILE_L, len(PROFILE_LENGTHS), c4.device)),
+        ("config 4", c4, profile_x),
+        ("n320", n320, profile_x),
         ("config 5", build_multicopy_layer(HMMLayer, models, WIDE_K), make(SEED + 141, B, L)),
     )
     for tag, layer, X in shapes:
@@ -2678,16 +2688,16 @@ def wide_sum_kernel_phase(HMMLayer, models, make, cuda_forward, peak_bytes, peak
             ll_ms = median_ms(lambda: cuda_forward.sum_forward_wide(init, A, E, False), samples=20, reps=reps)
             log(f"phase 12 sum_forward_wide {tag} without log alpha (the loss's pass): {ll_ms:.4f} ms")
         del E
-    X = shapes[0][2]
-    pars = [p for p in c4.parameters() if p.requires_grad]
-    cuda_forward.reset_launches()
-    grads = torch.autograd.grad(c4.loss(X), pars)
-    torch.cuda.synchronize()
-    launches = dict(cuda_forward.LAUNCHES)
-    log(f"phase 12 config 4 MAP loss and backward: launches {launches}")
-    expect(launches, sum_forward_wide=2, sum_backward_wide=1)
-    if not all(bool(torch.isfinite(g).all()) for g in grads):
-        raise AssertionError("config 4 MAP step through K2c/K3c: gradients not finite")
+    for tag, layer in (("n320", n320), ("config 4", c4)):
+        pars = [p for p in layer.parameters() if p.requires_grad]
+        cuda_forward.reset_launches()
+        grads = torch.autograd.grad(layer.loss(profile_x), pars)
+        torch.cuda.synchronize()
+        launches = dict(cuda_forward.LAUNCHES)
+        log(f"phase 12 {tag} MAP loss and backward: launches {launches}")
+        expect(launches, sum_forward_wide=2, sum_backward_wide=1)
+        if not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"{tag} MAP step through K2c/K3c: gradients not finite")
     return records, launches
 
 
@@ -4338,6 +4348,18 @@ def device_and_build(_cuda_build):
     log(f"phase 2 build: {time.perf_counter() - t0:.1f} s "
         f"({', '.join(path.name for path in built.values())})")
     return kind, smi, peak_bytes, peak_flops
+
+
+def develop_phase12():
+    """Phases 1, 2 and phase 12's K2c/K3c checks alone, for development on
+    the card: ``python3 -c "import chip_smoke; chip_smoke.develop_phase12()"``.
+    Prints the phase's lines, not the kernel record: only ``main`` does."""
+    from hmm_layer_torch import HMMLayer, models
+    from hmm_layer_torch.ops import _cuda_build, cuda_forward
+
+    _, _, peak_bytes, peak_flops = device_and_build(_cuda_build)
+    make = lambda seed, b, length: make_inputs(seed, b, length, torch.device("cuda"))  # noqa: E731
+    wide_sum_kernel_phase(HMMLayer, models, make, cuda_forward, peak_bytes, peak_flops)
 
 
 def develop_phase13():

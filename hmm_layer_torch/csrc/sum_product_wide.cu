@@ -91,7 +91,9 @@
 // when the block's own mbarrier has counted the whole carry and every
 // partial scale of the step before (a block that holds them knows that
 // every block has read the buffer they replace), and the output, the
-// log-scale and the next emission follow the stores, off the chain.
+// log-scale and the next emission follow the stores, off the chain. A wait
+// that outlasts MAX_POLLS polls traps (mbar_wait): bytes miscounted fail
+// the launch instead of hanging the card.
 // Measured on an H100 (clock64 and CUDA events; us a step of K2c / K3c at
 // q = 155, b = 64, m = 5, L = 400, and at q = 505, b = 32, L = 9,999): a
 // first version with a warp a 32-column chunk, 4 warps reducing the scale
@@ -117,8 +119,9 @@
 // mbarriers' counted stores in place of the barrier, 7.36 / 7.62 (3.1:
 // the stores, 14 instructions a warp to 7 blocks, ~1,350 cycles); this
 // one, 6.73 / 6.88 (2.9: product ~3,250 cycles, owners ~1,250, the wait
-// ~500). The product is bound by issue: 12 FMAs a state and lane on 704
-// padded rows, 2,112 cycles of FMAs a step.
+// ~500; with the bounded wait, chip_smoke.py phase 12: 6.79 / 6.92). The
+// product is bound by issue: 12 FMAs a state and lane on 704 padded rows,
+// 2,112 cycles of FMAs a step.
 //
 // Each entry point returns cudaGetLastError() after its launch; the Python
 // wrapper raises if it is not cudaSuccess. Launches go to the caller's
@@ -147,6 +150,9 @@ constexpr int RS = 44;               // the register cut: states of a warp's sli
 // pair, and 16 warps at least (the product's slices of the input states).
 __host__ __device__ constexpr int warps_of(int cc) { return G * cc > 16 ? G * cc : 16; }
 static_assert(warps_of(3) * RS >= MAX_WIDE_Q, "the register cut's slices cover every state");
+// The register cut's stores (publish): lane h of a column stores its carry
+// into blocks h and h + 4, lane r < n the partial scales into block r.
+static_assert(MAX_CLUSTER <= 2 * G, "two carry stores a lane cover the cluster");
 
 // Distributed shared memory for the register cut: the 32-bit
 // shared::cluster address of a local shared-memory word in block rank's
@@ -172,11 +178,15 @@ __device__ __forceinline__ void mbar_expect(unsigned long long* bar, unsigned by
                :: "r"((unsigned)__cvta_generic_to_shared(bar)), "r"(bytes) : "memory");
 }
 // Until the phase of this parity has completed; what the peers stored in it
-// is then visible.
+// is then visible. A phase that has not completed after MAX_POLLS polls
+// (seconds; a step waits a few) was armed for bytes that never come: the
+// kernel traps, and the launch fails where it would have hung the card.
+constexpr unsigned MAX_POLLS = 1u << 26;
 __device__ __forceinline__ void mbar_wait(unsigned long long* bar, unsigned parity) {
   const unsigned addr = (unsigned)__cvta_generic_to_shared(bar);
   unsigned done = 0;
-  while (!done) {
+  for (unsigned polls = 0; !done; ++polls) {
+    if (polls == MAX_POLLS) __trap();
     asm volatile("{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
                  " selp.u32 %0, 1, 0, p;\n}"
                  : "=r"(done) : "r"(addr), "r"(parity) : "memory");

@@ -246,7 +246,7 @@ def test_the_cell_runs_tiny_on_the_cpu():
 
 
 @pytest.mark.gpu
-def test_q647_map_step_takes_the_plain_passes_on_the_card():
+def test_q647_map_step_takes_k2c_k3c_on_the_card():
     """On the card, inside K2c/K3c's q <= 704: one MAP step launches K2c
     twice and K3c once and opens ``.alphas`` twice and ``.betas`` once; the first
     ``Trainer.fit`` steps agree with the reference within the CPU bounds."""
